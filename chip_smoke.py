@@ -4,24 +4,33 @@
     python3 chip_smoke.py
 
 Phases, each timed, any failure fatal (exit code != 0, no result line):
-  1. environment and the kernels' build (nvcc, one process per source);
-  2. each kernel against its plain PyTorch version at the main path's
-     shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens) plus a
-     ragged shape and a k_lens/window case, bar 2*2^-8*max|plain| (bf16),
-     with kernel, plain, library-yardstick and bound times;
-  3. the slice end to end: a full-width Wan2.1-1.3B + GeoAdapter pipeline
-     with umT5-xxl and the Wan VAE from random weights serves two generate
-     requests (480x832x81, 3 UniPC steps, CFG 5) through the serving
-     mapping; the launch counters must read 45 per step per flavor, and the
-     DiT on the card must agree with the same DiT on the CPU at a small
-     input;
+  1. environment and the kernels' build (nvcc, one process per source, all
+     started together);
+  2. each kernel against its plain PyTorch version at the main paths'
+     shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
+     training path's self 32,760 and cross 32,760 x 512 head-major shapes)
+     plus a ragged shape and a k_lens/window case, bar 2*2^-8*max|plain|
+     (bf16), with kernel, plain, library-yardstick and bound times;
+  3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
+     pipeline with umT5-xxl and the Wan VAE from random weights serves two
+     generate requests (480x832x81, 3 UniPC steps, CFG 5) through the
+     serving mapping; the launch counters must read 45 per step per fused
+     flavor, and the DiT on the card must agree with the same DiT on the CPU
+     at a small input;
   4. one timed batched-CFG denoise step at 480x832x81, then the same step
      under torch.profiler: device time by kernel and the device's idle
-     share.
+     share;
+  5. the training path: GeoAdapter-only training of the full-width
+     Wan2.1-1.3B + GeoAdapter at 480x832x81, batch 1: loss and gradients on
+     the card against the CPU at 192 tokens, a warm-up and two timed steps
+     (finite losses, every trainable leaf moved, every frozen leaf
+     unchanged, launch counts as derived from the model), peak memory, and
+     one step under torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -35,8 +44,22 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 BF16_BAR = 2 * 2.0 ** -8
-TPU_KERNEL = "versecrafter_tpu/kernels/flash_attention.py:800"
-KERNEL_SOURCE = "versecrafter_tpu_torch/csrc/fused_attention.cu"
+TPU_KERNELS = {
+    "fused_rope_rms_attention": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "fused_rms_cross_attention": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "flash_attention": "versecrafter_tpu/kernels/flash_attention.py:363",
+    "fa_backward_dq": "versecrafter_tpu/kernels/flash_attention_bwd.py:100",
+    "fa_backward_dkv": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
+}
+SOURCES = {
+    "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "fused_rms_cross_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "flash_attention": "versecrafter_tpu_torch/csrc/flash_attention.cu",
+    "fa_backward_dq": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fa_backward_dkv": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
+}
+TRAIN_STEPS = 3  # a warm-up step and two timed ones
+TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
 STEPS = 3
 FRAMES_E2E = 81
 
@@ -125,10 +148,7 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
             + (rq.numel() + rk.numel() + gqv.numel() + gkv.numel()) * 4 \
             + ((ci.numel() + si.numel()) * 2 if rope else 0)
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        rec["bound_ms"] = max(t_ops, t_bytes)
-        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
         log(f"    ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.1f} "
             f"library_ms={rec['library_ms']:.3f} bound_ms={rec['bound_ms']:.3f} "
             f"({rec['bound_by']}: {flops:.3e} FLOP, {nbytes / 1e9:.3f} GB) "
@@ -136,6 +156,127 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
     del q, k, v, got, ref
     torch.cuda.empty_cache()
     return rec
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it): the larger of the operations over the
+    bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def host_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def visible_pairs(Sq, Skv, window, k_lens, B):
+    """(query, key) pairs each batch element's rows can see, summed over the
+    batch: the work the kernels' tile skip leaves (masked elements of a
+    partial tile are still computed, so this is the least work)."""
+    i = torch.arange(Sq)[:, None]
+    j = torch.arange(Skv)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool)
+    if window[0] >= 0:
+        ok &= j >= i - window[0]
+    if window[1] >= 0:
+        ok &= j <= i + window[1]
+    lens = k_lens if k_lens is not None else (Skv,) * B
+    return sum(int(ok[:, :min(n, Skv)].sum()) for n in lens)
+
+
+def agree(name, got, ref):
+    err = (got.float() - ref.float()).abs().max().item()
+    mx = ref.float().abs().max().item()
+    ok = math.isfinite(err) and err <= BF16_BAR * mx
+    log(f"    {name}: max_abs_err={err:.4g} bar={BF16_BAR * mx:.4g} "
+        f"(max|plain|={mx:.4g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
+                timed=False, seed=0):
+    """The plain flash-attention forward (both flavors) and the dQ and dK/dV
+    kernels against their plain versions on the same inputs; with `timed`,
+    kernel, plain, SDPA and bound times. Returns the three kernels' records."""
+    D = fa.HEAD_DIM
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # a q scale of 2 gives peaked softmax rows (outputs O(1))
+    q = (2.0 * torch.randn(B, N, Sq, D, generator=g, device=dev)).to(torch.bfloat16)
+    k, v = (torch.randn(B, N, Skv, D, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn(B, N, Sq, D, generator=g, device=dev).to(torch.bfloat16)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    sm = D ** -0.5
+    log(f"  flash B={B} N={N} Sq={Sq} Skv={Skv} window={window} k_lens={k_lens}")
+    out, m, l = fa._fa_forward(q, k, v, kl, sm, window, True)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, kl, sm, window, stats=True)
+    rec_f = {"max_abs_err": agree("forward (stats)", out, ref[0])}
+    seen = ref[2] > 0
+    if not (torch.equal(l > 0, seen)
+            and torch.allclose(m[seen], ref[1][seen], rtol=1e-4, atol=1e-4)
+            and torch.allclose(l, ref[2], rtol=1e-3, atol=0)):
+        raise AssertionError("flash attention m/l disagree with the plain version")
+    inf = fa._fa_forward(q, k, v, kl, sm, window, False)
+    rec_f["max_abs_err"] = max(rec_f["max_abs_err"], agree(
+        "forward (inference)", inf, fa.flash_attention_plain(q, k, v, kl, sm, window)))
+    del ref, inf
+    qs, L, delta = fab.backward_preamble(q, out, m, l, do, sm)
+    dq, dk, dv = fab.fa_backward(q, k, v, out, m, l, do, kl, sm, window)
+    torch.cuda.synchronize()
+    pdq, pdk, pdv = fab.fa_backward_plain(qs, k, v, do, L, delta, kl, sm, window)
+    rec_q = {"max_abs_err": agree("dQ", dq, pdq)}
+    rec_kv = {"max_abs_err": max(agree("dK", dk, pdk), agree("dV", dv, pdv))}
+    del pdq, pdk, pdv
+    if timed:
+        pairs = visible_pairs(Sq, Skv, window, k_lens, B) * N
+        io = (q.numel() + k.numel() + v.numel()) * 2
+        rec_f["ms"] = cuda_ms(lambda: fa._fa_forward(q, k, v, kl, sm, window, True), 5)
+        ms_inf = cuda_ms(lambda: fa._fa_forward(q, k, v, kl, sm, window, False), 5)
+        rec_f["plain_ms"] = host_ms(
+            lambda: fa.flash_attention_plain(q, k, v, kl, sm, window, stats=True))
+        rec_q["ms"] = cuda_ms(lambda: fab._launch(
+            qs, k, v, do, L, delta, kl, sm, window, True, False), 5)
+        rec_kv["ms"] = cuda_ms(lambda: fab._launch(
+            qs, k, v, do, L, delta, kl, sm, window, False, True), 5)
+        rec_q["plain_ms"] = host_ms(lambda: fab.fa_backward_plain(
+            qs, k, v, do, L, delta, kl, sm, window, True, False))
+        rec_kv["plain_ms"] = host_ms(lambda: fab.fa_backward_plain(
+            qs, k, v, do, L, delta, kl, sm, window, False, True))
+        # yardsticks only (the port never calls SDPA): forward, and the
+        # backward timed alone as one figure for dQ and dK/dV together
+        rec_f["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=sm), 5)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, scale=sm)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do,
+                                                      retain_graph=True), 5)
+        rec_q["library_ms"] = rec_kv["library_ms"] = lib_bwd
+        del o_sdpa, qg, kg, vg
+        stats_io = 2 * B * N * Sq * 4
+        for rec, products, nbytes in (
+                (rec_f, 2, io + out.numel() * 2 + stats_io),
+                (rec_q, 3, io + do.numel() * 2 + stats_io + dq.numel() * 2),
+                (rec_kv, 4, io + do.numel() * 2 + stats_io + (dk.numel() + dv.numel()) * 2)):
+            rec["bound_ms"], rec["bound_by"] = bound(2 * products * pairs * D, nbytes)
+        log(f"    forward stats {rec_f['ms']:.3f} ms, inference {ms_inf:.3f} ms, "
+            f"plain {rec_f['plain_ms']:.1f} ms, SDPA {rec_f['library_ms']:.3f} ms, "
+            f"bound {rec_f['bound_ms']:.3f} ms ({rec_f['bound_by']})")
+        log(f"    dQ {rec_q['ms']:.3f} ms (plain {rec_q['plain_ms']:.1f}, bound "
+            f"{rec_q['bound_ms']:.3f}); dK/dV {rec_kv['ms']:.3f} ms (plain "
+            f"{rec_kv['plain_ms']:.1f}, bound {rec_kv['bound_ms']:.3f}); SDPA backward "
+            f"{lib_bwd:.3f} ms for both")
+        rec_f["inference_ms"] = ms_inf
+    del q, k, v, do, out, m, l, qs, L, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"flash_attention": rec_f, "fa_backward_dq": rec_q, "fa_backward_dkv": rec_kv}
 
 
 def randomize_zero_inits(params, dev, seed=7):
@@ -190,12 +331,125 @@ def profile_step(step, step_ms, card):
         log(f"  {us / 1e3:9.1f} ms {100 * us / 1e3 / busy_ms:5.1f}% x{n:<4d} {name[:100]}")
 
 
+def train_phase(fa, fab, dev, card):
+    """Phase 5: GeoAdapter-only training of the full-width Wan2.1-1.3B +
+    GeoAdapter at 480x832x81, batch 1 (bf16, AdamW lr 1e-4 wd 1e-2, remat):
+    the card's loss and gradients against the CPU's at 192 tokens, then a
+    warm-up step and two timed steps with their launch counts, and one step
+    under the profiler. Returns the new kernels' launches over the steps."""
+    from versecrafter_tpu_torch.cli.train import default_config, unzero_head
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin, rope_3d_angles
+    from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
+    from versecrafter_tpu_torch.parallel.train_step import (
+        attention_launches_per_step, flow_matching_loss, make_optimizer,
+        make_train_step, split_trainable, tree_leaves)
+    from versecrafter_tpu_torch.sampling.pipeline import _to_device
+
+    t0 = time.perf_counter()
+    cfg = default_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = unzero_head(init_wan_dit(cfg, gen, torch.bfloat16), 7)
+    # the GeoAdapter's zero-init projections would give zero gradients to
+    # everything but after_proj on the first step
+    randomize_zero_inits(params, dev, seed=8)
+    train, frozen = split_trainable(params)
+    n_train = sum(t.numel() for t in tree_leaves(train))
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    log(f"[train] Wan2.1-1.3B + GeoAdapter ({len(params['geoada_blocks'])} blocks) "
+        f"built in {time.perf_counter() - t0:.1f} s: {n_all / 1e9:.3f}B params, "
+        f"{n_train / 1e6:.1f}M trainable")
+
+    # the card against the CPU at 192 tokens: one loss and its gradients
+    g = torch.Generator(device=dev).manual_seed(9)
+    small = [torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+             for shape in ((1, 16, 3, 16, 16), (1, 512, cfg.text_dim),
+                           (1, 128, 3, 16, 16), (1, 16, 3, 16, 16))]
+    sig = torch.tensor([0.6], device=dev)
+    ang = rope_3d_angles(cfg.head_dim)
+    cos, sin = grid_cos_sin(ang, 3, 8, 8, device=dev)
+
+    def loss_and_grads(p, tr, device):
+        x0, ctx, geo, noise = (t.to(device) for t in small)
+        loss = flow_matching_loss(p, cfg, x0, ctx, cos.to(device), sin.to(device),
+                                  geo, sig.to(device), noise)
+        loss.backward()
+        grads = torch.cat([t.grad.float().flatten().cpu() for t in tree_leaves(tr)])
+        for t in tree_leaves(tr):
+            t.grad = None
+        return loss.item(), grads
+
+    loss_gpu, grads_gpu = loss_and_grads(params, train, dev)
+    cpu_params = _to_device(params, "cpu")
+    cpu_train, _ = split_trainable(cpu_params)
+    loss_cpu, grads_cpu = loss_and_grads(cpu_params, cpu_train, "cpu")
+    del cpu_params, cpu_train
+    rel_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    rel_grad = ((grads_gpu - grads_cpu).abs().max() / grads_cpu.abs().max()).item()
+    log(f"[train] card vs CPU at 192 tokens (bf16, {len(params['blocks'])} + "
+        f"{len(params['geoada_blocks'])} blocks): loss {loss_gpu:.6f} vs "
+        f"{loss_cpu:.6f} (rel {rel_loss:.3g}), GeoAdapter grads rel err {rel_grad:.4g} "
+        f"(max|grad| {grads_cpu.abs().max().item():.4g}), bar 5e-2")
+    if not (rel_loss <= 5e-2 and rel_grad <= 5e-2 and torch.isfinite(grads_gpu).all()
+            and grads_cpu.abs().max().item() > 0):
+        raise AssertionError("training on the card disagrees with the CPU reference")
+    del grads_gpu, grads_cpu, small
+
+    # latents 16x21x60x104, control latents 128x21x60x104, text context
+    # 512x4096
+    f, h, w = TRAIN_GRID
+    x0 = torch.randn(1, 16, f, 2 * h, 2 * w, generator=g, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, 128, f, 2 * h, 2 * w, generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device=dev).to(torch.bfloat16)
+    cos, sin = grid_cos_sin(ang, f, h, w, device=dev)
+    step_fn = make_train_step(cfg, make_optimizer(train, 1e-4, 1e-2), gen)
+    train_before = [t.detach().clone() for t in tree_leaves(train)]
+    frozen_before = [t.detach().clone() for t in tree_leaves(frozen)]
+
+    def step():
+        return step_fn(params, x0, ctx, cos, sin, geo)
+
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES}
+    want = {k: TRAIN_STEPS * n for k, n in attention_launches_per_step(cfg).items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] {f}x{h}x{w} token grid ({f * h * w} tokens) batch-1 train steps: "
+        f"{' '.join(f'{t:.1f}' for t in times)} ms (first is the warm-up) on {card}; "
+        f"losses {' '.join(f'{x:.5f}' for x in losses)}; peak {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log(f"[train] launches over {TRAIN_STEPS} steps {counts}, derived {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if counts != want:
+        raise AssertionError(f"training launch counts {counts} != {want}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(train_before, tree_leaves(train)))
+    if moved != len(train_before):
+        raise AssertionError(f"{len(train_before) - moved} trainable leaves did not move")
+    if not all(torch.equal(a, b) for a, b in zip(frozen_before, tree_leaves(frozen))):
+        raise AssertionError("a frozen leaf changed")
+    log(f"[train] all {moved} trainable leaves moved; all "
+        f"{len(frozen_before)} frozen leaves bit-identical")
+    del train_before, frozen_before
+    profile_step(step, min(times[1:]), card)
+    log(f"[train] {time.perf_counter() - t0:.1f} s")
+    return {k: counts[k] for k in ("flash_attention", "fa_backward_dq", "fa_backward_dkv")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from versecrafter_tpu_torch.kernels import _build
     from versecrafter_tpu_torch.kernels import flash_attention as fa
+    from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
     from versecrafter_tpu_torch.serve.model_server import (
         _call_pipe, default_pipeline_factory)
     from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
@@ -226,6 +480,14 @@ def main() -> int:
         check_kernel(fa, name, 2, 520, 77 if ctx_len else 520, 12, dev)
     check_kernel(fa, "fused_rope_rms_attention", 2, 520, 520, 2, dev,
                  window=(64, 32), k_lens=(300, 0))
+    # the training path's shapes: self 32,760 and cross 32,760 x 512, batch 1
+    records.update(check_flash(fa, fab, 1, 12, 32760, 32760, dev, timed=True))
+    cross = check_flash(fa, fab, 1, 12, 32760, 512, dev, timed=True)
+    for name, rec in cross.items():  # the cross shape's numbers ride along
+        records[name].update({f"cross_{k_}": v for k_, v in rec.items()
+                              if k_ in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    check_flash(fa, fab, 2, 2, 520, 520, dev)
+    check_flash(fa, fab, 2, 2, 520, 520, dev, window=(64, 32), k_lens=(300, 0))
     log(f"[parity] {time.perf_counter() - t0:.1f} s")
 
     # -- 3. the slice end to end -----------------------------------------
@@ -245,6 +507,7 @@ def main() -> int:
                                         ("a dog runs across a snowy field", 12))):
         controls, mask = synth_request(n, h, w, seed)
         fa.reset_launch_counts()
+        fab.reset_launch_counts()
         t1 = time.perf_counter()
         video = _call_pipe(pipe, {"prompt": prompt, "negative_prompt": "blurry",
                                   "num_inference_steps": STEPS, "guidance_scale": 5.0,
@@ -260,9 +523,10 @@ def main() -> int:
             raise AssertionError(f"bad output {video.shape} {video.dtype}")
         if float(video.std()) == 0.0:
             raise AssertionError("constant output video")
-        want = 45 * STEPS
-        if any(c != want for c in counts.values()):
-            raise AssertionError(f"launch counts {counts} != {want} per flavor")
+        want = {"fused_rope_rms_attention": 45 * STEPS,
+                "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
+        if counts != want or any(fab.LAUNCHES.values()):
+            raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} != {want}")
     log(f"[e2e] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
@@ -315,15 +579,23 @@ def main() -> int:
         f"(45 x each flavor); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase {time.perf_counter() - t0:.1f} s")
     profile_step(step, min(times), card)
+    del pipe, lat, geo, ctx, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. GeoAdapter training at 480x832x81 ----------------------------
+    launches_main.update(train_phase(fa, fab, dev, card))
 
     kernels = []
     for name, rec in records.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": launches_main[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": launches_main[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            **{k_: v for k_, v in rec.items()
+               if k_.startswith("cross_") or k_ == "inference_ms"}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (fused attention, plain flash attention and its
+FA2 backward) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. This
 module imports no JAX, so on a GPU machine without JAX it runs with the
@@ -93,3 +94,127 @@ def test_kernel_rejects_what_it_cannot_take(dev):
                                      num_heads=N)
     with pytest.raises(ValueError):  # head_dim 64
         fa.fused_rms_cross_attention(q, k, v, gq, gk, num_heads=2 * N)
+
+
+# ---------------------------------------------------------------------------
+# plain flash attention (both flavors) and the FA2 backward kernels
+# ---------------------------------------------------------------------------
+
+def _head_major(dev, B, N, Sq, Skv, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=dev).to(torch.bfloat16)
+
+    # a q scale of 2 gives peaked softmax rows (outputs O(1))
+    return (t((B, N, Sq, fa.HEAD_DIM), 2.0), t((B, N, Skv, fa.HEAD_DIM)),
+            t((B, N, Skv, fa.HEAD_DIM)), t((B, N, Sq, fa.HEAD_DIM)))
+
+
+FA_CASES = [  # (B, N, Sq, Skv, window, k_lens)
+    (2, 2, 520, 520, (-1, -1), None),
+    (2, 2, 520, 520, (64, 32), (300, 0)),
+    (1, 2, 520, 520, (-1, 0), None),
+    (2, 2, 700, 77, (-1, -1), None),
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("stats", [True, False])
+def test_flash_forward_matches_plain(dev, case, stats):
+    B, N, Sq, Skv, window, k_lens = case
+    q, k, v, _ = _head_major(dev, B, N, Sq, Skv)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa._fa_forward(q, k, v, kl, fa.HEAD_DIM ** -0.5, window, stats)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    ref = fa.flash_attention_plain(q, k, v, kl, fa.HEAD_DIM ** -0.5, window, stats=stats)
+    got, ref = (got, ref) if stats else ((got,), (ref,))
+    err, mx = _err(got[0], ref[0])
+    assert err <= BF16_BAR * mx, (err, mx)
+    if stats:  # m, l fp32: only the summation order differs
+        seen = ref[2] > 0
+        assert torch.equal(got[2] > 0, seen)
+        assert torch.allclose(got[1][seen], ref[1][seen], rtol=1e-5, atol=1e-5)
+        assert torch.allclose(got[2], ref[2], rtol=1e-4, atol=0)
+        assert (got[1][~seen] == fa.NEG_INF).all()
+    if k_lens is not None:  # a batch element that sees no key writes zeros
+        assert got[0][1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_backward_kernels_match_plain(dev, case):
+    from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
+    B, N, Sq, Skv, window, k_lens = case
+    q, k, v, do = _head_major(dev, B, N, Sq, Skv, seed=1)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    sm = fa.HEAD_DIM ** -0.5
+    out, m, l = fa.flash_attention_plain(q, k, v, kl, sm, window, stats=True)
+    qs, L, delta = fab.backward_preamble(q, out, m, l, do, sm)
+    before = dict(fab.LAUNCHES)
+    got = fab.fa_backward(q, k, v, out, m, l, do, kl, sm, window)
+    torch.cuda.synchronize()
+    assert fab.LAUNCHES["fa_backward_dq"] == before["fa_backward_dq"] + 1
+    assert fab.LAUNCHES["fa_backward_dkv"] == before["fa_backward_dkv"] + 1
+    ref = fab.fa_backward_plain(qs, k, v, do, L, delta, kl, sm, window)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        err, mx = _err(g, r)
+        assert err <= BF16_BAR * mx, (name, err, mx)
+    if k_lens is not None:  # keys past k_len get exactly zero dK/dV
+        for g in got[1:]:
+            assert g[0, :, k_lens[0]:].abs().max().item() == 0.0
+            assert g[1].abs().max().item() == 0.0
+    # no atomics: a second run is bit-identical
+    again = fab.fa_backward(q, k, v, out, m, l, do, kl, sm, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", FA_CASES[:3])
+def test_autograd_path_matches_plain_path(dev, case):
+    """Gradients through the kernels (card) against the same autograd graph
+    through the plain versions (CPU), on the same bf16 inputs."""
+    B, N, Sq, Skv, window, k_lens = case
+    q, k, v, w = _head_major(dev, B, N, Sq, Skv, seed=2)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32)
+
+    def grads(device):
+        ins = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*ins, k_lens=None if kl is None else kl.to(device),
+                                 window_size=window)
+        (out.float() * w.to(device).float()).sum().backward()
+        return [out] + [t.grad for t in ins]
+
+    got, ref = grads(dev), grads("cpu")
+    for g, r, name in zip(got, ref, ("out", "dq", "dk", "dv")):
+        err, mx = _err(g.cpu(), r)
+        assert err <= BF16_BAR * mx, (name, err, mx)
+
+
+def test_fused_functions_route_grad_through_flash_kernels(dev):
+    from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
+    q, k, v, gq, gk, cos, sin, N = _inputs(dev, S=260)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    out = fa.fused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads=N)
+    out = out + fa.fused_rms_cross_attention(out, k.detach()[:, :77], v.detach()[:, :77],
+                                             gq, gk, num_heads=N)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"fused_rope_rms_attention": 0, "fused_rms_cross_attention": 0,
+                           "flash_attention": 2}
+    # cross K/V come from a detached context: dQ only for the cross call
+    assert fab.LAUNCHES == {"fa_backward_dq": 2, "fa_backward_dkv": 1}
+    for t in (q, k, v):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max().item() > 0
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(dev):
+    q, k, v, _ = _head_major(dev, 1, 2, 128, 128)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):  # head_dim 64
+        fa.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                           v[..., :64].contiguous())

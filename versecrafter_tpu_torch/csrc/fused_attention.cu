@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int D = 128;          // head_dim (the wrapper checks it)
@@ -51,7 +53,6 @@ constexpr int NTHREADS = 32 * BM / (16 * MT);  // 4 warps of 32 q rows
 constexpr int LDS = D + 8;      // padded shared-memory row, in bf16 elements
 constexpr int CHUNKS = D / 8;   // 16-byte chunks per row
 constexpr size_t SMEM_BYTES = size_t(BM + 4 * BN) * LDS * sizeof(__nv_bfloat16);  // Q + 2 x (K~, V)
-constexpr float NEG_INF = -0.7f * 3.40282346638528859812e+38f;
 
 struct Params {
   const __nv_bfloat16 *q, *k, *v;  // k: the transformed K~ rows
@@ -62,11 +63,6 @@ struct Params {
   __nv_bfloat16 *out;            // [B, Sq, N*D]
   int Sq, Skv, N, wl, wr;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 8 consecutive channels of one row: fp32 (x * rstat) * g, optional RoPE,
 // one rounding to bf16, 16-byte store into shared memory. Invalid rows
@@ -109,52 +105,6 @@ __device__ __forceinline__ void transform_chunk(
     res.w = pack_bf16(f[6], f[7]);
   }
   *reinterpret_cast<uint4*>(dst) = res;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(const __nv_bfloat16* p,
-                                                  uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(const __nv_bfloat16* p, uint32_t& r0,
-                                            uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// 16-byte async global->shared copy; an invalid row is zero-filled (a zero
-// V row keeps 0 * garbage = NaN out of PV).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Prepass: K~ = bf16(norm (+ rope)(K)) for every row, one 16-byte chunk per

@@ -4,7 +4,8 @@ Each ``versecrafter_tpu_torch/csrc/<name>.cu`` compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``versecrafter_tpu_torch/build/<name>-<source hash>.so`` (git-ignored),
 exposing a plain C interface — no PyTorch headers, so a build takes seconds.
-A library whose source hash matches is reused; a changed source builds anew.
+Shared device helpers live in ``csrc/*.cuh``; the hash covers them too. A
+library whose hash matches is reused; a changed source builds anew.
 """
 
 from __future__ import annotations
@@ -41,9 +42,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """The library's path, named by a hash of its source, every shared
+    csrc/*.cuh header (a changed header rebuilds every library) and the
+    flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            h.update(f.encode() + b"\0" + src.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str, verbose: bool = False) -> str:

@@ -1,16 +1,27 @@
-"""Fused qk-RMSNorm (+ RoPE) attention: the CUDA kernel's wrappers, its
-plain PyTorch version, and the attention reference math.
+"""Attention kernels' wrappers, their plain PyTorch versions, and the
+attention reference math.
 
-Both fused flavors take the RAW q/k/v projections in their flat
-[B, S, N*D] layout. The per-row RMS statistic spans all heads, so the
-wrapper computes it outside the kernel (rq = rsqrt(mean(q^2)+eps) *
-sm_scale * log2(e), rk likewise without the scale); the per-head norm scale
-and the RoPE rotation run inside the kernel's tile prologue
-(csrc/fused_attention.cu). On a CUDA tensor the wrapper launches the kernel
-or raises; only a CPU tensor takes the plain version, which computes the same
-function with the same rounding points (q~/k~ rounded once after
-norm+rotate, bf16 interleaved tables, l from fp32 P, PV on P cast to v's
-dtype). The output is a fresh tensor; q is never written.
+Fused qk-RMSNorm (+ RoPE) attention (csrc/fused_attention.cu). Both fused
+flavors take the RAW q/k/v projections in their flat [B, S, N*D] layout. The
+per-row RMS statistic spans all heads, so the wrapper computes it outside the
+kernel (rq = rsqrt(mean(q^2)+eps) * sm_scale * log2(e), rk likewise without
+the scale); the per-head norm scale and the RoPE rotation run inside the
+kernel's tile prologue. The plain version computes the same function with the
+same rounding points (q~/k~ rounded once after norm+rotate, bf16 interleaved
+tables, l from fp32 P, PV on P cast to v's dtype). The fused kernel is
+inference only: when grad is enabled and an input needs a gradient, the fused
+functions run the unfused math through the differentiable `flash_attention`.
+
+Plain flash attention (csrc/flash_attention.cu) over head-major
+[B, N, S, D], with k_lens masking and a (left, right) window, in two
+flavors: inference (exp2, sm_scale*log2(e) folded into q) and stats
+(natural-log exp, sm_scale folded into q, also returns the row max m and sum
+l). Under autograd it is a torch.autograd.Function whose forward is the stats
+flavor and whose backward is kernels/flash_attention_bwd.fa_backward.
+
+On a CUDA tensor every wrapper launches its kernel or raises; only a CPU
+tensor takes the plain version. Outputs are fresh tensors; inputs are never
+written.
 """
 
 from __future__ import annotations
@@ -22,16 +33,20 @@ from typing import Optional
 import torch
 
 from versecrafter_tpu_torch.kernels import _build
-from versecrafter_tpu_torch.kernels.rope import _pairswap, interleave_rope_tables
+from versecrafter_tpu_torch.kernels.norms import rms_norm
+from versecrafter_tpu_torch.kernels.rope import (_pairswap, apply_rope,
+                                                 interleave_rope_tables)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
 HEAD_DIM = 128          # the only head_dim the kernel takes
 TABLE_ROW_ALIGN = 128   # rope tables are padded to this many rows
 
-# Kernel launches per flavor since the last reset (comparison launches are
-# counted too; a caller measuring a path resets first).
-LAUNCHES = {"fused_rope_rms_attention": 0, "fused_rms_cross_attention": 0}
+# Kernel launches per kernel since the last reset (comparison launches are
+# counted too; a caller measuring a path resets first). "flash_attention"
+# counts both flavors of the plain forward.
+LAUNCHES = {"fused_rope_rms_attention": 0, "fused_rms_cross_attention": 0,
+            "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +79,189 @@ def attention_reference(q, k, v, k_lens=None, sm_scale=None,
         s = s.masked_fill(~ok[None, None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bnqk,bnkd->bnqd", p, v.float()).to(q.dtype)
+
+
+def visible_keys(i0: int, i1: int, skv: int, k_len: torch.Tensor,
+                 window_size) -> torch.Tensor:
+    """[B, 1, i1-i0, Skv] bool: key j is visible to query row i when
+    j < k_len[b] and j lies inside row i's (left, right) window."""
+    col = torch.arange(skv, device=k_len.device)
+    ok = (col[None, :] < k_len[:, None])[:, None, None, :]
+    wl, wr = window_size
+    if wl >= 0 or wr >= 0:
+        rel = col[None, :] - torch.arange(i0, i1, device=k_len.device)[:, None]
+        win = torch.ones_like(rel, dtype=torch.bool)
+        if wl >= 0:
+            win &= rel >= -wl
+        if wr >= 0:
+            win &= rel <= wr
+        ok = ok & win[None, None]
+    return ok
+
+
+def _key_lengths(k_lens, b: int, skv: int, device) -> torch.Tensor:
+    if k_lens is None:
+        return torch.full((b,), skv, dtype=torch.int32, device=device)
+    return k_lens.to(device=device, dtype=torch.int32).clamp(0, skv)
+
+
+def flash_attention_plain(q, k, v, k_lens=None, sm_scale=None,
+                          window_size=(-1, -1), stats: bool = False,
+                          chunk: int = 512):
+    """Plain PyTorch version of the flash-attention kernel over head-major
+    [B, N, S, D], over chunks of query rows. q is scaled once and rounded to
+    its dtype (sm_scale for stats=True, natural-log exp; sm_scale*log2(e)
+    otherwise, exp2); P is rounded to v's dtype before PV and l summed from
+    the fp32 P. A row that sees no key writes 0, m = NEG_INF and l = 0.
+    Returns out, or (out, m, l) with m, l fp32 [B, N, Sq] when stats."""
+    B, N, Sq, D = q.shape
+    Skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    scale = sm_scale if stats else sm_scale * LOG2E
+    exp = torch.exp if stats else torch.exp2
+    qs = (q.float() * scale).to(q.dtype)
+    kf, vf = k.float(), v.float()
+    k_len = _key_lengths(k_lens, B, Skv, q.device)
+    out = torch.empty_like(q)
+    m_all = torch.empty((B, N, Sq), dtype=torch.float32, device=q.device)
+    l_all = torch.empty_like(m_all)
+    for i0 in range(0, Sq, chunk):
+        i1 = min(Sq, i0 + chunk)
+        ok = visible_keys(i0, i1, Skv, k_len, window_size)
+        s = torch.matmul(qs[:, :, i0:i1].float(), kf.transpose(-1, -2))
+        s = s.masked_fill(~ok, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(ok, exp(s - m), torch.zeros((), device=q.device))
+        l = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vf)
+        o = o * torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+        out[:, :, i0:i1] = o.to(q.dtype)
+        m_all[:, :, i0:i1] = m[..., 0]
+        l_all[:, :, i0:i1] = l[..., 0]
+    return (out, m_all, l_all) if stats else out
+
+
+def _fa_kernel_fn():
+    fn = _build.load("flash_attention").vc_flash_attention
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def check_head_major(q, k, v, k_lens):
+    """Validate [B, N, S, 128] bf16 q/k/v (and int32 k_lens [B]) for the
+    flash-attention kernels; raises ValueError on what they cannot take."""
+    B, N, Sq, D = q.shape
+    Skv = k.shape[2]
+    if D != HEAD_DIM:
+        raise ValueError(f"the flash-attention kernels need head_dim {HEAD_DIM}, got {D}")
+    _check_cuda("q", q, torch.bfloat16, (B, N, Sq, D))
+    _check_cuda("k", k, torch.bfloat16, (B, N, Skv, D))
+    _check_cuda("v", v, torch.bfloat16, (B, N, Skv, D))
+    if k_lens is not None:
+        _check_cuda("k_lens", k_lens, torch.int32, (B,))
+    for name, t in (("k", k), ("v", v), ("k_lens", k_lens)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _fa_launch(q, k, v, k_lens, sm_scale, window_size, stats):
+    B, N, Sq, D = q.shape
+    Skv = k.shape[2]
+    check_head_major(q, k, v, k_lens)
+    out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((B, N, Sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    scale = sm_scale if stats else sm_scale * LOG2E
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _fa_kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_lens.data_ptr() if k_lens is not None else None, out.data_ptr(),
+            m.data_ptr() if stats else None, l.data_ptr() if stats else None,
+            B, N, Sq, Skv, int(window_size[0]), int(window_size[1]),
+            int(stats), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+    LAUNCHES["flash_attention"] += 1
+    return (out, m, l) if stats else out
+
+
+def _fa_forward(q, k, v, k_lens, sm_scale, window_size, stats):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, k_lens, sm_scale, window_size,
+                                     stats=stats)
+    return _fa_launch(q, k, v, k_lens, sm_scale, window_size, stats)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The counterpart of the JAX package's `_fa_diff` custom_vjp: the
+    forward is the stats flavor, the backward the FA2 kernels of
+    kernels/flash_attention_bwd.py, which recompute P from the saved m, l.
+    m and l are outputs without a gradient. Only the gradients autograd asks
+    for are computed (cross-attention K/V from a frozen context need none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_lens, sm_scale, window_size):
+        out, m, l = _fa_forward(q, k, v, k_lens, sm_scale, window_size, True)
+        ctx.save_for_backward(q, k, v, out, m, l, k_lens)
+        ctx.sm_scale = sm_scale
+        ctx.window_size = window_size
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, do, _dm, _dl):
+        from versecrafter_tpu_torch.kernels.flash_attention_bwd import fa_backward
+        q, k, v, out, m, l, k_lens = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dq, dk, dv = fa_backward(q, k, v, out, m, l, do.contiguous(), k_lens,
+                                 ctx.sm_scale, ctx.window_size,
+                                 need_dq=need[0], need_dkv=need[1] or need[2])
+        return dq, dk, dv, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _fa_args(q, k, k_lens, sm_scale, window_size):
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"flash attention takes [B, N, S, D], got {tuple(q.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if k_lens is not None:
+        k_lens = k_lens.to(device=q.device, dtype=torch.int32).clamp(0, k.shape[2])
+    return k_lens, float(sm_scale), (int(window_size[0]), int(window_size[1]))
+
+
+def flash_attention(q, k, v, k_lens: Optional[torch.Tensor] = None,
+                    sm_scale: Optional[float] = None, window_size=(-1, -1)):
+    """Attention over head-major [B, N, S, D] with optional per-batch KV
+    lengths and a (left, right) window (-1 = unbounded; causal is (-1, 0)).
+    Differentiable: with grad enabled and an input that needs a gradient it
+    runs the stats flavor and the FA2 backward; otherwise the exp2 inference
+    flavor, as the JAX package's `_fa_diff` primal does."""
+    k_lens, sm_scale, window_size = _fa_args(q, k, k_lens, sm_scale, window_size)
+    if _needs_grad(q, k, v):
+        return _FlashAttentionFn.apply(q, k, v, k_lens, sm_scale, window_size)[0]
+    return _fa_forward(q, k, v, k_lens, sm_scale, window_size, False)
+
+
+def flash_attention_with_stats(q, k, v, sm_scale: Optional[float] = None):
+    """(out, m, l): attention over [B, N, S, D] that also returns the row
+    max m of the scaled scores and the sum l of exp(s - m), fp32 [B, N, Sq].
+    Differentiable through `out`; the cotangents of m and l are ignored."""
+    k_lens, sm_scale, window_size = _fa_args(q, k, None, sm_scale, (-1, -1))
+    if _needs_grad(q, k, v):
+        return _FlashAttentionFn.apply(q, k, v, k_lens, sm_scale, window_size)
+    return _fa_forward(q, k, v, k_lens, sm_scale, window_size, True)
 
 
 def prepare_fused_rope_tables(cos: torch.Tensor, sin: torch.Tensor):
@@ -111,23 +309,12 @@ def fused_attention_plain(q, k, v, rq, rk, gq, gk, cos_i=None, sin_i=None, *,
     kt = _qk_transform(k, rk, gk, cos_i, sin_i, n).view(B, Skv, n, hd).transpose(1, 2)
     kf = kt.float()
     vf = v.view(B, Skv, n, hd).transpose(1, 2).float()
-    wl, wr = window_size
-    k_len = (torch.full((B,), Skv, device=q.device) if k_lens is None
-             else k_lens.to(q.device).long().clamp(0, Skv))
-    col = torch.arange(Skv, device=q.device)
+    k_len = _key_lengths(k_lens, B, Skv, q.device)
     out = torch.empty_like(q)
     for i0 in range(0, Sq, chunk):
         i1 = min(Sq, i0 + chunk)
         s = torch.matmul(qt[:, :, i0:i1].float(), kf.transpose(-1, -2))
-        ok = (col[None, :] < k_len[:, None])[:, None, None, :]
-        if wl >= 0 or wr >= 0:
-            rel = col[None, :] - torch.arange(i0, i1, device=q.device)[:, None]
-            win = torch.ones_like(rel, dtype=torch.bool)
-            if wl >= 0:
-                win &= rel >= -wl
-            if wr >= 0:
-                win &= rel <= wr
-            ok = ok & win[None, None]
+        ok = visible_keys(i0, i1, Skv, k_len, window_size)
         s = s.masked_fill(~ok, NEG_INF)
         m = s.amax(-1, keepdim=True)
         p = torch.where(ok, torch.exp2(s - m), torch.zeros((), device=q.device))
@@ -238,6 +425,45 @@ def _stats_and_scales(q, k, gq, gk, eps, sm_scale):
     return rq, rk, gq.float().contiguous(), gk.float().contiguous()
 
 
+def _heads(x, num_heads):
+    """[B, S, N*D] -> contiguous head-major [B, N, S, D]."""
+    b, s, d = x.shape
+    return x.reshape(b, s, num_heads, d // num_heads).transpose(1, 2).contiguous()
+
+
+def _merge_heads(x):
+    b, n, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, n * hd)
+
+
+def _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads, eps,
+                                sm_scale, window_size):
+    """The separate-passes math the fused self-attention kernel replaces:
+    full-dim RMSNorm, pairwise RoPE on the half-width tables, head split,
+    flash attention. The differentiable path of fused_rope_rms_attention."""
+    b, s, _ = q.shape
+    if gq is not None:
+        q = rms_norm(q, gq, eps)
+        k = rms_norm(k, gk, eps)
+    q = apply_rope(q.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
+    k = apply_rope(k.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
+    out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
+                          _heads(v, num_heads), sm_scale=sm_scale,
+                          window_size=window_size)
+    return _merge_heads(out)
+
+
+def _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps, sm_scale):
+    """The separate-passes math the fused cross-attention kernel replaces:
+    full-dim RMSNorm on q and k, head split, flash attention."""
+    if gq is not None:
+        q = rms_norm(q, gq, eps)
+        k = rms_norm(k, gk, eps)
+    out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
+                          _heads(v, num_heads), sm_scale=sm_scale)
+    return _merge_heads(out)
+
+
 def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
                              num_heads: int, eps: float = 1e-6,
                              sm_scale: Optional[float] = None,
@@ -246,11 +472,21 @@ def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
     """Self-attention over RAW q/k/v projections [B, S, D] with qk-RMSNorm
     (scales gq/gk [D], optional) and RoPE (half-width cos/sin [S, hd/2], or
     pre-built interleaved `tables_i` from prepare_fused_rope_tables) fused
-    into the kernel. int8 QK^T scoring is a later kernel and raises."""
+    into the kernel. int8 QK^T scoring is a later kernel and raises.
+
+    With grad enabled and an input that needs a gradient it runs the unfused
+    math through the differentiable flash_attention instead (as the JAX
+    package's custom_vjp does), which needs the half-width cos/sin."""
     if int8_score:
         raise NotImplementedError("int8 QK^T scoring is not ported yet")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    if _needs_grad(q, k, v, gq, gk):
+        if cos is None or sin is None:
+            raise ValueError("the differentiable path needs the half-width "
+                             "cos/sin tables")
+        return _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads,
+                                           eps, sm_scale, window_size)
     rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale)
     cos_i, sin_i = tables_i if tables_i is not None else prepare_fused_rope_tables(cos, sin)
     return fused_attention(q, k, v, rq.contiguous(), rk.contiguous(), gqv, gkv,
@@ -263,9 +499,13 @@ def fused_rms_cross_attention(q, k, v, gq=None, gk=None, *, num_heads: int,
                               sm_scale: Optional[float] = None):
     """Cross-attention over RAW projections q [B, S, D] (video tokens) and
     k/v [B, Skv, D] (context tokens) with qk-RMSNorm fused into the kernel;
-    the k statistic spans each context row."""
+    the k statistic spans each context row. Under grad (an input needs a
+    gradient) it runs the unfused math through flash_attention."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    if _needs_grad(q, k, v, gq, gk):
+        return _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps,
+                                            sm_scale)
     rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale)
     return fused_attention(q, k, v, rq.contiguous(), rk.contiguous(), gqv, gkv,
                            num_heads=num_heads)

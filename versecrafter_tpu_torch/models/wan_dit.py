@@ -3,11 +3,14 @@
 Parameters are nested dicts of tensors in the JAX package's layout: linear
 kernels are [in, out], norm scales and modulation tables fp32, and each
 block is one dict in the list ``params["blocks"]`` (and
-``params["geoada_blocks"]``). Self- and cross-attention always go through the
-fused kernels of kernels/flash_attention.py (the CUDA kernel on the card,
-its plain version on the CPU). GeoAdapter hints are computed interleaved:
-geoada block i runs right before base block stride*i, and its hint
-after_proj(c)*scale is added right after that base block.
+``params["geoada_blocks"]``). Self- and cross-attention go through the
+fused functions of kernels/flash_attention.py (the CUDA kernels on the card,
+their plain versions on the CPU): the fused inference kernel, or, when an
+input needs a gradient, the unfused math over the differentiable flash
+attention. GeoAdapter hints are computed interleaved: geoada block i runs
+right before base block stride*i, and its hint after_proj(c)*scale is added
+right after that base block. Training calls wan_dit_embed, wan_dit_blocks
+(remat=True) and wan_dit_head directly; wan_dit_forward is inference only.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from versecrafter_tpu_torch.core.config import WanDiTConfig
 from versecrafter_tpu_torch.kernels.flash_attention import (
@@ -172,12 +176,12 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-def _self_attention(p: Params, x, rope_i, cfg: WanDiTConfig):
+def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig):
     q = _linear(p["q"], x)
     k = _linear(p["k"], x)
     v = _linear(p["v"], x)
     out = fused_rope_rms_attention(
-        q, k, v, None, None,
+        q, k, v, cos, sin,
         p["norm_q"]["scale"] if cfg.qk_norm else None,
         p["norm_k"]["scale"] if cfg.qk_norm else None,
         num_heads=cfg.num_heads, eps=cfg.eps, window_size=cfg.window_size,
@@ -197,14 +201,17 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig):
     return _linear(p["o"], out)
 
 
-def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, rope_i, context):
+def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
+                      rope_i=None):
     """One Wan attention block. x [B, S, D]; e0 [B, 6, D] fp32 modulation;
-    rope_i the interleaved tables from prepare_fused_rope_tables."""
+    cos/sin the half-width RoPE tables (the differentiable attention path
+    uses them) and rope_i the interleaved tables from
+    prepare_fused_rope_tables (the fused inference kernel uses them)."""
     dtype = x.dtype
     e = p["modulation"][None].float() + e0
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 1][:, None]) + e[:, 0][:, None]).to(dtype)
-    y = _self_attention(p["self_attn"], tmp, rope_i, cfg)
+    y = _self_attention(p["self_attn"], tmp, cos, sin, rope_i, cfg)
     x = (x.float() + y.float() * e[:, 2][:, None]).to(dtype)
 
     xn = (layer_norm(x, p["norm3"]["scale"], p["norm3"]["bias"], eps=cfg.eps)
@@ -243,13 +250,27 @@ def geoada_patch_embedding(params: Params, cfg: WanDiTConfig, geoada_context):
                    patchify(geoada_context, cfg.patch_size))
 
 
-def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, rope_i, context,
+def _block(remat: bool, p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
+           rope_i):
+    """wan_block_forward, rematerialised in the backward pass when `remat`
+    and grad is enabled (the counterpart of jax.checkpoint on the block)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(wan_block_forward, p, cfg, x, e0, cos, sin, context,
+                          rope_i, use_reentrant=False)
+    return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i)
+
+
+def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
                    geoada_tokens: Optional[torch.Tensor] = None,
-                   geoada_scale: float = 1.0):
-    """All transformer blocks, with the GeoAdapter superstep when present."""
+                   geoada_scale: float = 1.0, remat: bool = False):
+    """All transformer blocks, with the GeoAdapter superstep when present.
+    cos/sin: half-width RoPE tables [S, head_dim/2]. remat: recompute each
+    block (and each GeoAdapter block) in the backward pass instead of
+    keeping its activations, so only the block inputs stay alive."""
+    rope_i = prepare_fused_rope_tables(cos, sin)
     if not cfg.has_geoadapter or geoada_tokens is None:
         for bp in params["blocks"]:
-            x = wan_block_forward(bp, cfg, x, e0, rope_i, context)
+            x = _block(remat, bp, cfg, x, e0, cos, sin, context, rope_i)
         return x
     L = cfg.num_layers
     glayers = cfg.resolved_geoada_layers
@@ -259,9 +280,10 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, rope_i, context,
     c = _linear(params["geoada_before_proj"], geoada_tokens) + x
     blocks = params["blocks"]
     for i, gp in enumerate(params["geoada_blocks"]):
-        c = wan_block_forward(gp, cfg, c, e0, rope_i, context)
+        c = _block(remat, gp, cfg, c, e0, cos, sin, context, rope_i)
         for j in range(stride):
-            x = wan_block_forward(blocks[stride * i + j], cfg, x, e0, rope_i, context)
+            x = _block(remat, blocks[stride * i + j], cfg, x, e0, cos, sin, context,
+                       rope_i)
             if j == 0:
                 hint = _linear(gp["after_proj"], c)
                 x = x + (hint * geoada_scale).to(x.dtype)
@@ -292,7 +314,7 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
     gtokens = None
     if geoada_context is not None and cfg.has_geoadapter:
         gtokens = geoada_patch_embedding(params, cfg, geoada_context)
-    rope_i = prepare_fused_rope_tables(cos.to(x.device), sin.to(x.device))
-    tokens = wan_dit_blocks(params, cfg, tokens, e0, rope_i, ctx,
+    tokens = wan_dit_blocks(params, cfg, tokens, e0, cos.to(x.device),
+                            sin.to(x.device), ctx,
                             geoada_tokens=gtokens, geoada_scale=geoada_scale)
     return wan_dit_head(params, cfg, tokens, e, grid)

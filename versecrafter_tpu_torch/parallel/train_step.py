@@ -1,0 +1,123 @@
+"""Flow-matching training step for the Wan DiT + GeoAdapter on one device.
+
+The counterpart of the JAX package's parallel/train_step.py without the
+mesh: rectified-flow loss, a frozen Wan backbone with a trainable GeoAdapter
+branch (or the whole model), block rematerialisation, and
+torch.optim.AdamW, whose update equals optax.adamw's (decoupled weight decay
+on the pre-update parameter, bias-corrected moments, eps outside the square
+root). The noise level and the noise are explicit tensors so that a test can
+hand both packages the same draws; a step draws them from its
+torch.Generator.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import torch
+
+from versecrafter_tpu_torch.core.config import WanDiTConfig
+from versecrafter_tpu_torch.models.wan_dit import (
+    geoada_patch_embedding, wan_dit_blocks, wan_dit_embed, wan_dit_head)
+
+Params = Dict[str, Any]
+
+
+def tree_leaves(tree) -> Iterator[torch.Tensor]:
+    """The tensors of a nested dict/list tree, in key order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def flow_matching_loss(params: Params, cfg: WanDiTConfig, x0, context, cos, sin,
+                       geoada_context, sig, noise, remat: bool = True):
+    """Rectified-flow loss: x_sig = (1 - sig) x0 + sig * noise, target
+    noise - x0, timestep 1000 * sig, mean squared error in fp32.
+    x0 [B, C, F, H, W] latents, sig [B] in [0, 1), noise like x0."""
+    sb = sig[:, None, None, None, None].to(x0.dtype)
+    x_sig = (1.0 - sb) * x0 + sb * noise
+    target = noise - x0
+    tokens, e, e0, ctx, grid = wan_dit_embed(params, cfg, x_sig, sig * 1000.0, context)
+    gtok = None
+    if geoada_context is not None and cfg.has_geoadapter:
+        gtok = geoada_patch_embedding(params, cfg, geoada_context)
+    tokens = wan_dit_blocks(params, cfg, tokens, e0, cos, sin, ctx,
+                            geoada_tokens=gtok, remat=remat)
+    pred = wan_dit_head(params, cfg, tokens, e, grid)
+    return (pred.float() - target.float()).square().mean()
+
+
+def split_trainable(params: Params, geoadapter_only: bool = True
+                    ) -> Tuple[Params, Params]:
+    """(trainable, frozen) views of the tree: the GeoAdapter branch (every
+    top-level `geoada*` entry) trains and the backbone is frozen, or
+    everything trains. Sets requires_grad accordingly, so frozen leaves get
+    no gradient buffers."""
+    train = {k: v for k, v in params.items()
+             if not geoadapter_only or k.startswith("geoada")}
+    frozen = {k: v for k, v in params.items() if k not in train}
+    for leaf in tree_leaves(train):
+        leaf.requires_grad_(True)
+    for leaf in tree_leaves(frozen):
+        leaf.requires_grad_(False)
+    return train, frozen
+
+
+def make_optimizer(train: Params, lr: float = 1e-4, weight_decay: float = 1e-2
+                   ) -> torch.optim.AdamW:
+    """AdamW over the trainable leaves with optax.adamw's defaults."""
+    return torch.optim.AdamW(list(tree_leaves(train)), lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
+                    generator: torch.Generator):
+    """train_step(params, x0, context, cos, sin, geoada_context=None,
+    sig=None, noise=None) -> loss: one optimizer step on the leaves the
+    optimizer holds (updated in place), blocks rematerialised. sig and noise
+    are drawn from `generator` unless given."""
+
+    def train_step(params, x0, context, cos, sin, geoada_context=None, sig=None,
+                   noise=None):
+        if sig is None:
+            sig = torch.rand((x0.shape[0],), generator=generator,
+                             device=generator.device, dtype=torch.float32)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator,
+                                device=generator.device).to(x0.dtype)
+        optimizer.zero_grad(set_to_none=True)
+        loss = flow_matching_loss(params, cfg, x0, context, cos, sin,
+                                  geoada_context, sig.to(x0.device),
+                                  noise.to(x0.device))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def attention_launches_per_step(cfg: WanDiTConfig) -> Dict[str, int]:
+    """Attention kernel launches of one GeoAdapter-only train step with
+    remat, by kernel (the keys of the kernels' LAUNCHES counters).
+
+    Base block 0 of the first superstep sees only frozen inputs (tokens from
+    the frozen patch embedding, the frozen text embedding), so it runs the
+    fused inference kernels once and is neither recomputed nor
+    differentiated. Every other block (all GeoAdapter blocks and the other
+    L - 1 base blocks) runs self- and cross-attention through the stats
+    forward twice (forward, then the remat recompute) and needs dQ for
+    both; dK/dV for self-attention, and for cross-attention only in the
+    GeoAdapter blocks, whose K/V projections train (a base block's cross K/V
+    come from frozen weights and the frozen context)."""
+    g = len(cfg.resolved_geoada_layers)
+    blocks = g + cfg.num_layers - 1
+    return {"fused_rope_rms_attention": 1, "fused_rms_cross_attention": 1,
+            "flash_attention": 2 * 2 * blocks, "fa_backward_dq": 2 * blocks,
+            "fa_backward_dkv": blocks + g}
+

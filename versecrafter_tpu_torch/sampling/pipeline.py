@@ -45,11 +45,12 @@ def encode_mask_pixelshuffle(mask: torch.Tensor, latent_t: int,
 
 
 def _to_device(tree, device):
+    """A copy of a tensor tree on `device`, detached from autograd."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)
+    return tree.detach().to(device)
 
 
 def _not_ported(name: str):
