@@ -25,7 +25,17 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      the card against the CPU at 192 tokens, a warm-up and two timed steps
      (finite losses, every trainable leaf moved, every frozen leaf
      unchanged, launch counts as derived from the model), peak memory, and
-     one step under torch.profiler.
+     one step under torch.profiler;
+  6. the generate path's two opt-in variants on a fresh full-width
+     pipeline: one 480x832x81 request with `int8_attention` through the
+     serving toggle (int8-scored self-attention) and one with
+     wan_dit.PROJ_STAT_FUSION on (q/k statistics from the linear_rstat
+     GEMM), each with its launch counts; then one timed CFG-2 denoise step
+     per variant under torch.profiler, its prediction held against the
+     default path's on the same inputs.
+Phase 2 also holds the int8 flavor of the self-attention kernel and the
+linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
+bf16 kernel within the int8 envelope).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
 """
@@ -40,8 +50,9 @@ import time
 import numpy as np
 import torch
 
-# datasheet peaks of an H100 SXM (dense): bf16 tensor cores and HBM3
+# datasheet peaks of an H100 SXM (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 BF16_BAR = 2 * 2.0 ** -8
 TPU_KERNELS = {
@@ -50,6 +61,8 @@ TPU_KERNELS = {
     "flash_attention": "versecrafter_tpu/kernels/flash_attention.py:363",
     "fa_backward_dq": "versecrafter_tpu/kernels/flash_attention_bwd.py:100",
     "fa_backward_dkv": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
+    "fused_rope_rms_attention_int8": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "linear_rstat": "versecrafter_tpu/kernels/matmul_stat.py:76",
 }
 SOURCES = {
     "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
@@ -57,6 +70,8 @@ SOURCES = {
     "flash_attention": "versecrafter_tpu_torch/csrc/flash_attention.cu",
     "fa_backward_dq": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
     "fa_backward_dkv": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fused_rope_rms_attention_int8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "linear_rstat": "versecrafter_tpu_torch/csrc/matmul_stat.cu",
 }
 TRAIN_STEPS = 3  # a warm-up step and two timed ones
 TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
@@ -109,16 +124,41 @@ def attention_inputs(fa, B, S, Skv, N, seed, dev):
     return q, k, v, gq, gk, cos[:rows], sin[:rows]
 
 
+def correlation(a, b):
+    a = a.double().flatten()
+    b = b.double().flatten()
+    a = a - a.mean()
+    b = b - b.mean()
+    return ((a * b).sum() / (a.square().sum() * b.square().sum()).sqrt()).item()
+
+
+def compare(what, got, ref, corr_bar=None, err_bar=None):
+    """Correlation and max abs error of got against ref, each held to its
+    bar where one is given; returns the max abs error."""
+    err = (got.float() - ref.float()).abs().max().item()
+    mx = ref.float().abs().max().item()
+    corr = correlation(got, ref)
+    ok = (math.isfinite(err) and (corr_bar is None or corr > corr_bar)
+          and (err_bar is None or err <= err_bar))
+    log(f"    {what}: correlation {corr:.6f} (bar {corr_bar}), max_abs_err {err:.4g} = "
+        f"{err / mx:.4g} of max|ref|={mx:.4g} (bar {err_bar}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: outside its bar")
+    return err
+
+
 def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
                  timed=False, seed=0):
-    """Kernel vs plain on the same inputs; returns the record's numbers."""
-    rope = name == "fused_rope_rms_attention"
+    """Kernel vs plain on the same inputs; returns the record's numbers. The
+    int8 flavor is also held to the exact bf16 kernel (int8 envelope)."""
+    rope = name.startswith("fused_rope_rms_attention")
+    int8 = name == "fused_rope_rms_attention_int8"
     q, k, v, gq, gk, cos, sin = attention_inputs(fa, B, S, Skv, N, seed, dev)
     rq, rk, gqv, gkv = fa._stats_and_scales(q, k, gq, gk, 1e-6, fa.HEAD_DIM ** -0.5)
     ci, si = fa.prepare_fused_rope_tables(cos, sin) if rope else (None, None)
     kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
     args = (q, k, v, rq, rk, gqv, gkv, ci, si)
-    kw = dict(num_heads=N, window_size=window, k_lens=kl)
+    kw = dict(num_heads=N, window_size=window, k_lens=kl, int8_score=int8)
     got = fa.fused_attention(*args, **kw)
     torch.cuda.synchronize()
     ref = fa.fused_attention_plain(*args, **kw)
@@ -130,6 +170,12 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
         f"max|plain|={mx:.4g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
+    del ref
+    if int8:  # tests/test_int8_attention.py's envelope: <= 3 %·max, corr > 0.999
+        exact = fa.fused_attention(*args, **{**kw, "int8_score": False})
+        compare("against the exact bf16 kernel", got, exact, corr_bar=0.999,
+                err_bar=0.03 * exact.float().abs().max().item())
+        del exact
     rec = {"max_abs_err": err}
     if timed:
         rec["ms"] = cuda_ms(lambda: fa.fused_attention(*args, **kw), 5)
@@ -144,24 +190,30 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
         vt = v.view(B, Skv, N, -1).transpose(1, 2)
         rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, scale=math.log(2.0)), 3)
-        flops = 4 * B * N * S * Skv * fa.HEAD_DIM
+        # QK^T and PV, 2*B*N*S*Skv*D operations each; QK^T at the int8
+        # rate in the int8 flavor
+        product = 2 * B * N * S * Skv * fa.HEAD_DIM
+        flops = 2 * product
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
             + (rq.numel() + rk.numel() + gqv.numel() + gkv.numel()) * 4 \
             + ((ci.numel() + si.numel()) * 2 if rope else 0)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+        rec["bound_ms"], rec["bound_by"] = (bound(product, nbytes, int8_ops=product)
+                                            if int8 else bound(flops, nbytes))
         log(f"    ms={rec['ms']:.3f} plain_ms={rec['plain_ms']:.1f} "
-            f"library_ms={rec['library_ms']:.3f} bound_ms={rec['bound_ms']:.3f} "
-            f"({rec['bound_by']}: {flops:.3e} FLOP, {nbytes / 1e9:.3f} GB) "
-            f"-> {flops / rec['ms'] / 1e9:.1f} TFLOP/s")
-    del q, k, v, got, ref
+            f"library_ms={rec['library_ms']:.3f} (SDPA, the exact bf16 function) "
+            f"bound_ms={rec['bound_ms']:.3f} "
+            f"({rec['bound_by']}: {flops:.3e} operations, {nbytes / 1e9:.3f} GB) "
+            f"-> {flops / rec['ms'] / 1e9:.1f} T operations/s")
+    del q, k, v, got
     torch.cuda.empty_cache()
     return rec
 
 
-def bound(flops, nbytes):
-    """(bound ms, what bounds it): the larger of the operations over the
-    bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, int8_ops=0):
+    """(bound ms, what bounds it): the larger of the operations over their
+    tensor-core peak (bf16 flops, int8 operations) and the bytes over the
+    memory rate."""
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -279,6 +331,52 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
     return {"flash_attention": rec_f, "fa_backward_dq": rec_q, "fa_backward_dkv": rec_kv}
 
 
+def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
+    """The linear_rstat GEMM against its plain version at x [M, K] bf16 and
+    W [K, N]: y within 2*2^-8*max|y|, rs within 1e-4 relative; with `timed`,
+    kernel, plain, library-yardstick and bound times."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    p = {"kernel": (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)}
+    if bias:
+        p["bias"] = (0.1 * torch.randn(N, generator=g, device=dev)).to(torch.bfloat16)
+    y, rs = ms.linear_rstat(p, x, 1e-6)
+    torch.cuda.synchronize()
+    ry, rrs = ms.linear_rstat_plain(x, p["kernel"], p.get("bias"), 1e-6)
+    err = (y.float() - ry.float()).abs().max().item()
+    mx = ry.float().abs().max().item()
+    rel_rs = ((rs - rrs).abs() / rrs.abs()).max().item()
+    ok = (y.shape == (M, N) and rs.shape == (M, 1) and math.isfinite(err)
+          and err <= BF16_BAR * mx and rel_rs <= 1e-4)
+    log(f"  linear_rstat M={M} K={K} N={N} bias={bias}: y max_abs_err={err:.4g} "
+        f"bar={BF16_BAR * mx:.4g} (2*2^-8*max|y|), rs max rel err {rel_rs:.3g} "
+        f"(bar 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("linear_rstat disagrees with its plain version")
+    rec = {"max_abs_err": err}
+    if timed:
+        b = p.get("bias")
+        rec["ms"] = cuda_ms(lambda: ms.linear_rstat(p, x, 1e-6), 20)
+        rec["plain_ms"] = host_ms(lambda: ms.linear_rstat_plain(x, p["kernel"], b, 1e-6))
+
+        def library():  # yardstick only, two calls: cuBLAS addmm, then the statistic
+            yl = torch.addmm(b, x, p["kernel"]) if b is not None else x @ p["kernel"]
+            return torch.rsqrt(yl.float().square().mean(-1, keepdim=True) + 1e-6)
+
+        rec["library_ms"] = cuda_ms(library, 20)
+        rec["library_note"] = "torch.addmm + the row statistic in torch (two calls)"
+        flops = 2 * M * K * N
+        nbytes = (M * K + K * N + M * N) * 2 + (N * 2 if bias else 0) + M * 4
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+        log(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.2f} "
+            f"library_ms={rec['library_ms']:.4f} (addmm + statistic) "
+            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB) -> {flops / rec['ms'] / 1e9:.1f} TFLOP/s")
+    del x, y, ry
+    torch.cuda.empty_cache()
+    return rec
+
+
 def randomize_zero_inits(params, dev, seed=7):
     """The head and the GeoAdapter skip projections are zero-init, which
     would make every prediction constant; give them small random weights."""
@@ -331,7 +429,7 @@ def profile_step(step, step_ms, card):
         log(f"  {us / 1e3:9.1f} ms {100 * us / 1e3 / busy_ms:5.1f}% x{n:<4d} {name[:100]}")
 
 
-def train_phase(fa, fab, dev, card):
+def train_phase(fa, fab, ms, dev, card):
     """Phase 5: GeoAdapter-only training of the full-width Wan2.1-1.3B +
     GeoAdapter at 480x832x81, batch 1 (bf16, AdamW lr 1e-4 wd 1e-2, remat):
     the card's loss and gradients against the CPU's at 192 tokens, then a
@@ -410,6 +508,7 @@ def train_phase(fa, fab, dev, card):
 
     fa.reset_launch_counts()
     fab.reset_launch_counts()
+    ms.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for i in range(TRAIN_STEPS):
@@ -418,8 +517,9 @@ def train_phase(fa, fab, dev, card):
         losses.append(step().item())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
-    counts = {**fa.LAUNCHES, **fab.LAUNCHES}
-    want = {k: TRAIN_STEPS * n for k, n in attention_launches_per_step(cfg).items()}
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    want = {**dict.fromkeys(counts, 0),
+            **{k: TRAIN_STEPS * n for k, n in attention_launches_per_step(cfg).items()}}
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] {f}x{h}x{w} token grid ({f * h * w} tokens) batch-1 train steps: "
         f"{' '.join(f'{t:.1f}' for t in times)} ms (first is the warm-up) on {card}; "
@@ -443,6 +543,135 @@ def train_phase(fa, fab, dev, card):
     return {k: counts[k] for k in ("flash_attention", "fa_backward_dq", "fa_backward_dkv")}
 
 
+def timed_step(step, label, card, reps=2):
+    """A warm-up, then `reps` host-timed synchronised runs of a denoise step
+    and one under torch.profiler; returns (prediction, times)."""
+    first = step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        pred = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    if not torch.isfinite(pred).all():
+        raise AssertionError(f"non-finite {label} prediction at 480x832x81")
+    log(f"[variants] {label}: CFG-2 denoise step "
+        f"{' '.join(f'{t:.1f}' for t in times)} ms on {card}; the prediction repeats "
+        f"bit for bit: {torch.equal(first, pred)}")
+    profile_step(step, min(times), card)
+    return pred, times
+
+
+def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=(480, 832, FRAMES_E2E),
+                   blocks=45):
+    """Phase 6: the two opt-in variants of the generate path on a fresh
+    full-width pipeline. One 480x832x81 request with `int8_attention`
+    through the serving toggle and one with wan_dit.PROJ_STAT_FUSION on,
+    each with its launch counts; then one timed CFG-2 denoise step per
+    variant, profiled, its prediction held against the default step's on
+    the same inputs. `blocks` is the model's 30 base + 15 GeoAdapter
+    blocks. Returns the launches of both requests."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.models import wan_dit
+    from versecrafter_tpu_torch.serve.model_server import (
+        default_pipeline_factory, run_loaded_request)
+
+    t0 = time.perf_counter()
+    pipe = default_pipeline_factory(scale=scale, device=dev, seed=0)()
+    randomize_zero_inits(pipe.dit_params, dev)
+    h, w, n = size
+    grid = ((n - 1) // 4 + 1, h // 16, w // 16)  # latent frames, token rows, columns
+    launches = {}
+    for label, extra, fusion, want, seed in (
+            ("int8_attention request", {"int8_attention": True}, False,
+             {"fused_rope_rms_attention_int8": blocks * STEPS,
+              "fused_rms_cross_attention": blocks * STEPS}, 13),
+            # 2 self q/k + 1 cross q projection statistic per block
+            ("PROJ_STAT_FUSION request", {}, True,
+             {"linear_rstat": 3 * blocks * STEPS, "fused_rope_rms_attention": blocks * STEPS,
+              "fused_rms_cross_attention": blocks * STEPS}, 14)):
+        controls, mask = synth_request(n, h, w, seed)
+        params = {"prompt": "a boat crosses a lake at dawn", "negative_prompt": "blurry",
+                  "num_inference_steps": STEPS, "guidance_scale": 5.0, "seed": seed,
+                  "height": h, "width": w, "num_frames": n, **extra}
+        fa.reset_launch_counts()
+        fab.reset_launch_counts()
+        ms.reset_launch_counts()
+        wan_dit.PROJ_STAT_FUSION = fusion
+        t1 = time.perf_counter()
+        try:
+            video = run_loaded_request(pipe, params, controls, mask)
+        finally:
+            wan_dit.PROJ_STAT_FUSION = False
+        dt = time.perf_counter() - t1
+        counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+        for k_, v in counts.items():
+            launches[k_] = launches.get(k_, 0) + v
+        log(f"[variants] {label}: {video.shape} {video.dtype} in {dt:.1f} s "
+            f"{ {k_: round(v, 2) for k_, v in pipe.last_wall_profile.items()} } "
+            f"launches {counts}")
+        if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8:
+            raise AssertionError(f"bad output {video.shape} {video.dtype}")
+        if float(video.std()) == 0.0:
+            raise AssertionError("constant output video")
+        if counts != {**dict.fromkeys(counts, 0), **want}:
+            raise AssertionError(f"{label}: launch counts {counts}, want {want}")
+        if wan_dit.INT8_QK_SCORE:
+            raise AssertionError("the int8_attention toggle outlived its request")
+
+    f, th, tw = grid
+    g6 = torch.Generator(device=dev).manual_seed(81)
+    lat = torch.randn(1, 16, f, 2 * th, 2 * tw, generator=g6, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, 128, f, 2 * th, 2 * tw, generator=g6, device=dev).to(torch.bfloat16)
+    ctx = pipe.encode_prompt("a red car drives left", "blurry").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, f, th, tw, device=dev)
+
+    def step():
+        return pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
+
+    log(f"[variants] denoise steps at {h}x{w}x{n} ({f * th * tw} tokens)")
+    def plain_linear_rstat(p, x, eps):  # the GEMM's plain version, for comparison
+        y, rs = ms.linear_rstat_plain(x.reshape(-1, x.shape[-1]), p["kernel"], p.get("bias"),
+                                      eps)
+        return y.reshape(*x.shape[:-1], -1), rs.reshape(*x.shape[:-1], 1)
+
+    base, _ = timed_step(step, "default path", card)
+    # the noise floor of this random-weight model: its prediction moves this
+    # much when the latents move by about one bf16 ulp, (1 + 2^-8)
+    lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
+    floor = compare("default step at latents x (1 + 2^-8) vs default step (noise floor)",
+                    pipe.denoise_step(lat_p, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True), base)
+    del lat_p
+    try:
+        wan_dit.INT8_QK_SCORE = True
+        pred, _ = timed_step(step, "INT8_QK_SCORE", card)
+        wan_dit.INT8_QK_SCORE = False
+        compare("int8 step vs default step", pred, base, corr_bar=0.999, err_bar=2 * floor)
+        wan_dit.PROJ_STAT_FUSION = True
+        pred, _ = timed_step(step, "PROJ_STAT_FUSION", card)
+        # the same step with linear_rstat's plain version: same rounding
+        # points, so this isolates the GEMM kernel
+        wan_dit.linear_rstat = plain_linear_rstat
+        ref = step()
+        wan_dit.linear_rstat = ms.linear_rstat
+        wan_dit.PROJ_STAT_FUSION = False
+        compare("proj-stat step vs the same step with linear_rstat's plain version",
+                pred, ref, corr_bar=0.999, err_bar=2 * floor)
+        # the default path rounds the bf16 product, then adds the bias in
+        # bf16; linear_rstat adds it in fp32 before one rounding
+        compare("proj-stat step vs default step", pred, base, corr_bar=0.999,
+                err_bar=2 * floor)
+    finally:
+        wan_dit.INT8_QK_SCORE = wan_dit.PROJ_STAT_FUSION = False
+        wan_dit.linear_rstat = ms.linear_rstat
+    del pipe, lat, geo, ctx, pred, base, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[variants] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -450,6 +679,7 @@ def main() -> int:
     from versecrafter_tpu_torch.kernels import _build
     from versecrafter_tpu_torch.kernels import flash_attention as fa
     from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
+    from versecrafter_tpu_torch.kernels import matmul_stat as ms
     from versecrafter_tpu_torch.serve.model_server import (
         _call_pipe, default_pipeline_factory)
     from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
@@ -488,6 +718,19 @@ def main() -> int:
                               if k_ in ("ms", "plain_ms", "bound_ms", "library_ms")})
     check_flash(fa, fab, 2, 2, 520, 520, dev)
     check_flash(fa, fab, 2, 2, 520, 520, dev, window=(64, 32), k_lens=(300, 0))
+    # the opt-in variants' kernels: the int8 flavor at the generate path's
+    # shapes, and linear_rstat at the q/k projections' [B*S, 1536] x
+    # [1536, 1536] (CFG-2 and CFG-1 at 480x832x81) and a ragged M
+    int8 = "fused_rope_rms_attention_int8"
+    records[int8] = check_kernel(fa, int8, 2, 32760, 32760, 12, dev, timed=True)
+    check_kernel(fa, int8, 2, 14040, 14040, 12, dev)
+    check_kernel(fa, int8, 2, 520, 520, 12, dev)
+    check_kernel(fa, int8, 2, 520, 520, 2, dev, window=(64, 32), k_lens=(300, 0))
+    records["linear_rstat"] = check_rstat(ms, 65520, dev, timed=True)
+    check_rstat(ms, 65520, dev, bias=False)
+    check_rstat(ms, 32760, dev)
+    check_rstat(ms, 333, dev)
+    check_rstat(ms, 333, dev, bias=False)
     log(f"[parity] {time.perf_counter() - t0:.1f} s")
 
     # -- 3. the slice end to end -----------------------------------------
@@ -508,6 +751,7 @@ def main() -> int:
         controls, mask = synth_request(n, h, w, seed)
         fa.reset_launch_counts()
         fab.reset_launch_counts()
+        ms.reset_launch_counts()
         t1 = time.perf_counter()
         video = _call_pipe(pipe, {"prompt": prompt, "negative_prompt": "blurry",
                                   "num_inference_steps": STEPS, "guidance_scale": 5.0,
@@ -523,10 +767,11 @@ def main() -> int:
             raise AssertionError(f"bad output {video.shape} {video.dtype}")
         if float(video.std()) == 0.0:
             raise AssertionError("constant output video")
-        want = {"fused_rope_rms_attention": 45 * STEPS,
+        want = {"fused_rope_rms_attention": 45 * STEPS, "fused_rope_rms_attention_int8": 0,
                 "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
-        if counts != want or any(fab.LAUNCHES.values()):
-            raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} != {want}")
+        if counts != want or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values()):
+            raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} "
+                                 f"!= {want}")
     log(f"[e2e] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
@@ -584,7 +829,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. GeoAdapter training at 480x832x81 ----------------------------
-    launches_main.update(train_phase(fa, fab, dev, card))
+    launches_main.update(train_phase(fa, fab, ms, dev, card))
+
+    # -- 6. the opt-in variants: int8 attention, projection statistics ----
+    for k_, v in variants_phase(fa, fab, ms, dev, card).items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
 
     kernels = []
     for name, rec in records.items():
@@ -595,7 +844,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{k_: v for k_, v in rec.items()
-               if k_.startswith("cross_") or k_ == "inference_ms"}})
+               if k_.startswith("cross_") or k_ in ("inference_ms", "library_note")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

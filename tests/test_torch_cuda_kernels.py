@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (fused attention, plain flash attention and its
-FA2 backward) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (fused attention with its int8 flavor, plain
+flash attention and its FA2 backward, the linear_rstat GEMM) against their
+plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. This
 module imports no JAX, so on a GPU machine without JAX it runs with the
@@ -203,8 +204,8 @@ def test_fused_functions_route_grad_through_flash_kernels(dev):
                                              gq, gk, num_heads=N)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"fused_rope_rms_attention": 0, "fused_rms_cross_attention": 0,
-                           "flash_attention": 2}
+    assert fa.LAUNCHES == {"fused_rope_rms_attention": 0, "fused_rope_rms_attention_int8": 0,
+                           "fused_rms_cross_attention": 0, "flash_attention": 2}
     # cross K/V come from a detached context: dQ only for the cross call
     assert fab.LAUNCHES == {"fa_backward_dq": 2, "fa_backward_dkv": 1}
     for t in (q, k, v):
@@ -218,3 +219,103 @@ def test_flash_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):  # head_dim 64
         fa.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
                            v[..., :64].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the fused RoPE flavor's int8 variant and the linear_rstat GEMM
+# ---------------------------------------------------------------------------
+
+def test_int8_mma_fragment_layout(dev):
+    """The int8 flavor's ldmatrix + mma.sync m16n8k32 s8 fragment path
+    computes a 16x32 . (8x32)^T integer product exactly."""
+    import ctypes
+
+    from versecrafter_tpu_torch.kernels import _build
+    fn = _build.load("fused_attention").vc_mma_s8_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (16, 32), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (8, 32), generator=g, dtype=torch.int8)
+    a_d, b_d = a.to(dev), b.to(dev)
+    c = torch.empty((16, 8), dtype=torch.int32, device=dev)
+    assert fn(a_d.data_ptr(), b_d.data_ptr(), c.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(c.cpu().long(), a.long() @ b.long().T)
+
+
+@pytest.mark.parametrize("S,window,k_lens", [(520, (-1, -1), None), (333, (-1, -1), None),
+                                             (520, (64, 32), (300, 0))])
+def test_int8_flavor_matches_plain(dev, S, window, k_lens):
+    q, k, v, gq, gk, cos, sin, N = _inputs(dev, S=S, seed=3)
+    rq, rk, gqv, gkv = _stats(q, k, gq, gk)
+    ci, si = fa.prepare_fused_rope_tables(cos, sin)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    kw = dict(num_heads=N, window_size=window, k_lens=kl, int8_score=True)
+    before = dict(fa.LAUNCHES)
+    got = fa.fused_attention(q, k, v, rq, rk, gqv, gkv, ci, si, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fused_rope_rms_attention_int8"] == before["fused_rope_rms_attention_int8"] + 1
+    assert fa.LAUNCHES["fused_rope_rms_attention"] == before["fused_rope_rms_attention"]
+    ref = fa.fused_attention_plain(q, k, v, rq, rk, gqv, gkv, ci, si, **kw)
+    err, mx = _err(got, ref)
+    assert err <= BF16_BAR * mx, (err, mx)
+    if k_lens is not None:  # a batch element that sees no key writes zeros
+        assert got[1].abs().max().item() == 0.0
+    # no atomics: a second run is bit-identical
+    assert torch.equal(got, fa.fused_attention(q, k, v, rq, rk, gqv, gkv, ci, si, **kw))
+
+
+def test_int8_flavor_rejects_what_it_cannot_take(dev):
+    q, k, v, gq, gk, cos, sin, N = _inputs(dev, S=128)
+    with pytest.raises(ValueError):
+        fa.fused_rope_rms_attention(q.float(), k.float(), v.float(), cos, sin, gq, gk,
+                                    num_heads=N, int8_score=True)
+    with pytest.raises(ValueError):  # head_dim 64
+        fa.fused_rope_rms_attention(q, k, v, cos[:, :16], sin[:, :16], gq, gk,
+                                    num_heads=2 * N, int8_score=True)
+
+
+def _rstat_inputs(dev, M, K=256, N=384, bias=True, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((M, K)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    p = {"kernel": torch.as_tensor(rng.standard_normal((K, N)) * 0.1,
+                                   dtype=torch.float32, device=dev).to(torch.bfloat16)}
+    if bias:
+        p["bias"] = torch.as_tensor(rng.standard_normal(N) * 0.1, dtype=torch.float32,
+                                    device=dev).to(torch.bfloat16)
+    return x, p
+
+
+@pytest.mark.parametrize("M", [333, 128, 1])
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_rstat_matches_plain(dev, M, bias):
+    from versecrafter_tpu_torch.kernels import matmul_stat as ms
+    x, p = _rstat_inputs(dev, M, bias=bias)
+    before = ms.LAUNCHES["linear_rstat"]
+    y, rs = ms.linear_rstat(p, x[None], 1e-6)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["linear_rstat"] == before + 1
+    assert y.shape == (1, M, 384) and rs.shape == (1, M, 1) and rs.dtype == torch.float32
+    ry, rrs = ms.linear_rstat_plain(x, p["kernel"], p.get("bias"), 1e-6)
+    err, mx = _err(y[0], ry)
+    assert err <= BF16_BAR * mx, (err, mx)
+    assert ((rs[0] - rrs).abs() / rrs.abs()).max().item() <= 1e-4
+    # no atomics: a second run is bit-identical
+    y2, rs2 = ms.linear_rstat(p, x[None], 1e-6)
+    assert torch.equal(y, y2) and torch.equal(rs, rs2)
+
+
+def test_linear_rstat_rejects_what_it_cannot_take(dev):
+    from versecrafter_tpu_torch.kernels import matmul_stat as ms
+    x, p = _rstat_inputs(dev, 64)
+    with pytest.raises(ValueError):  # fp32 activations
+        ms.linear_rstat(p, x.float())
+    with pytest.raises(ValueError):  # K not a multiple of 32
+        ms.linear_rstat({"kernel": p["kernel"][:200]}, x[:, :200].contiguous())
+    with pytest.raises(ValueError):  # N not a multiple of 128
+        ms.linear_rstat({"kernel": p["kernel"][:, :100].contiguous()}, x)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        ms.linear_rstat(p, x.view(-1)[1:1 + 63 * 256].view(63, 256))

@@ -11,6 +11,11 @@ same rounding points (q~/k~ rounded once after norm+rotate, bf16 interleaved
 tables, l from fp32 P, PV on P cast to v's dtype). The fused kernel is
 inference only: when grad is enabled and an input needs a gradient, the fused
 functions run the unfused math through the differentiable `flash_attention`.
+The statistics may also come from the projection's matmul epilogue
+(kernels/matmul_stat.py): `rstats=(rq, rk)` / `rq=`. The RoPE flavor has an
+int8 variant (`int8_score`): q~/k~ are quantized per (row, head) to int8,
+QK^T is an s8 x s8 -> s32 product, and the scales multiply back before the
+softmax; PV stays bf16.
 
 Plain flash attention (csrc/flash_attention.cu) over head-major
 [B, N, S, D], with k_lens masking and a (left, right) window, in two
@@ -41,12 +46,14 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
 HEAD_DIM = 128          # the only head_dim the kernel takes
 TABLE_ROW_ALIGN = 128   # rope tables are padded to this many rows
+KV_TILE = 64            # the fused kernel's kv tile (the int8 k scales pad to it)
 
 # Kernel launches per kernel since the last reset (comparison launches are
 # counted too; a caller measuring a path resets first). "flash_attention"
-# counts both flavors of the plain forward.
-LAUNCHES = {"fused_rope_rms_attention": 0, "fused_rms_cross_attention": 0,
-            "flash_attention": 0}
+# counts both flavors of the plain forward; the RoPE flavor's int8 variant
+# has a count of its own.
+LAUNCHES = {"fused_rope_rms_attention": 0, "fused_rope_rms_attention_int8": 0,
+            "fused_rms_cross_attention": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -295,25 +302,45 @@ def _qk_transform(x, rstat, g, cos_i, sin_i, num_heads):
     return xf.to(x.dtype)
 
 
+def quantize_rows(t: torch.Tensor):
+    """Per-row int8 quantization of a transformed tile, as the fused kernel
+    does it: sc = max(max|t|, 1e-20) / 127 in fp32 and codes
+    round_half_even(t / sc). Returns (codes as fp32, sc [..., 1] fp32)."""
+    tf = t.float()
+    sc = tf.abs().amax(-1, keepdim=True).clamp_min(1e-20) / 127.0
+    return torch.round(tf / sc), sc
+
+
 def fused_attention_plain(q, k, v, rq, rk, gq, gk, cos_i=None, sin_i=None, *,
                           num_heads: int, window_size=(-1, -1), k_lens=None,
+                          int8_score: bool = False,
                           chunk: int = 512) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, over chunks of query rows
     (a whole [B, N, S, S] fp32 score tensor does not fit at Wan scale).
-    Masked keys get P = 0, so a row that sees no key writes 0."""
+    Masked keys get P = 0, so a row that sees no key writes 0. With
+    int8_score (RoPE flavor only) the scores are the int8 codes' exact
+    integer product times the q row's and the k row's scales, in that
+    order."""
     B, Sq, DF = q.shape
     Skv = k.shape[1]
     n = num_heads
     hd = DF // n
     qt = _qk_transform(q, rq, gq, cos_i, sin_i, n).view(B, Sq, n, hd).transpose(1, 2)
     kt = _qk_transform(k, rk, gk, cos_i, sin_i, n).view(B, Skv, n, hd).transpose(1, 2)
-    kf = kt.float()
+    if int8_score and cos_i is not None:
+        qf, qsc = quantize_rows(qt)   # integer-valued fp32: the products and
+        kf, ksc = quantize_rows(kt)   # their sums (< 2^24) are exact
+        ksc = ksc.transpose(-1, -2)
+    else:
+        qf, kf, qsc = qt.float(), kt.float(), None
     vf = v.view(B, Skv, n, hd).transpose(1, 2).float()
     k_len = _key_lengths(k_lens, B, Skv, q.device)
     out = torch.empty_like(q)
     for i0 in range(0, Sq, chunk):
         i1 = min(Sq, i0 + chunk)
-        s = torch.matmul(qt[:, :, i0:i1].float(), kf.transpose(-1, -2))
+        s = torch.matmul(qf[:, :, i0:i1], kf.transpose(-1, -2))
+        if qsc is not None:
+            s = s * qsc[:, :, i0:i1] * ksc
         ok = visible_keys(i0, i1, Skv, k_len, window_size)
         s = s.masked_fill(~ok, NEG_INF)
         m = s.amax(-1, keepdim=True)
@@ -342,12 +369,12 @@ def _kernel_fn():
     fn = _build.load("fused_attention").vc_fused_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 
 def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
-            k_lens) -> torch.Tensor:
+            k_lens, int8_score=False) -> torch.Tensor:
     B, Sq, DF = q.shape
     Skv = k.shape[1]
     if DF % num_heads or DF // num_heads != HEAD_DIM:
@@ -376,8 +403,14 @@ def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
                     ("k_lens", k_lens)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    int8 = bool(int8_score) and rope
     out = torch.empty_like(q)
-    k_scratch = torch.empty_like(k)  # the kernel's normalised (+ rotated) K
+    # the kernel's normalised (+ rotated) K, or its int8 codes and their
+    # per-(row, head) scales [B, N, Skv rounded up to the kv tile]
+    k_scratch = torch.empty(k.shape, dtype=torch.int8 if int8 else k.dtype,
+                            device=dev)
+    k_scale = (torch.zeros((B, num_heads, -(-Skv // KV_TILE) * KV_TILE),
+                           dtype=torch.float32, device=dev) if int8 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn()(
@@ -386,33 +419,38 @@ def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
             cos_i.data_ptr() if rope else None,
             sin_i.data_ptr() if rope else None,
             k_lens.data_ptr() if k_lens is not None else None,
-            k_scratch.data_ptr(),
+            k_scratch.data_ptr(), k_scale.data_ptr() if int8 else None,
             out.data_ptr(), B, Sq, Skv, num_heads, int(window_size[0]),
-            int(window_size[1]), int(rope), stream)
+            int(window_size[1]), int(rope), int(int8), stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: cudaError {err}")
-    LAUNCHES["fused_rope_rms_attention" if rope else "fused_rms_cross_attention"] += 1
+    LAUNCHES["fused_rope_rms_attention_int8" if int8 else
+             "fused_rope_rms_attention" if rope else "fused_rms_cross_attention"] += 1
     return out
 
 
 def fused_attention(q, k, v, rq, rk, gq, gk, cos_i=None, sin_i=None, *,
                     num_heads: int, window_size=(-1, -1),
-                    k_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    k_lens: Optional[torch.Tensor] = None,
+                    int8_score: bool = False) -> torch.Tensor:
     """The kernel's entry once the row statistics are known: the RoPE flavor
-    when interleaved tables are given, the norm-only flavor otherwise.
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    when interleaved tables are given (int8-scored with `int8_score`), the
+    norm-only flavor otherwise (which ignores `int8_score`). CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, rq, rk, gq, gk, cos_i, sin_i,
                                      num_heads=num_heads,
-                                     window_size=window_size, k_lens=k_lens)
+                                     window_size=window_size, k_lens=k_lens,
+                                     int8_score=int8_score)
     return _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, num_heads=num_heads,
-                   window_size=window_size, k_lens=k_lens)
+                   window_size=window_size, k_lens=k_lens, int8_score=int8_score)
 
 
-def _stats_and_scales(q, k, gq, gk, eps, sm_scale):
+def _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq=None, rk=None):
     """(rq, rk, gq, gk) as the kernel takes them: rq with sm_scale*log2(e)
-    folded in; unit statistics and scales when there is no qk-norm."""
+    folded in; unit statistics and scales when there is no qk-norm. A
+    statistic the projection already computed ([B, S, 1]) is used as it is,
+    the other is reduced here."""
     scale_q = sm_scale * LOG2E
     df = q.shape[-1]
     if gq is None:
@@ -420,9 +458,10 @@ def _stats_and_scales(q, k, gq, gk, eps, sm_scale):
         rq = torch.full(q.shape[:2], scale_q, dtype=torch.float32, device=q.device)
         rk = torch.ones(k.shape[:2], dtype=torch.float32, device=q.device)
         return rq, rk, ones, ones
-    rq = row_rstat(q, eps) * scale_q
-    rk = row_rstat(k, eps)
-    return rq, rk, gq.float().contiguous(), gk.float().contiguous()
+    rq = (row_rstat(q, eps) if rq is None else rq.reshape(q.shape[:2]).float()) * scale_q
+    rk = row_rstat(k, eps) if rk is None else rk.reshape(k.shape[:2]).float()
+    return (rq.contiguous(), rk.contiguous(), gq.float().contiguous(),
+            gk.float().contiguous())
 
 
 def _heads(x, num_heads):
@@ -464,48 +503,96 @@ def _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps, sm_scale):
     return _merge_heads(out)
 
 
+def _rms_apply(x, rstat, g):
+    """rms_norm with the row statistic supplied ([..., 1] fp32): the same
+    math and rounding as kernels.norms.rms_norm when rstat equals
+    rsqrt(mean(x^2, -1) + eps)."""
+    return (x.float() * rstat * g.float()).to(x.dtype)
+
+
+def _unfused_rope_rms_attention_rs(q, k, v, rq, rk, cos, sin, gq, gk,
+                                   num_heads, sm_scale, window_size):
+    """_unfused_rope_rms_attention with the producer's row statistics
+    (linear_rstat) in place of the reduces over the model dim."""
+    b, s, _ = q.shape
+    q = _rms_apply(q, rq, gq)
+    k = _rms_apply(k, rk, gk)
+    q = apply_rope(q.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
+    k = apply_rope(k.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
+    out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
+                          _heads(v, num_heads), sm_scale=sm_scale,
+                          window_size=window_size)
+    return _merge_heads(out)
+
+
+def _unfused_rms_cross_attention_rs(q, k, v, rq, gq, gk, num_heads, eps,
+                                    sm_scale):
+    """_unfused_rms_cross_attention with the producer's q statistic; the k
+    statistic spans only the short context axis and stays a plain
+    rms_norm."""
+    q = _rms_apply(q, rq, gq)
+    k = rms_norm(k, gk, eps)
+    out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
+                          _heads(v, num_heads), sm_scale=sm_scale)
+    return _merge_heads(out)
+
+
 def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
                              num_heads: int, eps: float = 1e-6,
                              sm_scale: Optional[float] = None,
                              window_size=(-1, -1), tables_i=None,
-                             int8_score: bool = False):
+                             rstats=None, int8_score: bool = False):
     """Self-attention over RAW q/k/v projections [B, S, D] with qk-RMSNorm
     (scales gq/gk [D], optional) and RoPE (half-width cos/sin [S, hd/2], or
     pre-built interleaved `tables_i` from prepare_fused_rope_tables) fused
-    into the kernel. int8 QK^T scoring is a later kernel and raises.
+    into the kernel.
+
+    rstats: optional (rq, rk) [B, S, 1] fp32 raw row statistics that the
+    projection computed (kernels.matmul_stat.linear_rstat); used only with
+    gq/gk. int8_score: score QK^T on per-(row, head) int8 codes of q~/k~
+    (an inference approximation).
 
     With grad enabled and an input that needs a gradient it runs the unfused
     math through the differentiable flash_attention instead (as the JAX
-    package's custom_vjp does), which needs the half-width cos/sin."""
-    if int8_score:
-        raise NotImplementedError("int8 QK^T scoring is not ported yet")
+    package's custom_vjp does), which needs the half-width cos/sin; there
+    int8_score is a no-op and the exact math runs."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
-    if _needs_grad(q, k, v, gq, gk):
+    rq, rk = rstats if rstats is not None and gq is not None else (None, None)
+    if _needs_grad(q, k, v, gq, gk, rq, rk):
         if cos is None or sin is None:
             raise ValueError("the differentiable path needs the half-width "
                              "cos/sin tables")
+        if rq is not None:
+            return _unfused_rope_rms_attention_rs(q, k, v, rq, rk, cos, sin, gq,
+                                                  gk, num_heads, sm_scale,
+                                                  window_size)
         return _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads,
                                            eps, sm_scale, window_size)
-    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale)
+    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq, rk)
     cos_i, sin_i = tables_i if tables_i is not None else prepare_fused_rope_tables(cos, sin)
-    return fused_attention(q, k, v, rq.contiguous(), rk.contiguous(), gqv, gkv,
-                           cos_i, sin_i, num_heads=num_heads,
-                           window_size=window_size)
+    return fused_attention(q, k, v, rq, rk, gqv, gkv, cos_i, sin_i,
+                           num_heads=num_heads, window_size=window_size,
+                           int8_score=int8_score)
 
 
 def fused_rms_cross_attention(q, k, v, gq=None, gk=None, *, num_heads: int,
                               eps: float = 1e-6,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None, rq=None):
     """Cross-attention over RAW projections q [B, S, D] (video tokens) and
-    k/v [B, Skv, D] (context tokens) with qk-RMSNorm fused into the kernel;
-    the k statistic spans each context row. Under grad (an input needs a
-    gradient) it runs the unfused math through flash_attention."""
+    k/v [B, Skv, D] (context tokens) with qk-RMSNorm fused into the kernel.
+    rq: optional [B, S, 1] fp32 raw q statistic from the projection (used
+    only with gq); the k statistic spans each context row and is always
+    reduced here. Under grad (an input needs a gradient) it runs the unfused
+    math through flash_attention."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
-    if _needs_grad(q, k, v, gq, gk):
+    rq = rq if gq is not None else None
+    if _needs_grad(q, k, v, gq, gk, rq):
+        if rq is not None:
+            return _unfused_rms_cross_attention_rs(q, k, v, rq, gq, gk, num_heads,
+                                                   eps, sm_scale)
         return _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps,
                                             sm_scale)
-    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale)
-    return fused_attention(q, k, v, rq.contiguous(), rk.contiguous(), gqv, gkv,
-                           num_heads=num_heads)
+    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq)
+    return fused_attention(q, k, v, rq, rk, gqv, gkv, num_heads=num_heads)

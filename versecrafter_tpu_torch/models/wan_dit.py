@@ -7,9 +7,10 @@ block is one dict in the list ``params["blocks"]`` (and
 fused functions of kernels/flash_attention.py (the CUDA kernels on the card,
 their plain versions on the CPU): the fused inference kernel, or, when an
 input needs a gradient, the unfused math over the differentiable flash
-attention. GeoAdapter hints are computed interleaved: geoada block i runs
-right before base block stride*i, and its hint after_proj(c)*scale is added
-right after that base block. Training calls wan_dit_embed, wan_dit_blocks
+attention. Two opt-in module flags, read at call time, change that path:
+INT8_QK_SCORE and PROJ_STAT_FUSION (below). GeoAdapter hints are computed
+interleaved: geoada block i runs right before base block stride*i, and its
+hint after_proj(c)*scale is added right after that base block. Training calls wan_dit_embed, wan_dit_blocks
 (remat=True) and wan_dit_head directly; wan_dit_forward is inference only.
 """
 
@@ -26,9 +27,22 @@ from versecrafter_tpu_torch.core.config import WanDiTConfig
 from versecrafter_tpu_torch.kernels.flash_attention import (
     fused_rms_cross_attention, fused_rope_rms_attention,
     prepare_fused_rope_tables)
+from versecrafter_tpu_torch.kernels.matmul_stat import linear_rstat
 from versecrafter_tpu_torch.kernels.norms import layer_norm
 
 Params = Dict[str, Any]
+
+# Score self-attention's QK^T on per-(row, head) int8 codes of q~/k~ inside
+# the fused kernel (PV stays bf16): an opt-in inference approximation, set
+# through VerseCrafterPipeline.enable_int8_attention() or a generate
+# request's `int8_attention`. Read at call time; a no-op under grad.
+INT8_QK_SCORE = False
+
+# Compute the qk-RMSNorm row statistics in the q/k projections' matmul
+# epilogue (kernels/matmul_stat.linear_rstat) instead of reducing over the
+# projection outputs again. Opt-in; read at call time. Applies to plain
+# tensor kernels only.
+PROJ_STAT_FUSION = False
 
 
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -176,28 +190,46 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
+def _plain_kernel(p: Params) -> bool:
+    return isinstance(p["kernel"], torch.Tensor)
+
+
 def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig):
-    q = _linear(p["q"], x)
-    k = _linear(p["k"], x)
+    rstats = None
+    if (cfg.qk_norm and PROJ_STAT_FUSION and _plain_kernel(p["q"])
+            and _plain_kernel(p["k"])):
+        # the q/k projections emit their row statistics in the epilogue
+        q, rq = linear_rstat(p["q"], x, cfg.eps)
+        k, rk = linear_rstat(p["k"], x, cfg.eps)
+        rstats = (rq, rk)
+    else:
+        q = _linear(p["q"], x)
+        k = _linear(p["k"], x)
     v = _linear(p["v"], x)
     out = fused_rope_rms_attention(
         q, k, v, cos, sin,
         p["norm_q"]["scale"] if cfg.qk_norm else None,
         p["norm_k"]["scale"] if cfg.qk_norm else None,
         num_heads=cfg.num_heads, eps=cfg.eps, window_size=cfg.window_size,
-        tables_i=rope_i)
+        tables_i=rope_i, rstats=rstats, int8_score=INT8_QK_SCORE)
     return _linear(p["o"], out)
 
 
 def _cross_attention(p: Params, x, context, cfg: WanDiTConfig):
-    q = _linear(p["q"], x)
+    rq = None
+    if cfg.qk_norm and PROJ_STAT_FUSION and _plain_kernel(p["q"]):
+        # the q statistic comes from the projection; the k statistic spans
+        # only the context tokens
+        q, rq = linear_rstat(p["q"], x, cfg.eps)
+    else:
+        q = _linear(p["q"], x)
     k = _linear(p["k"], context)
     v = _linear(p["v"], context)
     out = fused_rms_cross_attention(
         q, k, v,
         p["norm_q"]["scale"] if cfg.qk_norm else None,
         p["norm_k"]["scale"] if cfg.qk_norm else None,
-        num_heads=cfg.num_heads, eps=cfg.eps)
+        num_heads=cfg.num_heads, eps=cfg.eps, rq=rq)
     return _linear(p["o"], out)
 
 

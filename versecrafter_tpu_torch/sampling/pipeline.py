@@ -92,6 +92,14 @@ class VerseCrafterPipeline:
     def enable_cfg_skip(self, *args, **kwargs):
         _not_ported("cfg-skip")
 
+    def enable_int8_attention(self, enabled: bool = True):
+        """int8 QK^T scoring inside the fused self-attention kernel
+        (per-(row, head) int8 q~/k~ codes, PV in bf16): an inference
+        approximation to opt into after judging quality. Module-global:
+        sets wan_dit.INT8_QK_SCORE."""
+        from versecrafter_tpu_torch.models import wan_dit
+        wan_dit.INT8_QK_SCORE = bool(enabled)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

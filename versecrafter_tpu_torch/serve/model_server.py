@@ -1,6 +1,7 @@
-"""Serving subset: the random-init pipeline factory and the
-request-to-pipeline mapping. The HTTP tier and mp4 request loading wait for
-a later slice (they need cv2, which a GPU deployment may lack)."""
+"""Serving subset: the random-init pipeline factory, the request-to-pipeline
+mapping and the per-request toggles of a request whose control videos are
+already loaded. The HTTP tier and mp4 request loading wait for a later
+slice (they need cv2, which a GPU deployment may lack)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,40 @@ def _call_pipe(pipe, params, controls, mask, h, w, n, progress):
         progress=progress,
         output_type="uint8",
     )
+
+
+def _unported_request_feature(params: dict) -> Optional[str]:
+    """The first request toggle whose feature is not ported yet, if any:
+    TeaCache, cfg-skip, or weight quantization (asked for as the JAX server
+    reads it)."""
+    for name in ("teacache_threshold", "cfg_skip_ratio"):
+        if name in params:
+            return name
+    if params.get("quantize_int8") or params.get("int8_compute") or "quantize_bits" in params:
+        return "quantization"
+    return None
+
+
+def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
+    """One generate request whose control videos and mask are loaded: the
+    per-request toggles of the JAX server's run_generate_request, then the
+    pipeline call (uint8 frames [B, T, H, W, 3]). `int8_attention` sets
+    int8 QK^T scoring for this request; the previous setting is restored
+    afterwards, also when the request raises. TeaCache, cfg-skip and
+    quantization params raise NotImplementedError."""
+    from versecrafter_tpu_torch.models import wan_dit
+
+    h = int(params.get("height", 480))
+    w = int(params.get("width", 832))
+    n = int(params.get("num_frames", 81))
+    saved_int8_attn = wan_dit.INT8_QK_SCORE
+    try:
+        if "int8_attention" in params:
+            pipe.enable_int8_attention(bool(params["int8_attention"]))
+        unported = _unported_request_feature(params)
+        if unported:
+            raise NotImplementedError(
+                f"request param {unported!r} is not ported to versecrafter_tpu_torch yet")
+        return _call_pipe(pipe, params, controls, mask, h, w, n, progress)
+    finally:
+        wan_dit.INT8_QK_SCORE = saved_int8_attn
