@@ -5,24 +5,26 @@
 
 Phases, each timed, any failure fatal (exit code != 0, no result line):
   1. environment and the kernels' build (nvcc, one process per source, all
-     started together);
+     started together), with ptxas's registers and spills of the bf16 fused
+     attention kernel (a ptxas warning C7512, wgmma serialised, fails);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
      training path's self 32,760 and cross 32,760 x 512 head-major shapes)
      plus a ragged shape and a k_lens/window case, bar 2*2^-8*max|plain|
-     (bf16), with kernel, plain, library-yardstick and bound times; the
-     backward kernels' wgmma / TMA tile and fragment layouts on an
-     integer-valued tile pair (exact), and the backward pair at shapes that
-     straddle its 64-row tiles and 128-row CTAs;
+     (bf16), with kernel, plain, library-yardstick and bound times, and a
+     bit-identical rerun of both fused flavors at 32,760; the fused and the
+     backward kernels' wgmma / TMA tile and fragment layouts on
+     integer-valued tile pairs (exact); both fused flavors and the backward
+     pair at shapes that straddle their tiles and CTAs;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
      pipeline with umT5-xxl and the Wan VAE from random weights serves two
      generate requests (480x832x81, 3 UniPC steps, CFG 5) through the
      serving mapping; the launch counters must read 45 per step per fused
      flavor, and the DiT on the card must agree with the same DiT on the CPU
      at a small input;
-  4. one timed batched-CFG denoise step at 480x832x81, then the same step
-     under torch.profiler: device time by kernel and the device's idle
-     share;
+  4. one timed batched-CFG denoise step at 480x832x81 (the two timed steps'
+     predictions must be bit-identical), then the same step under
+     torch.profiler: device time by kernel and the device's idle share;
   5. the training path: GeoAdapter-only training of the full-width
      Wan2.1-1.3B + GeoAdapter at 480x832x81, batch 1: loss and gradients on
      the card against the CPU at 192 tokens, a warm-up and two timed steps
@@ -49,6 +51,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -76,6 +79,11 @@ SOURCES = {
     "fused_rope_rms_attention_int8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
     "linear_rstat": "versecrafter_tpu_torch/csrc/matmul_stat.cu",
 }
+# (B, N, Sq, Skv, window, k_lens) that straddle the fused kernel's tiles
+FUSED_EDGE_CASES = [(1, 2, 193, 321, (-1, -1), None), (2, 2, 129, 64, (-1, -1), (64, 0)),
+                    (1, 2, 200, 40, (-1, -1), None), (2, 2, 700, 77, (-1, -1), (77, 5)),
+                    (1, 1, 32760, 192, (-1, -1), None), (1, 2, 384, 384, (64, 32), None),
+                    (2, 2, 333, 333, (100, 27), (333, 0)), (1, 2, 300, 300, (-1, 0), None)]
 TRAIN_STEPS = 3  # a warm-up step and two timed ones
 TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
 STEPS = 3
@@ -151,9 +159,11 @@ def compare(what, got, ref, corr_bar=None, err_bar=None):
 
 
 def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
-                 timed=False, seed=0):
+                 timed=False, seed=0, rerun=False):
     """Kernel vs plain on the same inputs; returns the record's numbers. The
-    int8 flavor is also held to the exact bf16 kernel (int8 envelope)."""
+    int8 flavor is also held to the exact bf16 kernel (int8 envelope). With
+    `rerun`, a second launch on the same inputs must be bit-identical; a
+    batch element with k_len 0 must write zeros."""
     rope = name.startswith("fused_rope_rms_attention")
     int8 = name == "fused_rope_rms_attention_int8"
     q, k, v, gq, gk, cos, sin = attention_inputs(fa, B, S, Skv, N, seed, dev)
@@ -174,6 +184,14 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     del ref
+    for b_, n_ in enumerate(k_lens or ()):
+        if n_ == 0 and got[b_].abs().max().item() != 0.0:
+            raise AssertionError(f"{name}: a batch element with k_len 0 wrote non-zeros")
+    if rerun:
+        same = torch.equal(got, fa.fused_attention(*args, **kw))
+        log(f"    rerun on the same inputs bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{name}: a rerun on the same inputs differs")
     if int8:  # tests/test_int8_attention.py's envelope: <= 3 %·max, corr > 0.999
         exact = fa.fused_attention(*args, **{**kw, "int8_score": False})
         compare("against the exact bf16 kernel", got, exact, corr_bar=0.999,
@@ -357,6 +375,42 @@ def check_wgmma_layout(fab, dev):
                 raise AssertionError(f"wgmma layout check, matrix {which}: {name} is not exact")
     log("  wgmma / TMA layout check: three product forms exact on integer tiles, "
         "rows past the matrix read as zeros")
+
+
+def check_fused_layout(fa, dev):
+    """The bf16 fused kernel's product forms on integer-valued tiles (entries
+    -1, 0, 1, every sum exact) read through the flat tensor map at head 1 of
+    a [1, 100, 256] tensor: A Bᵀ (m64n128k16, A as register fragments from
+    the 128-row swizzled tile, B K-major) and bf16(A Bᵀ) B (B read MN-major,
+    as V). Rows 100..127 of the tiles must read as zeros."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
+    b = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
+    c_s, c_pv = fa.fused_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(), h=1)
+    torch.cuda.synchronize()
+    at, bt = torch.zeros(128, 128), torch.zeros(128, 128)
+    at[:100], bt[:100] = a[0, :, 128:], b[0, :, 128:]
+    want = at @ bt.T
+    if not (torch.equal(c_s.cpu(), want) and torch.equal(c_pv.cpu(), want @ bt)):
+        raise AssertionError("fused wgmma layout check: a product is not exact")
+    log("  fused wgmma / TMA layout check: A Bᵀ and bf16(A Bᵀ) B exact on integer "
+        "128-row tiles at head 1 of 2, rows past the tensor read as zeros")
+
+
+def ptxas_check(_build, report):
+    """Registers and spills of the bf16 fused attention kernel from ptxas's
+    report of csrc/fused_attention.cu; fails on warning C7512 (every wgmma
+    serialised for lack of registers) anywhere in the source."""
+    for name, res in _build.ptxas_kernels(report).items():
+        if "fused_wgmma_kernel" in name:
+            flavor = "RoPE" if "ILb1E" in name else "norm-only"
+            log(f"[build] ptxas fused_wgmma_kernel ({flavor}): {res.get('registers')} "
+                f"registers (240 a consumer thread after setmaxnreg), spill stores "
+                f"{res.get('spill_stores')} B, spill loads {res.get('spill_loads')} B")
+    warnings = [line for line in report.splitlines() if "C7512" in line]
+    if warnings:
+        raise AssertionError("ptxas serialised wgmma in fused_attention.cu: " + warnings[0])
+    log("[build] ptxas: no C7512 in fused_attention.cu")
 
 
 def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
@@ -718,13 +772,18 @@ def main() -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     t_all = time.perf_counter()
+    failures = []
 
     # -- 1. environment + build ------------------------------------------
     log(f"[env] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build_all(_build.kernel_sources())
+    with ThreadPoolExecutor(max_workers=1) as pool:  # beside the builds' own nvccs
+        report = pool.submit(_build.ptxas_report, "fused_attention")
+        _build.build_all(_build.kernel_sources())
+        report = report.result()
     log(f"[build] {_build.kernel_sources()} built in {time.perf_counter() - t0:.1f} s")
+    ptxas_check(_build, report)
 
     # -- 2. kernel parity ------------------------------------------------
     t0 = time.perf_counter()
@@ -733,11 +792,20 @@ def main() -> int:
     for name, ctx_len in (("fused_rope_rms_attention", None),
                           ("fused_rms_cross_attention", 512)):
         records[name] = check_kernel(fa, name, 2, 32760, ctx_len or 32760, 12, dev,
-                                     timed=True)
+                                     timed=True, rerun=True)
         check_kernel(fa, name, 2, 14040, ctx_len or 14040, 12, dev)
         check_kernel(fa, name, 2, 520, 77 if ctx_len else 520, 12, dev)
     check_kernel(fa, "fused_rope_rms_attention", 2, 520, 520, 2, dev,
                  window=(64, 32), k_lens=(300, 0))
+    # the bf16 fused kernel's tile geometry: the layout check, then lengths
+    # that straddle its 128-row q tiles and 128-key tiles in both
+    # directions, keys shorter than a tile, k_lens holding a 0, windows, and
+    # 32,760 = 255 * 128 + 120 q rows at one head
+    check_fused_layout(fa, dev)
+    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
+        for B_, N_, Sq, Skv, window, k_lens in FUSED_EDGE_CASES:
+            check_kernel(fa, name, B_, Sq, Skv, N_, dev, window=window, k_lens=k_lens,
+                         seed=1, rerun=True)
     # the training path's shapes: self 32,760 and cross 32,760 x 512, batch 1
     records.update(check_flash(fa, fab, 1, 12, 32760, 32760, dev, timed=True))
     cross = check_flash(fa, fab, 1, 12, 32760, 512, dev, timed=True)
@@ -850,14 +918,22 @@ def main() -> int:
 
     step()
     torch.cuda.synchronize()
-    times = []
+    times, preds = [], []
     for _ in range(2):
         t1 = time.perf_counter()
-        pred = step()
+        preds.append(step())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
+    pred = preds[-1]
     if not torch.isfinite(pred).all():
         raise AssertionError("non-finite prediction at 480x832x81")
+    same = torch.equal(preds[0], preds[1])
+    log(f"[step] the two timed steps' predictions are bit-identical: {same} "
+        f"(max|pred| {pred.float().abs().max().item():.6g}, max|difference| "
+        f"{(preds[0].float() - preds[1].float()).abs().max().item():.6g})")
+    if not same:  # the later phases still run; the smoke fails at its end
+        failures.append("two denoise steps on the same inputs differ")
+    del preds
     log(f"[step] 480x832x81 (32,760 tokens) CFG-2 denoise step: "
         f"{' '.join(f'{t:.1f}' for t in times)} ms on {card}; kernels alone "
         f"{45 * (records['fused_rope_rms_attention']['ms'] + records['fused_rms_cross_attention']['ms']):.1f} ms "
@@ -875,6 +951,8 @@ def main() -> int:
     for k_, v in variants_phase(fa, fab, ms, dev, card).items():
         launches_main[k_] = launches_main.get(k_, 0) + v
 
+    if failures:
+        raise AssertionError("; ".join(failures))
     kernels = []
     for name, rec in records.items():
         kernels.append({

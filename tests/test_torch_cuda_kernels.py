@@ -97,6 +97,106 @@ def test_kernel_rejects_what_it_cannot_take(dev):
         fa.fused_rms_cross_attention(q, k, v, gq, gk, num_heads=2 * N)
 
 
+# shapes that straddle the bf16 fused kernel's 128-row q tiles and 128-key
+# tiles in both directions, keys shorter than a tile, k_lens holding a 0,
+# windows, and 32,760 = 255 * 128 + 120 q rows at one head
+FUSED_CASES = [  # (B, N, Sq, Skv, window, k_lens)
+    (1, 2, 193, 321, (-1, -1), None),
+    (2, 2, 129, 64, (-1, -1), (64, 0)),
+    (1, 2, 200, 40, (-1, -1), None),
+    (2, 2, 700, 77, (-1, -1), (77, 5)),
+    (1, 1, 32760, 192, (-1, -1), None),
+    (1, 2, 384, 384, (64, 32), None),
+    (2, 2, 333, 333, (100, 27), (333, 0)),
+    (1, 2, 300, 300, (-1, 0), None),
+]
+
+
+def _fused_inputs(dev, B, N, Sq, Skv, seed):
+    """Raw projections, statistics, scales and interleaved tables covering
+    max(Sq, Skv) rows of a 30 x 52 token grid."""
+    rng = np.random.default_rng(seed)
+    D = N * fa.HEAD_DIM
+
+    def t(shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+        return torch.as_tensor(rng.standard_normal(shape) * scale + shift,
+                               dtype=torch.float32, device=dev).to(dtype)
+
+    q, k, v = t((B, Sq, D)), t((B, Skv, D)), t((B, Skv, D))
+    # a q scale of ~2: peaked softmax rows, outputs O(1)
+    gq, gk = t((D,), 0.2, 2.0, torch.float32), t((D,), 0.1, 1.0, torch.float32)
+    rows = max(Sq, Skv)
+    cos, sin = grid_cos_sin(rope_3d_angles(fa.HEAD_DIM), -(-rows // 1560), 30, 52, device=dev)
+    rq, rk, gqv, gkv = fa._stats_and_scales(q, k, gq, gk, 1e-6, fa.HEAD_DIM ** -0.5)
+    ci, si = fa.prepare_fused_rope_tables(cos[:rows], sin[:rows])
+    return q, k, v, rq, rk, gqv, gkv, ci, si
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+@pytest.mark.parametrize("rope", [True, False])
+def test_fused_flavors_at_tile_edges(dev, case, rope):
+    """Both bf16 flavors against the plain version at shapes that straddle
+    the kernel's tiles and CTAs; a batch element with k_len 0 writes zeros
+    and a rerun is bit-identical (no atomics, no split over keys)."""
+    B, N, Sq, Skv, window, k_lens = case
+    q, k, v, rq, rk, gq, gk, ci, si = _fused_inputs(dev, B, N, Sq, Skv, seed=4)
+    tabs = (ci, si) if rope else (None, None)
+    kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
+    kw = dict(num_heads=N, window_size=window, k_lens=kl)
+    name = "fused_rope_rms_attention" if rope else "fused_rms_cross_attention"
+    before = fa.LAUNCHES[name]
+    got = fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    ref = fa.fused_attention_plain(q, k, v, rq, rk, gq, gk, *tabs, **kw)
+    err, mx = _err(got, ref)
+    assert err <= BF16_BAR * mx, (err, mx)
+    for b_, n_ in enumerate(k_lens or ()):
+        if n_ == 0:
+            assert got[b_].abs().max().item() == 0.0
+    assert torch.equal(got, fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, **kw))
+
+
+def test_fused_wgmma_layout(dev):
+    """The bf16 fused kernel's product forms on integer-valued tiles read
+    through the flat tensor map at head 1 of 2: A Bᵀ (m64n128k16, A as
+    register fragments from the 128-row swizzled tile, one warpgroup per 64
+    rows, B K-major) and bf16(A Bᵀ) B (packed scores as register A, B read
+    MN-major);
+    exact. The tensor has 100 rows: rows 100..127 of the tiles must read as
+    zeros."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
+    b = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
+    c_s, c_pv = fa.fused_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(), h=1)
+    torch.cuda.synchronize()
+    at, bt = torch.zeros(128, 128), torch.zeros(128, 128)
+    at[:100], bt[:100] = a[0, :, 128:], b[0, :, 128:]
+    want = at @ bt.T  # |entries| <= 128: exact in bf16
+    assert torch.equal(c_s.cpu(), want)
+    assert torch.equal(c_pv.cpu(), want @ bt)
+
+
+def test_fused_rejects_misaligned_or_strided_inputs(dev):
+    """The tensor maps need contiguous, 16-byte aligned projections: a
+    sliced or shifted view raises instead of launching."""
+    q, k, v, rq, rk, gq, gk, ci, si = _fused_inputs(dev, 1, 2, 130, 130, seed=5)
+    before = dict(fa.LAUNCHES)
+    strided = torch.cat([k, k], dim=1)[:, ::2]  # non-contiguous rows
+    shifted = torch.cat([v, v], dim=1).view(-1)[1:1 + v.numel()].view(v.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    for rope in (True, False):
+        tabs = (ci, si) if rope else (None, None)
+        for bad in (dict(k=strided), dict(v=shifted), dict(q=shifted)):
+            args = {"q": q, "k": k, "v": v, **bad}
+            with pytest.raises(ValueError):
+                fa.fused_attention(args["q"], args["k"], args["v"], rq, rk, gq, gk, *tabs,
+                                   num_heads=2)
+    assert fa.LAUNCHES == before
+    fa.fused_attention(q, k, v, rq, rk, gq, gk, ci, si, num_heads=2)  # aligned: launches
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # plain flash attention (both flavors) and the FA2 backward kernels
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@
 // bf16 tile is two halves of 64 columns, each an 8 KB block of 64 rows x
 // 128 bytes in the 128-byte swizzle (the 16-byte chunk c of row r sits at
 // chunk c ^ (r & 7)); half 1 follows half 0. Tile bases are 1024-byte
-// aligned, which the swizzle pattern needs.
+// aligned, which the swizzle pattern needs. A [128 rows, 128 columns] tile
+// (the fused attention kernel's) is the same with 16 KB halves: the
+// descriptor helpers take the half's size.
 #pragma once
 
 #include <cuda.h>
@@ -87,6 +89,18 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
   tma_load_3d(dst + HALF_TILE_BYTES, map, bar, 64, row0, bh);
 }
 
+// ---- barriers between warpgroups and proxies --------------------------------
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `n` threads: wait, or
+// count this thread's arrival without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -123,18 +137,21 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // K-major operand ([rows, k] with k contiguous, as the tile stores a
-// matrix's rows): 16 k-columns starting at column k0 of the tile at `tile`.
-// Row groups of 8 are SW_GROUP_BYTES apart; the leading offset is unused.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int k0) {
-  return smem_desc(tile + (k0 >> 6) * HALF_TILE_BYTES + (k0 & 63) * 2, 16, SW_GROUP_BYTES);
+// matrix's rows): 16 k-columns starting at column k0 of the tile at `tile`,
+// whose 64-column halves are `half` bytes apart. Row groups of 8 are
+// SW_GROUP_BYTES apart; the leading offset is unused.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int k0,
+                                                 uint32_t half = HALF_TILE_BYTES) {
+  return smem_desc(tile + (k0 >> 6) * half + (k0 & 63) * 2, 16, SW_GROUP_BYTES);
 }
 
 // MN-major B operand over the same tile read as [k = tile row, n = tile
 // column]: 16 k-rows starting at row k0, all 128 columns. The two
-// 64-column halves are HALF_TILE_BYTES apart (leading offset), 8-row
-// groups SW_GROUP_BYTES apart (stride offset).
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int k0) {
-  return smem_desc(tile + k0 * SW_ROW_BYTES, HALF_TILE_BYTES, SW_GROUP_BYTES);
+// 64-column halves are `half` bytes apart (leading offset), 8-row groups
+// SW_GROUP_BYTES apart (stride offset).
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int k0,
+                                                  uint32_t half = HALF_TILE_BYTES) {
+  return smem_desc(tile + k0 * SW_ROW_BYTES, half, SW_GROUP_BYTES);
 }
 
 #define VC_F8(d, i)                                                             \
@@ -177,6 +194,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A from registers, B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VC_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : VC_F32(d, 0), VC_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers, B MN-major in
 // shared memory (the transposed read of a row-major tile)
 __device__ __forceinline__ void wgmma_m64n128k16_rs_bt(float (&d)[64],
@@ -206,14 +235,14 @@ __device__ __forceinline__ void pack_a_frag(uint32_t (&a)[4], const float (&x)[N
 }
 
 // The register A operand for columns k0 .. k0+15 of this warp's 16 rows
-// (rows r16 .. r16+15 of the swizzled tile at `tile`), by ldmatrix
+// (rows r16 .. r16+15 of the swizzled tile at `tile`, whose 64-column halves
+// are `half` bytes apart), by ldmatrix
 __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t tile, int r16, int k0,
-                                            int lane) {
+                                            int lane, uint32_t half = HALF_TILE_BYTES) {
   const int mat = lane >> 3, mrow = lane & 7;
   const int r = r16 + (mat & 1) * 8 + mrow;
   const int chunk = ((k0 & 63) >> 3) + (mat >> 1);
-  const uint32_t addr = tile + (k0 >> 6) * HALF_TILE_BYTES + r * SW_ROW_BYTES +
-                        ((chunk ^ (r & 7)) << 4);
+  const uint32_t addr = tile + (k0 >> 6) * half + r * SW_ROW_BYTES + ((chunk ^ (r & 7)) << 4);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
@@ -272,6 +301,30 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int count
   const cuuint64_t strides[2] = {128 * sizeof(__nv_bfloat16),
                                  cuuint64_t(rows) * 128 * sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                              const_cast<void*>(base), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 100000 + int(res);
+}
+
+// Tensor map over a flat row-major bf16 [batch, rows, cols] tensor at
+// `base` (16-byte aligned, cols a multiple of 8), as a projection stores
+// [B, S, N*128]: dims {cols, rows, batch}, boxes of `box_rows` rows x 64
+// columns in the 128-byte swizzle. A head's columns are addressed by the
+// column coordinate (h*128, h*128 + 64). Rows are their own dimension, so
+// rows past `rows` read as zeros and a box never runs into the next batch
+// element. Returns 0 or a non-zero error code.
+inline int make_flat_map(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                         int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return int(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(batch)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * sizeof(__nv_bfloat16),
+                                 cuuint64_t(rows) * cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                               const_cast<void*>(base), dims, strides, box, elem,

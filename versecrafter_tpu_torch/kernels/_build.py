@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -93,6 +94,41 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build(name))
         return _libs[name]
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's resource report (``-Xptxas -v``) for csrc/<name>.cu: every
+    kernel's registers, spills and shared memory, and ptxas's warnings. The
+    source is compiled to a cubin in a temporary directory with the
+    library's code-generation flags; the library itself is untouched."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v", "-o",
+               os.path.join(tmp, name + ".cubin"), os.path.join(CSRC_DIR, name + ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    return proc.stderr
+
+
+def ptxas_kernels(report: str) -> Dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from a ptxas_report."""
+    kernels: Dict[str, dict] = {}
+    current = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return kernels
 
 
 def kernel_sources() -> list:

@@ -1,12 +1,13 @@
 """Attention kernels' wrappers, their plain PyTorch versions, and the
 attention reference math.
 
-Fused qk-RMSNorm (+ RoPE) attention (csrc/fused_attention.cu). Both fused
-flavors take the RAW q/k/v projections in their flat [B, S, N*D] layout. The
-per-row RMS statistic spans all heads, so the wrapper computes it outside the
-kernel (rq = rsqrt(mean(q^2)+eps) * sm_scale * log2(e), rk likewise without
-the scale); the per-head norm scale and the RoPE rotation run inside the
-kernel's tile prologue. The plain version computes the same function with the
+Fused qk-RMSNorm (+ RoPE) attention (csrc/fused_attention.cu; the bf16
+flavors on wgmma with TMA-fed tiles, the int8 flavor on warp-level MMA). Both
+fused flavors take the RAW q/k/v projections in their flat [B, S, N*D]
+layout. The per-row RMS statistic spans all heads, so the wrapper computes it
+outside the kernel (rq = rsqrt(mean(q^2)+eps) * sm_scale * log2(e), rk
+likewise without the scale); the per-head norm scale and the RoPE rotation
+run inside the kernel's tile prologue. The plain version computes the same function with the
 same rounding points (q~/k~ rounded once after norm+rotate, bf16 interleaved
 tables, l from fp32 P, PV on P cast to v's dtype). The fused kernel is
 inference only: when grad is enabled and an input needs a gradient, the fused
@@ -46,7 +47,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
 HEAD_DIM = 128          # the only head_dim the kernel takes
 TABLE_ROW_ALIGN = 128   # rope tables are padded to this many rows
-KV_TILE = 64            # the fused kernel's kv tile (the int8 k scales pad to it)
+KV_TILE = 64            # the int8 kernel's kv tile (its k scales pad to it)
+FUSED_TILE = 128        # the bf16 fused kernel's q rows and keys per tile
 
 # Kernel launches per kernel since the last reset (comparison launches are
 # counted too; a caller measuring a path resets first). "flash_attention"
@@ -422,11 +424,40 @@ def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
             k_scratch.data_ptr(), k_scale.data_ptr() if int8 else None,
             out.data_ptr(), B, Sq, Skv, num_heads, int(window_size[0]),
             int(window_size[1]), int(rope), int(int8), stream)
+    if err >= 100000:
+        raise RuntimeError(f"fused attention: tensor map refused, CUresult {err - 100000}")
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: cudaError {err}")
     LAUNCHES["fused_rope_rms_attention_int8" if int8 else
              "fused_rope_rms_attention" if rope else "fused_rms_cross_attention"] += 1
     return out
+
+
+def fused_layout_check(a: torch.Tensor, b: torch.Tensor, h: int = 0):
+    """The bf16 fused kernel's tile and fragment layouts on the card: a, b
+    bf16 [1, rows, cols] (rows <= 128, cols a multiple of 128) read through
+    the flat tensor map at head h's columns into zero-padded [128, 128]
+    tiles. Returns (A Bᵀ, bf16(A Bᵀ) B), fp32 [128, 128] each: the score
+    product (A as register fragments loaded from the swizzled tile, B K-major
+    in shared memory) and the PV product (P from registers, B read MN-major
+    as V is). Exact on small integers."""
+    _check_cuda("a", a, torch.bfloat16)
+    _check_cuda("b", b, torch.bfloat16, a.shape)
+    one, rows, cols = a.shape
+    if one != 1 or not 0 < rows <= FUSED_TILE or cols % HEAD_DIM or not 0 <= h < cols // HEAD_DIM:
+        raise ValueError(f"need [1, rows <= {FUSED_TILE}, N*{HEAD_DIM}] and a head of it, "
+                         f"got {tuple(a.shape)}, h={h}")
+    fn = _build.load("fused_attention").vc_fused_layout_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    outs = [torch.empty(FUSED_TILE, n, dtype=torch.float32, device=a.device)
+            for n in (FUSED_TILE, HEAD_DIM)]
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), rows, cols, h, *(t.data_ptr() for t in outs),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused layout check failed: error {err}")
+    return tuple(outs)
 
 
 def fused_attention(q, k, v, rq, rk, gq, gk, cos_i=None, sin_i=None, *,
