@@ -5,17 +5,21 @@
 
 Phases, each timed, any failure fatal (exit code != 0, no result line):
   1. environment and the kernels' build (nvcc, one process per source, all
-     started together), with ptxas's registers and spills of the bf16 fused
-     attention kernel (a ptxas warning C7512, wgmma serialised, fails);
+     started together), with ptxas's registers and spills of the wgmma
+     attention kernels of csrc/fused_attention.cu and
+     csrc/flash_attention.cu (a ptxas warning C7512, wgmma serialised, or a
+     spill fails);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
      training path's self 32,760 and cross 32,760 x 512 head-major shapes)
      plus a ragged shape and a k_lens/window case, bar 2*2^-8*max|plain|
      (bf16), with kernel, plain, library-yardstick and bound times, and a
-     bit-identical rerun of both fused flavors at 32,760; the fused and the
+     bit-identical rerun of both fused flavors at 32,760 and of the plain
+     forward's two flavors at every shape; the fused (bf16 and s8) and the
      backward kernels' wgmma / TMA tile and fragment layouts on
-     integer-valued tile pairs (exact); both fused flavors and the backward
-     pair at shapes that straddle their tiles and CTAs;
+     integer-valued tile pairs (exact); the three fused flavors, the plain
+     forward and the backward pair at shapes that straddle their tiles and
+     CTAs; twenty back-to-back launches of each forward flavor, bit-identical;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
      pipeline with umT5-xxl and the Wan VAE from random weights serves two
      generate requests (480x832x81, 3 UniPC steps, CFG 5) through the
@@ -37,7 +41,8 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      wan_dit.PROJ_STAT_FUSION on (q/k statistics from the linear_rstat
      GEMM), each with its launch counts; then one timed CFG-2 denoise step
      per variant under torch.profiler, its prediction held against the
-     default path's on the same inputs.
+     default path's on the same inputs, and each variant's step time beside
+     the default's.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope).
@@ -300,6 +305,17 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
     inf = fa._fa_forward(q, k, v, kl, sm, window, False)
     rec_f["max_abs_err"] = max(rec_f["max_abs_err"], agree(
         "forward (inference)", inf, fa.flash_attention_plain(q, k, v, kl, sm, window)))
+    same = (all(torch.equal(a, b) for a, b in zip(
+        (out, m, l), fa._fa_forward(q, k, v, kl, sm, window, True)))
+            and torch.equal(inf, fa._fa_forward(q, k, v, kl, sm, window, False)))
+    log(f"    forward reruns (both flavors) bit-identical: {same}")
+    if not same:
+        raise AssertionError("flash attention: a rerun on the same inputs differs")
+    for b_, n_ in enumerate(k_lens or ()):
+        if n_ == 0 and (out[b_].abs().max().item() != 0.0 or (l[b_] != 0).any()
+                        or (m[b_] != fa.NEG_INF).any()):
+            raise AssertionError("flash attention: a batch element with k_len 0 "
+                                 "wrote non-zeros")
     del ref, inf
     qs, L, delta = fab.backward_preamble(q, out, m, l, do, sm)
     dq, dk, dv = fab.fa_backward(q, k, v, out, m, l, do, kl, sm, window)
@@ -378,11 +394,14 @@ def check_wgmma_layout(fab, dev):
 
 
 def check_fused_layout(fa, dev):
-    """The bf16 fused kernel's product forms on integer-valued tiles (entries
-    -1, 0, 1, every sum exact) read through the flat tensor map at head 1 of
-    a [1, 100, 256] tensor: A Bᵀ (m64n128k16, A as register fragments from
-    the 128-row swizzled tile, B K-major) and bf16(A Bᵀ) B (B read MN-major,
-    as V). Rows 100..127 of the tiles must read as zeros."""
+    """The fused kernel's product forms on integer-valued tiles read through
+    the flat tensor map at head 1 of a [1, 100, 256] tensor: A Bᵀ
+    (m64n128k16, A as register fragments from the 128-row swizzled tile, B
+    K-major) and bf16(A Bᵀ) B (B read MN-major, as V) on entries -1, 0, 1
+    (every sum exact in bf16); the int8 flavor's s8 A Bᵀ (m64n128k32, A
+    fragments from 128-byte code rows, accumulators started from the fp32
+    bias) on codes -127..127. Rows 100..127 of the tiles must read as
+    zeros."""
     g = torch.Generator().manual_seed(0)
     a = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
     b = torch.randint(-1, 2, (1, 100, 256), generator=g).float()
@@ -393,24 +412,90 @@ def check_fused_layout(fa, dev):
     want = at @ bt.T
     if not (torch.equal(c_s.cpu(), want) and torch.equal(c_pv.cpu(), want @ bt)):
         raise AssertionError("fused wgmma layout check: a product is not exact")
-    log("  fused wgmma / TMA layout check: A Bᵀ and bf16(A Bᵀ) B exact on integer "
-        "128-row tiles at head 1 of 2, rows past the tensor read as zeros")
+    a8 = torch.randint(-127, 128, (1, 100, 256), generator=g, dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (1, 100, 256), generator=g, dtype=torch.int8)
+    (c8,) = fa.fused_layout_check(a8.to(dev), b8.to(dev), h=1)
+    torch.cuda.synchronize()
+    at8, bt8 = (torch.zeros(128, 128, dtype=torch.int64) for _ in range(2))
+    at8[:100], bt8[:100] = a8[0, :, 128:].long(), b8[0, :, 128:].long()
+    if not torch.equal(c8.cpu().double(), (at8 @ bt8.T).double()):
+        raise AssertionError("fused s8 wgmma layout check: the product is not exact")
+    log("  fused wgmma / TMA layout check: A Bᵀ and bf16(A Bᵀ) B (bf16) and the s8 A Bᵀ "
+        "exact on integer 128-row tiles at head 1 of 2, rows past the tensor read as zeros")
 
 
-def ptxas_check(_build, report):
-    """Registers and spills of the bf16 fused attention kernel from ptxas's
-    report of csrc/fused_attention.cu; fails on warning C7512 (every wgmma
-    serialised for lack of registers) anywhere in the source."""
-    for name, res in _build.ptxas_kernels(report).items():
-        if "fused_wgmma_kernel" in name:
-            flavor = "RoPE" if "ILb1E" in name else "norm-only"
-            log(f"[build] ptxas fused_wgmma_kernel ({flavor}): {res.get('registers')} "
-                f"registers (240 a consumer thread after setmaxnreg), spill stores "
-                f"{res.get('spill_stores')} B, spill loads {res.get('spill_loads')} B")
-    warnings = [line for line in report.splitlines() if "C7512" in line]
-    if warnings:
-        raise AssertionError("ptxas serialised wgmma in fused_attention.cu: " + warnings[0])
-    log("[build] ptxas: no C7512 in fused_attention.cu")
+def check_back_to_back(fa, dev, launches=20):
+    """The forward attention kernels launched `launches` times without a
+    host sync between them at 32,760 q rows x 192 keys (two key tiles an
+    item, so the q tile turns over fast): every output must equal the first
+    bit for bit and hold 2*2^-8*max|plain|. This caught a missing proxy
+    fence before the in-place q tile went back to TMA."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    sm = fa.HEAD_DIM ** -0.5
+    q = (2.0 * torch.randn(1, 1, 32760, fa.HEAD_DIM, generator=g, device=dev)).bfloat16()
+    k, v = (torch.randn(1, 1, 192, fa.HEAD_DIM, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    qf, kf, vf, gq, gk, cos, sin = attention_inputs(fa, 1, 32760, 192, 1, 3, dev)
+    rq, rk, gqv, gkv = fa._stats_and_scales(qf, kf, gq, gk, 1e-6, sm)
+    ci, si = fa.prepare_fused_rope_tables(cos, sin)
+    fused = (qf, kf, vf, rq, rk, gqv, gkv)
+    cases = [(f"flash_attention (stats={st})",
+              lambda st=st: fa._fa_forward(q, k, v, None, sm, (-1, -1), st),
+              lambda st=st: fa.flash_attention_plain(q, k, v, None, sm, (-1, -1), stats=st))
+             for st in (True, False)]
+    for name, tabs, int8 in (("fused_rope_rms_attention", (ci, si), False),
+                             ("fused_rms_cross_attention", (None, None), False),
+                             ("fused_rope_rms_attention_int8", (ci, si), True)):
+        kw = dict(num_heads=1, int8_score=int8)
+        cases.append((name, lambda tabs=tabs, kw=kw: fa.fused_attention(*fused, *tabs, **kw),
+                      lambda tabs=tabs, kw=kw: fa.fused_attention_plain(*fused, *tabs, **kw)))
+    for name, run, plain in cases:
+        outs = [run() for _ in range(launches)]
+        torch.cuda.synchronize()
+        outs = [o[0] if isinstance(o, tuple) else o for o in outs]
+        ref = plain()
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        same = sum(torch.equal(o, outs[0]) for o in outs)
+        err = (outs[0].float() - ref.float()).abs().max().item()
+        mx = ref.float().abs().max().item()
+        log(f"  {name} x{launches} back to back at 32,760 x 192: {same}/{launches} equal "
+            f"the first, max_abs_err {err:.4g} (bar {BF16_BAR * mx:.4g})")
+        if same != launches or not err <= BF16_BAR * mx:
+            raise AssertionError(f"{name}: back-to-back launches disagree")
+
+
+PTXAS_KERNELS = {  # mangled-name fragment -> (source, flavor)
+    "fused_wgmma_kernelILb1ELb0E": ("fused_attention", "RoPE"),
+    "fused_wgmma_kernelILb0ELb0E": ("fused_attention", "norm-only"),
+    "fused_wgmma_kernelILb1ELb1E": ("fused_attention", "int8"),
+    "flash_wgmma_kernelILb1E": ("flash_attention", "stats"),
+    "flash_wgmma_kernelILb0E": ("flash_attention", "inference"),
+}
+
+
+def ptxas_check(_build, reports):
+    """Registers and spills of the wgmma attention kernels from ptxas's
+    reports of csrc/fused_attention.cu and csrc/flash_attention.cu; fails on
+    warning C7512 (every wgmma serialised for lack of registers) anywhere in
+    either source, and on a spill in any of these kernels."""
+    found = set()
+    for src, report in reports.items():
+        for name, res in _build.ptxas_kernels(report).items():
+            for frag, (ksrc, flavor) in PTXAS_KERNELS.items():
+                if frag in name and ksrc == src:
+                    found.add(frag)
+                    log(f"[build] ptxas {frag.split('I')[0]} ({src}.cu, {flavor}): "
+                        f"{res.get('registers')} registers (240 a consumer thread after "
+                        f"setmaxnreg), spill stores {res.get('spill_stores')} B, spill loads "
+                        f"{res.get('spill_loads')} B")
+                    if res.get("spill_stores") or res.get("spill_loads"):
+                        raise AssertionError(f"ptxas spills in {src}.cu ({flavor})")
+        warnings = [line for line in report.splitlines() if "C7512" in line]
+        if warnings:
+            raise AssertionError(f"ptxas serialised wgmma in {src}.cu: " + warnings[0])
+    if found != set(PTXAS_KERNELS):
+        raise AssertionError(f"ptxas report lacks {set(PTXAS_KERNELS) - found}")
+    log(f"[build] ptxas: no C7512 and no spill in {', '.join(s_ + '.cu' for s_ in reports)}")
 
 
 def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
@@ -524,6 +609,7 @@ def train_phase(fa, fab, ms, dev, card):
         attention_launches_per_step, flow_matching_loss, make_optimizer,
         make_train_step, split_trainable, tree_leaves)
     from versecrafter_tpu_torch.sampling.pipeline import _to_device
+    from versecrafter_tpu_torch.utils import prng
 
     t0 = time.perf_counter()
     cfg = default_config()
@@ -581,12 +667,14 @@ def train_phase(fa, fab, ms, dev, card):
     geo = torch.randn(1, 128, f, 2 * h, 2 * w, generator=g, device=dev).to(torch.bfloat16)
     ctx = torch.randn(1, 512, cfg.text_dim, generator=g, device=dev).to(torch.bfloat16)
     cos, sin = grid_cos_sin(ang, f, h, w, device=dev)
-    step_fn = make_train_step(cfg, make_optimizer(train, 1e-4, 1e-2), gen)
+    step_fn = make_train_step(cfg, make_optimizer(train, 1e-4, 1e-2))
     train_before = [t.detach().clone() for t in tree_leaves(train)]
     frozen_before = [t.detach().clone() for t in tree_leaves(frozen)]
+    n_steps = [0]
 
-    def step():
-        return step_fn(params, x0, ctx, cos, sin, geo)
+    def step():  # step i draws its noise from key(2 + i), as the train CLI does
+        n_steps[0] += 1
+        return step_fn(params, x0, ctx, cos, sin, geo, key=prng.key(1 + n_steps[0], dev))
 
     fa.reset_launch_counts()
     fab.reset_launch_counts()
@@ -718,7 +806,7 @@ def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=(480, 832, FRAMES_
                                       eps)
         return y.reshape(*x.shape[:-1], -1), rs.reshape(*x.shape[:-1], 1)
 
-    base, _ = timed_step(step, "default path", card)
+    base, base_times = timed_step(step, "default path", card)
     # the noise floor of this random-weight model: its prediction moves this
     # much when the latents move by about one bf16 ulp, (1 + 2^-8)
     lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
@@ -727,8 +815,10 @@ def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=(480, 832, FRAMES_
     del lat_p
     try:
         wan_dit.INT8_QK_SCORE = True
-        pred, _ = timed_step(step, "INT8_QK_SCORE", card)
+        pred, int8_times = timed_step(step, "INT8_QK_SCORE", card)
         wan_dit.INT8_QK_SCORE = False
+        log(f"[variants] INT8_QK_SCORE step {min(int8_times):.1f} ms beside the default "
+            f"step {min(base_times):.1f} ms: {min(int8_times) / min(base_times):.4f}x")
         compare("int8 step vs default step", pred, base, corr_bar=0.999, err_bar=2 * floor)
         wan_dit.PROJ_STAT_FUSION = True
         pred, _ = timed_step(step, "PROJ_STAT_FUSION", card)
@@ -778,12 +868,13 @@ def main() -> int:
     log(f"[env] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:  # beside the builds' own nvccs
-        report = pool.submit(_build.ptxas_report, "fused_attention")
+    with ThreadPoolExecutor(max_workers=2) as pool:  # beside the builds' own nvccs
+        reports = {src: pool.submit(_build.ptxas_report, src)
+                   for src in ("fused_attention", "flash_attention")}
         _build.build_all(_build.kernel_sources())
-        report = report.result()
+        reports = {src: r.result() for src, r in reports.items()}
     log(f"[build] {_build.kernel_sources()} built in {time.perf_counter() - t0:.1f} s")
-    ptxas_check(_build, report)
+    ptxas_check(_build, reports)
 
     # -- 2. kernel parity ------------------------------------------------
     t0 = time.perf_counter()
@@ -797,12 +888,13 @@ def main() -> int:
         check_kernel(fa, name, 2, 520, 77 if ctx_len else 520, 12, dev)
     check_kernel(fa, "fused_rope_rms_attention", 2, 520, 520, 2, dev,
                  window=(64, 32), k_lens=(300, 0))
-    # the bf16 fused kernel's tile geometry: the layout check, then lengths
+    # the fused kernel's tile geometry: the layout check, then lengths
     # that straddle its 128-row q tiles and 128-key tiles in both
     # directions, keys shorter than a tile, k_lens holding a 0, windows, and
     # 32,760 = 255 * 128 + 120 q rows at one head
     check_fused_layout(fa, dev)
-    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
+    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention",
+                 "fused_rope_rms_attention_int8"):
         for B_, N_, Sq, Skv, window, k_lens in FUSED_EDGE_CASES:
             check_kernel(fa, name, B_, Sq, Skv, N_, dev, window=window, k_lens=k_lens,
                          seed=1, rerun=True)
@@ -811,9 +903,11 @@ def main() -> int:
     cross = check_flash(fa, fab, 1, 12, 32760, 512, dev, timed=True)
     for name, rec in cross.items():  # the cross shape's numbers ride along
         records[name].update({f"cross_{k_}": v for k_, v in rec.items()
-                              if k_ in ("ms", "plain_ms", "bound_ms", "library_ms")})
+                              if k_ in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                        "inference_ms")})
     check_flash(fa, fab, 2, 2, 520, 520, dev)
     check_flash(fa, fab, 2, 2, 520, 520, dev, window=(64, 32), k_lens=(300, 0))
+    check_flash(fa, fab, 2, 2, 333, 333, dev, window=(100, 27), k_lens=(333, 0), seed=1)
     # the backward pair's tile geometry: the layout check, then lengths that
     # straddle 64-row tiles and 128-row CTAs in both directions, a key
     # sequence shorter than a tile, and 32,760 = 255 * 128 + 120 at one head
@@ -826,6 +920,7 @@ def main() -> int:
     check_flash(fa, fab, 1, 2, 384, 384, dev, window=(100, 27), seed=1)
     check_flash(fa, fab, 1, 2, 200, 40, dev, seed=1)
     check_flash(fa, fab, 1, 1, 32760, 192, dev, seed=1)
+    check_back_to_back(fa, dev)
     # the opt-in variants' kernels: the int8 flavor at the generate path's
     # shapes, and linear_rstat at the q/k projections' [B*S, 1536] x
     # [1536, 1536] (CFG-2 and CFG-1 at 480x832x81) and a ragged M

@@ -3,13 +3,16 @@
 
     python3 scripts/bench_torch_fused_attention.py [--reps 10] [--heads 12] [--ptxas] [--no-check]
 
-Builds csrc/fused_attention.cu, holds both bf16 flavors (RoPE self-attention
-and norm-only cross-attention) to their plain version at ragged shapes that
-straddle the kernel's 128-row tiles, with a k_lens + window case, and checks
-that a rerun is bit-identical. Then it times both flavors with CUDA events at
-the generate path's shapes (CFG batch 2, 12 heads, 32,760 q rows; 32,760 or
-512 keys) beside SDPA on the pre-transformed q~/k~ (a yardstick the port
-never calls) and prints one JSON line with the card's name and power limit.
+Builds csrc/fused_attention.cu, holds the three flavors (RoPE
+self-attention, norm-only cross-attention, and the int8-scored RoPE flavor)
+to their plain version at ragged shapes that straddle the kernel's 128-row
+tiles, with a k_lens + window case, checks that a rerun is bit-identical,
+and holds the int8 flavor to the exact bf16 kernel (<= 3 % of max,
+correlation > 0.999). Then it times the flavors with CUDA events at the
+generate path's shapes (CFG batch 2, 12 heads, 32,760 q rows; 32,760 or 512
+keys; int8 self beside bf16 self) beside SDPA on the pre-transformed q~/k~
+(a yardstick the port never calls) and prints one JSON line with the card's
+name and power limit.
 --ptxas first prints ptxas's registers and spills of every kernel of the
 source and its warnings. Used to compare variants of the kernel (ring depth,
 tile shapes, schedules) inside one call: copy versecrafter_tpu_torch/ and
@@ -85,22 +88,35 @@ def main() -> int:
                 print(line, flush=True)
     result = {"card": card}
     if not args.no_check:
-        for Sq, Skv, rope, window, k_lens in ((333, 333, True, (-1, -1), None),
-                                              (333, 333, True, (100, 27), (333, 0)),
-                                              (333, 77, False, (-1, -1), None)):
+        for Sq, Skv, rope, int8, window, k_lens in (
+                (333, 333, True, False, (-1, -1), None),
+                (333, 333, True, False, (100, 27), (333, 0)),
+                (333, 77, False, False, (-1, -1), None),
+                (333, 333, True, True, (-1, -1), None),
+                (193, 321, True, True, (100, 27), (321, 0))):
             q, k, v, rq, rk, gq, gk, ci, si = inputs(fa, 2, Sq, Skv, 2, 0, dev)
             tabs = (ci, si) if rope else (None, None)
             kl = None if k_lens is None else torch.tensor(k_lens, dtype=torch.int32, device=dev)
-            kw = dict(num_heads=2, window_size=window, k_lens=kl)
+            kw = dict(num_heads=2, window_size=window, k_lens=kl, int8_score=int8)
             got = fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, **kw)
             again = fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, **kw)
             ref = fa.fused_attention_plain(q, k, v, rq, rk, gq, gk, *tabs, **kw)
             err = (got.float() - ref.float()).abs().max().item()
             bar = 2 * 2.0 ** -8 * ref.float().abs().max().item()
-            print(f"check Sq={Sq} Skv={Skv} rope={rope} window={window} k_lens={k_lens}: "
-                  f"max_abs_err {err:.4g} (bar {bar:.4g}), rerun identical "
-                  f"{torch.equal(got, again)}", flush=True)
-            if not (math.isfinite(err) and err <= bar and torch.equal(got, again)):
+            ok = math.isfinite(err) and err <= bar and torch.equal(got, again)
+            msg = ""
+            if int8:  # the approximation against the exact bf16 kernel
+                exact = fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs,
+                                           **{**kw, "int8_score": False}).float()
+                rel = (got.float() - exact).abs().max().item() / exact.abs().max().item()
+                corr = torch.corrcoef(torch.stack([got.float().flatten(),
+                                                   exact.flatten()]))[0, 1].item()
+                ok = ok and rel <= 0.03 and corr > 0.999
+                msg = f", vs bf16 kernel {rel:.4g} of max, correlation {corr:.6f}"
+            print(f"check Sq={Sq} Skv={Skv} rope={rope} int8={int8} window={window} "
+                  f"k_lens={k_lens}: max_abs_err {err:.4g} (bar {bar:.4g}){msg}, rerun "
+                  f"identical {torch.equal(got, again)}", flush=True)
+            if not ok:
                 raise AssertionError("the kernel disagrees with its plain version")
     N = args.heads
     for label, Skv, rope in (("self", 32760, True), ("cross", 512, False)):
@@ -108,6 +124,10 @@ def main() -> int:
         tabs = (ci, si) if rope else (None, None)
         result[f"{label}_ms"] = cuda_ms(
             lambda: fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, num_heads=N), args.reps)
+        if rope:
+            result[f"{label}_int8_ms"] = cuda_ms(
+                lambda: fa.fused_attention(q, k, v, rq, rk, gq, gk, *tabs, num_heads=N,
+                                           int8_score=True), args.reps)
         qt = fa._qk_transform(q, rq, gq, *tabs, N).view(2, 32760, N, -1).transpose(1, 2)
         kt = fa._qk_transform(k, rk, gk, *tabs, N).view(2, Skv, N, -1).transpose(1, 2)
         vt = v.view(2, Skv, N, -1).transpose(1, 2)

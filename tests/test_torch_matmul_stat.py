@@ -228,8 +228,7 @@ def test_train_step_with_proj_stat_fusion_matches_jax():
             {**frozen, **tr}, CFG, key, x0, ctx, cos, sin, geoada_context=geo)))(train)
         tp = params_from_jax(params)
         ttrain, _ = tts.split_trainable(tp)
-        tstep = tts.make_train_step(TCFG, tts.make_optimizer(ttrain, 1e-3, 1e-2),
-                                    torch.Generator().manual_seed(0))
+        tstep = tts.make_train_step(TCFG, tts.make_optimizer(ttrain, 1e-3, 1e-2))
         tloss = tstep(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)),
                       sig=torch.from_numpy(sig), noise=torch.from_numpy(noise))
     finally:

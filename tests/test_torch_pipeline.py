@@ -93,6 +93,24 @@ def test_latents_match_jax(pipes, guidance):
     assert _rel_err(got, ref) <= 1e-4
 
 
+@pytest.mark.parametrize("seed", [0, 2025])
+def test_seeded_request_matches_jax(pipes, seed):
+    """No latents=: both pipelines draw their noise from `seed` (threefry),
+    so the same seed gives the same video."""
+    jp, tp = pipes
+    controls, mask, _ = _inputs()
+    kw = dict(negative_prompt="static", control_videos=controls, mask_video=mask,
+              height=8, width=8, num_frames=5, num_inference_steps=3,
+              guidance_scale=2.0, shift=3.0, seed=seed)
+    ref = jp("a car drives left", dtype=jnp.float32, output_type="latent", **kw)
+    got = tp("a car drives left", dtype=torch.float32, output_type="latent", **kw)
+    assert _rel_err(got, ref) <= 1e-4
+    ref = jp("a car drives left", dtype=jnp.float32, output_type="numpy", **kw)
+    got = tp("a car drives left", dtype=torch.float32, output_type="numpy", **kw)
+    assert got.shape == ref.shape == (1, 5, 8, 8, 3)
+    assert _rel_err(got, ref) <= 1e-4
+
+
 def test_frames_match_jax(pipes):
     jp, tp = pipes
     ref = _run(jp, jnp.float32, "numpy")

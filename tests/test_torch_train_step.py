@@ -23,6 +23,7 @@ from versecrafter_tpu_torch.core.convert import params_from_jax
 from versecrafter_tpu_torch.kernels import flash_attention as tfa
 from versecrafter_tpu_torch.kernels import flash_attention_bwd as tfab
 from versecrafter_tpu_torch.parallel import train_step as tts
+from versecrafter_tpu_torch.utils import prng
 
 # head_dim 128 as on the card; GeoAdapter every 2nd of 4 layers
 CFG = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32,
@@ -86,8 +87,7 @@ def one_step():
     tp = params_from_jax(params)
     ttrain, tfrozen = tts.split_trainable(tp)
     before = {k: v.clone() for k, v in _flat(tfrozen).items()}
-    tstep = tts.make_train_step(TCFG, tts.make_optimizer(ttrain, LR, 1e-2),
-                                torch.Generator().manual_seed(0))
+    tstep = tts.make_train_step(TCFG, tts.make_optimizer(ttrain, LR, 1e-2))
     tloss = tstep(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)),
                   sig=torch.from_numpy(sig), noise=torch.from_numpy(noise))
     return dict(loss=float(loss), grads=params_from_jax(jax.tree.map(np.asarray, grads)),
@@ -125,6 +125,38 @@ def test_updated_params_match_jax(one_step):
         assert np.abs(_np(got[k]) - _np(r)).max() <= 2 * LR, k
         moved += np.abs(_np(got[k]) - _np(old[k])).max() > 0
     assert moved == len(ref)  # every trainable leaf moved
+
+
+def test_keyed_step_matches_jax():
+    """A step given only a key draws the noise level and noise the JAX loss
+    draws from the same key (fp32 normal within a few ulp of XLA's)."""
+    params, (x0, ctx, cos, sin, geo) = _setup(seed=2)
+    key = jax.random.key(5)
+    train, frozen = jts.split_trainable(params)
+    opt = optax.adamw(LR, weight_decay=1e-2)
+    _, _, loss = jax.jit(jts.make_train_step(CFG, opt))(
+        train, frozen, opt.init(train), key, x0, ctx, cos, sin, geo)
+    tp = params_from_jax(params)
+    ttrain, _ = tts.split_trainable(tp)
+    tstep = tts.make_train_step(TCFG, tts.make_optimizer(ttrain, LR, 1e-2))
+    tloss = tstep(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)),
+                  key=prng.key(5))
+    assert abs(float(tloss) - float(loss)) <= 1e-5 * abs(float(loss))
+    sig, noise = tts.draw_noise(prng.key(5), torch.from_numpy(x0))
+    k_sig, k_eps = jax.random.split(key)
+    np.testing.assert_array_equal(sig.numpy(), np.asarray(
+        jax.random.uniform(k_sig, (1,), jnp.float32)))
+    ref = np.asarray(jax.random.normal(k_eps, x0.shape, jnp.float32))
+    assert (np.abs(noise.numpy() - ref) <= 1e-5 * np.abs(ref)).all()
+
+
+def test_step_without_key_or_noise_raises():
+    params, (x0, ctx, cos, sin, geo) = _setup()
+    tp = params_from_jax(params)
+    ttrain, _ = tts.split_trainable(tp)
+    step = tts.make_train_step(TCFG, tts.make_optimizer(ttrain))
+    with pytest.raises(ValueError, match="key"):
+        step(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)))
 
 
 def test_frozen_params_untouched(one_step):
@@ -194,8 +226,8 @@ def test_attention_launch_count_per_step(monkeypatch):
     params, (x0, ctx, cos, sin, geo) = _setup(seed=5)
     tp = params_from_jax(params)
     ttrain, _ = tts.split_trainable(tp)
-    step = tts.make_train_step(TCFG, tts.make_optimizer(ttrain), torch.Generator())
-    step(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)))
+    step = tts.make_train_step(TCFG, tts.make_optimizer(ttrain))
+    step(tp, *(torch.from_numpy(a) for a in (x0, ctx, cos, sin, geo)), key=prng.key(0))
     assert counts == tts.attention_launches_per_step(TCFG)
     assert counts == {"fused_rope_rms_attention": 1, "fused_rms_cross_attention": 1,
                       "flash_attention": 20, "fa_backward_dq": 10, "fa_backward_dkv": 7}

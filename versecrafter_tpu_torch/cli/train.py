@@ -53,7 +53,12 @@ def parse_args(argv=None):
                         "versions on the CPU")
     p.add_argument("--save_every", type=int, default=500)
     p.add_argument("--log_every", type=int, default=10)
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0,
+                   help="init from torch generators seeded with seed (weights) "
+                        "and seed + 7 (head); synthetic data from numpy "
+                        "seed and seed + 1 (sampling); step i draws its noise "
+                        "level and noise from the threefry key(seed + 2 + i), "
+                        "as the JAX CLI does")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -116,6 +121,7 @@ def main(argv=None):
     from versecrafter_tpu_torch.parallel.train_step import (
         make_optimizer, make_train_step, split_trainable, tree_leaves)
     from versecrafter_tpu_torch.sampling.pipeline import _to_device
+    from versecrafter_tpu_torch.utils import prng
 
     dev = resolve_device(args.device)
     h, w = (int(x) for x in args.sample_size.split(","))
@@ -128,8 +134,7 @@ def main(argv=None):
     n_train = sum(t.numel() for t in tree_leaves(train))
     mode = "full model" if args.train_full else "GeoAdapter only"
     print(f"trainable params: {n_train / 1e6:.1f}M ({mode}) on {dev}")
-    step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay),
-                              gen)
+    step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay))
 
     # synthetic data, drawn as the JAX CLI draws it
     t_lat = (n_frames - 1) // 4 + 1
@@ -156,7 +161,8 @@ def main(argv=None):
     losses = []
     for i in range(args.steps):
         idx = sampler.integers(0, len(data), args.batch_size)
-        loss = step_fn(params, batch(idx, 0), batch(idx, 2), cos, sin, batch(idx, 1))
+        loss = step_fn(params, batch(idx, 0), batch(idx, 2), cos, sin, batch(idx, 1),
+                       key=prng.key(args.seed + 2 + i, dev))
         losses.append(float(loss))
         if (i + 1) % args.log_every == 0 or i == 0:
             recent = losses[-args.log_every:]

@@ -1,7 +1,7 @@
-// Warp-level building blocks shared by the port's attention kernels
-// (sm_90a): bf16 packing, mma.sync m16n8k16 bf16 -> fp32, ldmatrix
-// fragment loads, and cp.async global -> shared copies that zero-fill an
-// invalid source.
+// Warp-level building blocks (sm_90a): bf16 packing and the softmax
+// constants, shared by every kernel of the port; mma.sync m16n8k16 bf16 ->
+// fp32, ldmatrix fragment loads, and cp.async global -> shared copies that
+// zero-fill an invalid source, used by the linear_rstat GEMM.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,13 +54,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-// 4-byte async copy (one fp32), zero-filled when invalid
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

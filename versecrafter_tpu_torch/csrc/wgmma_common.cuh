@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for kernels built on warpgroup MMA:
 // wgmma.mma_async bf16 -> fp32 with A from shared memory or registers and
-// B from shared memory in either major, 128-byte swizzled tiles fed by the
+// B from shared memory in either major, s8 -> s32 with A from registers, 128-byte swizzled tiles fed by the
 // Tensor Memory Accelerator (cp.async.bulk.tensor) with mbarrier
 // completion, register hand-over between warpgroups (setmaxnreg), and the
 // host side of a tensor map with nothing linked but the CUDA runtime.
@@ -81,8 +81,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global `src` (16-byte aligned) into
+// shared memory, completing on the barrier like a tensor load
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // a [64, 128] tile (rows row0.., matrix `bh`) of a map made by
-// make_rows_map: two 64-column boxes; rows past the matrix read as zeros
+// make_rows_map with 64-row boxes: two 64-column boxes; rows past the matrix read as zeros
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map,
                                               uint32_t bar, int row0, int bh) {
   tma_load_3d(dst, map, bar, 0, row0, bh);
@@ -90,6 +101,12 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
 }
 
 // ---- barriers between warpgroups and proxies --------------------------------
+
+// orders this thread's earlier shared-memory accesses (generic proxy) before
+// the async-proxy accesses (TMA) that a later barrier hand-over permits
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // named barrier `id` (1..15; 0 is __syncthreads) over `n` threads: wait, or
 // count this thread's arrival without waiting
@@ -219,6 +236,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_bt(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+#define VC_U8(d, i)                                                             \
+  "+r"((d)[i]), "+r"((d)[i + 1]), "+r"((d)[i + 2]), "+r"((d)[i + 3]),           \
+      "+r"((d)[i + 4]), "+r"((d)[i + 5]), "+r"((d)[i + 6]), "+r"((d)[i + 7])
+#define VC_U32(d, i) VC_U8(d, i), VC_U8(d, i + 8), VC_U8(d, i + 16), VC_U8(d, i + 24)
+
+// d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T in s8 x s8 -> s32, A from
+// registers, B K-major in shared memory (the integer form takes no
+// transpose). The A fragment of 32 codes is the bf16 k16 fragment of the
+// same bytes: a[0] row g, bytes 4t..4t+3; a[1] row g + 8; a[2], a[3] the
+// same rows at bytes 16 + 4t.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(uint32_t (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " VC_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : VC_U32(d, 0), VC_U32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // The accumulator of an m64nN wgmma, per thread: warp w of the warpgroup
 // holds rows 16w .. 16w+15; with g = lane / 4 and t = lane % 4, d[4j] and
 // d[4j+1] are row 16w+g, columns 8j+2t and 8j+2t+1; d[4j+2] and d[4j+3]
@@ -290,17 +327,18 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // Tensor map over `count` row-major bf16 matrices [rows, 128] stored back
-// to back at `base` (16-byte aligned), boxes of 64 rows x 64 columns in the
-// 128-byte swizzle. The matrix index is its own dimension, so a box never
-// runs into the next matrix: rows past `rows` are filled with zeros.
-// Returns 0 or a non-zero error code.
-inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int count) {
+// to back at `base` (16-byte aligned), boxes of `box_rows` rows x 64
+// columns in the 128-byte swizzle. The matrix index is its own dimension,
+// so a box never runs into the next matrix: rows past `rows` are filled
+// with zeros. Returns 0 or a non-zero error code.
+inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int count,
+                         int box_rows = 64) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return int(cudaErrorSymbolNotFound);
   const cuuint64_t dims[3] = {128, cuuint64_t(rows), cuuint64_t(count)};
   const cuuint64_t strides[2] = {128 * sizeof(__nv_bfloat16),
                                  cuuint64_t(rows) * 128 * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                               const_cast<void*>(base), dims, strides, box, elem,
@@ -310,27 +348,29 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int rows, int count
   return res == CUDA_SUCCESS ? 0 : 100000 + int(res);
 }
 
-// Tensor map over a flat row-major bf16 [batch, rows, cols] tensor at
-// `base` (16-byte aligned, cols a multiple of 8), as a projection stores
-// [B, S, N*128]: dims {cols, rows, batch}, boxes of `box_rows` rows x 64
-// columns in the 128-byte swizzle. A head's columns are addressed by the
-// column coordinate (h*128, h*128 + 64). Rows are their own dimension, so
-// rows past `rows` read as zeros and a box never runs into the next batch
-// element. Returns 0 or a non-zero error code.
+// Tensor map over a flat row-major [batch, rows, cols] tensor of bf16
+// (elem_bytes 2) or int8 codes (elem_bytes 1) at `base` (16-byte aligned,
+// cols * elem_bytes a multiple of 16), as a projection stores [B, S,
+// N*128]: dims {cols, rows, batch}, boxes of `box_rows` rows x 128 bytes
+// (64 bf16 or 128 codes) in the 128-byte swizzle. A head's columns are
+// addressed by the column coordinate (h*128, and h*128 + 64 for bf16's
+// second box). Rows are their own dimension, so rows past `rows` read as
+// zeros and a box never runs into the next batch element. Returns 0 or a
+// non-zero error code.
 inline int make_flat_map(CUtensorMap* map, const void* base, int batch, int rows, int cols,
-                         int box_rows) {
+                         int box_rows, int elem_bytes = 2) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return int(cudaErrorSymbolNotFound);
   const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(batch)};
-  const cuuint64_t strides[2] = {cuuint64_t(cols) * sizeof(__nv_bfloat16),
-                                 cuuint64_t(rows) * cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * elem_bytes,
+                                 cuuint64_t(rows) * cols * elem_bytes};
+  const cuuint32_t box[3] = {cuuint32_t(SW_ROW_BYTES / elem_bytes), cuuint32_t(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                              const_cast<void*>(base), dims, strides, box, elem,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode(
+      map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 100000 + int(res);
 }
 

@@ -2,7 +2,8 @@
 attention reference math.
 
 Fused qk-RMSNorm (+ RoPE) attention (csrc/fused_attention.cu; the bf16
-flavors on wgmma with TMA-fed tiles, the int8 flavor on warp-level MMA). Both
+and int8 flavors on wgmma with TMA-fed tiles, on the persistent schedule of
+csrc/attention_wgmma.cuh). Both
 fused flavors take the RAW q/k/v projections in their flat [B, S, N*D]
 layout. The per-row RMS statistic spans all heads, so the wrapper computes it
 outside the kernel (rq = rsqrt(mean(q^2)+eps) * sm_scale * log2(e), rk
@@ -47,8 +48,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
 HEAD_DIM = 128          # the only head_dim the kernel takes
 TABLE_ROW_ALIGN = 128   # rope tables are padded to this many rows
-KV_TILE = 64            # the int8 kernel's kv tile (its k scales pad to it)
-FUSED_TILE = 128        # the bf16 fused kernel's q rows and keys per tile
+FUSED_TILE = 128        # the fused kernel's q rows and keys per tile (int8
+                        # k scales pad to it)
 
 # Kernel launches per kernel since the last reset (comparison launches are
 # counted too; a caller measuring a path resets first). "flash_attention"
@@ -195,6 +196,8 @@ def _fa_launch(q, k, v, k_lens, sm_scale, window_size, stats):
             m.data_ptr() if stats else None, l.data_ptr() if stats else None,
             B, N, Sq, Skv, int(window_size[0]), int(window_size[1]),
             int(stats), scale, stream)
+    if err >= 100000:
+        raise RuntimeError(f"flash attention: tensor map refused, CUresult {err - 100000}")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
@@ -411,7 +414,7 @@ def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
     # per-(row, head) scales [B, N, Skv rounded up to the kv tile]
     k_scratch = torch.empty(k.shape, dtype=torch.int8 if int8 else k.dtype,
                             device=dev)
-    k_scale = (torch.zeros((B, num_heads, -(-Skv // KV_TILE) * KV_TILE),
+    k_scale = (torch.zeros((B, num_heads, -(-Skv // FUSED_TILE) * FUSED_TILE),
                            dtype=torch.float32, device=dev) if int8 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -434,26 +437,32 @@ def _launch(q, k, v, rq, rk, gq, gk, cos_i, sin_i, *, num_heads, window_size,
 
 
 def fused_layout_check(a: torch.Tensor, b: torch.Tensor, h: int = 0):
-    """The bf16 fused kernel's tile and fragment layouts on the card: a, b
-    bf16 [1, rows, cols] (rows <= 128, cols a multiple of 128) read through
-    the flat tensor map at head h's columns into zero-padded [128, 128]
-    tiles. Returns (A Bᵀ, bf16(A Bᵀ) B), fp32 [128, 128] each: the score
+    """The fused kernel's tile and fragment layouts on the card: a, b [1,
+    rows, cols] (rows <= 128, cols a multiple of 128) read through the flat
+    tensor map at head h's columns into zero-padded [128, 128] tiles.
+
+    bf16 a, b: returns (A Bᵀ, bf16(A Bᵀ) B), fp32 [128, 128] each: the score
     product (A as register fragments loaded from the swizzled tile, B K-major
     in shared memory) and the PV product (P from registers, B read MN-major
-    as V is). Exact on small integers."""
-    _check_cuda("a", a, torch.bfloat16)
-    _check_cuda("b", b, torch.bfloat16, a.shape)
+    as V is). int8 codes: returns (A Bᵀ,), the int8 flavor's s8 product (A
+    fragments from 128-byte code rows, B K-major, accumulators started from
+    the fp32 bias whose subtraction gives float(s32)). Exact on small
+    integers."""
+    int8 = a.dtype == torch.int8
+    _check_cuda("a", a, torch.int8 if int8 else torch.bfloat16)
+    _check_cuda("b", b, a.dtype, a.shape)
     one, rows, cols = a.shape
     if one != 1 or not 0 < rows <= FUSED_TILE or cols % HEAD_DIM or not 0 <= h < cols // HEAD_DIM:
         raise ValueError(f"need [1, rows <= {FUSED_TILE}, N*{HEAD_DIM}] and a head of it, "
                          f"got {tuple(a.shape)}, h={h}")
     fn = _build.load("fused_attention").vc_fused_layout_check
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     outs = [torch.empty(FUSED_TILE, n, dtype=torch.float32, device=a.device)
-            for n in (FUSED_TILE, HEAD_DIM)]
+            for n in ((FUSED_TILE,) if int8 else (FUSED_TILE, HEAD_DIM))]
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), rows, cols, h, *(t.data_ptr() for t in outs),
+        err = fn(a.data_ptr(), b.data_ptr(), rows, cols, h, int(int8),
+                 outs[0].data_ptr(), None if int8 else outs[1].data_ptr(),
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused layout check failed: error {err}")

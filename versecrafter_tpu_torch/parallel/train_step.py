@@ -5,9 +5,9 @@ mesh: rectified-flow loss, a frozen Wan backbone with a trainable GeoAdapter
 branch (or the whole model), block rematerialisation, and
 torch.optim.AdamW, whose update equals optax.adamw's (decoupled weight decay
 on the pre-update parameter, bias-corrected moments, eps outside the square
-root). The noise level and the noise are explicit tensors so that a test can
-hand both packages the same draws; a step draws them from its
-torch.Generator.
+root). A step draws its noise level and noise from a threefry key as the
+JAX loss does (utils/prng.py: split, then uniform and normal), so the same
+key gives both packages the same draws; a test may pass them explicitly.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from versecrafter_tpu_torch.core.config import WanDiTConfig
 from versecrafter_tpu_torch.models.wan_dit import (
     geoada_patch_embedding, wan_dit_blocks, wan_dit_embed, wan_dit_head)
+from versecrafter_tpu_torch.utils import prng
 
 Params = Dict[str, Any]
 
@@ -76,21 +77,29 @@ def make_optimizer(train: Params, lr: float = 1e-4, weight_decay: float = 1e-2
                              eps=1e-8, weight_decay=weight_decay)
 
 
-def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
-                    generator: torch.Generator):
-    """train_step(params, x0, context, cos, sin, geoada_context=None,
-    sig=None, noise=None) -> loss: one optimizer step on the leaves the
-    optimizer holds (updated in place), blocks rematerialised. sig and noise
-    are drawn from `generator` unless given."""
+def draw_noise(key: torch.Tensor, x0: torch.Tensor):
+    """(sig [B] fp32 in [0, 1), noise like x0) from a threefry key, as the
+    JAX flow_matching_loss draws them: split, uniform, normal."""
+    k_sig, k_eps = prng.split(key.to(x0.device))
+    sig = prng.uniform(k_sig, (x0.shape[0],), torch.float32)
+    return sig, prng.normal(k_eps, x0.shape, x0.dtype)
 
-    def train_step(params, x0, context, cos, sin, geoada_context=None, sig=None,
-                   noise=None):
-        if sig is None:
-            sig = torch.rand((x0.shape[0],), generator=generator,
-                             device=generator.device, dtype=torch.float32)
-        if noise is None:
-            noise = torch.randn(x0.shape, generator=generator,
-                                device=generator.device).to(x0.dtype)
+
+def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
+    """train_step(params, x0, context, cos, sin, geoada_context=None,
+    key=None, sig=None, noise=None) -> loss: one optimizer step on the
+    leaves the optimizer holds (updated in place), blocks rematerialised.
+    sig and noise are drawn from the threefry `key` (utils/prng.key) unless
+    both are given."""
+
+    def train_step(params, x0, context, cos, sin, geoada_context=None, key=None,
+                   sig=None, noise=None):
+        if sig is None or noise is None:
+            if key is None:
+                raise ValueError("train_step needs a key, or both sig and noise")
+            drawn_sig, drawn_noise = draw_noise(key, x0)
+            sig = drawn_sig if sig is None else sig
+            noise = drawn_noise if noise is None else noise
         optimizer.zero_grad(set_to_none=True)
         loss = flow_matching_loss(params, cfg, x0, context, cos, sin,
                                   geoada_context, sig.to(x0.device),

@@ -26,6 +26,7 @@ from versecrafter_tpu_torch.models.t5 import t5_encode
 from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
 from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
 from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
+from versecrafter_tpu_torch.utils import prng
 from versecrafter_tpu_torch.utils.tokenizer import load_tokenizer
 
 
@@ -42,6 +43,15 @@ def encode_mask_pixelshuffle(mask: torch.Tensor, latent_t: int,
     idx = torch.floor((torch.arange(latent_t, dtype=torch.float32) + 0.5)
                       * t / latent_t).long().clamp(0, t - 1)
     return m.index_select(2, idx.to(m.device))
+
+
+def cfg_combine(uncond: torch.Tensor, cond: torch.Tensor,
+                guidance_scale: float) -> torch.Tensor:
+    """uncond + g * (cond - uncond) in fp32, the difference included, as the
+    jitted JAX step computes it (its fp32 guidance keeps the bf16
+    predictions' difference unrounded)."""
+    g = float(np.float32(guidance_scale))
+    return uncond.float() + g * (cond.float() - uncond.float())
 
 
 def _to_device(tree, device):
@@ -155,8 +165,7 @@ class VerseCrafterPipeline:
                                cos, sin, geoada_context=g,
                                geoada_scale=geoada_scale)
         if use_cfg:
-            uncond, cond = pred.chunk(2, dim=0)
-            pred = uncond.float() + float(np.float32(guidance_scale)) * (cond - uncond).float()
+            pred = cfg_combine(*pred.chunk(2, dim=0), guidance_scale)
         return pred
 
     @torch.no_grad()
@@ -248,10 +257,8 @@ class VerseCrafterPipeline:
             timesteps = sched.set_timesteps(num_inference_steps, shift=shift)
 
         lat_shape = (batch, self.vae_cfg.z_dim, t_lat, h_lat, w_lat)
-        if latents is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            latents = torch.randn(lat_shape, generator=gen, device=self.device,
-                                  dtype=torch.float32).to(dtype)
+        if latents is None:  # the JAX pipeline's draw, bit for bit in bf16
+            latents = prng.normal(prng.key(seed, self.device), lat_shape, dtype)
         else:
             latents = torch.as_tensor(np.asarray(latents) if isinstance(latents, np.ndarray)
                                       else latents, device=self.device).to(dtype)
