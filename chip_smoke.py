@@ -5,10 +5,11 @@
 
 Phases, each timed, any failure fatal (exit code != 0, no result line):
   1. environment and the kernels' build (nvcc, one process per source, all
-     started together), with ptxas's registers and spills of the wgmma
-     attention kernels of csrc/fused_attention.cu and
-     csrc/flash_attention.cu (a ptxas warning C7512, wgmma serialised, or a
-     spill fails);
+     started together), with ptxas's registers and spills of every wgmma
+     kernel: the attention kernels of csrc/fused_attention.cu,
+     csrc/flash_attention.cu and csrc/flash_attention_bwd.cu and the GEMM of
+     csrc/matmul_stat.cu (a ptxas warning C7512, wgmma serialised, anywhere
+     in these sources or a spill in one of these kernels fails);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
      training path's self 32,760 and cross 32,760 x 512 head-major shapes)
@@ -16,8 +17,9 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      (bf16), with kernel, plain, library-yardstick and bound times, and a
      bit-identical rerun of both fused flavors at 32,760 and of the plain
      forward's two flavors at every shape; the fused (bf16 and s8) and the
-     backward kernels' wgmma / TMA tile and fragment layouts on
-     integer-valued tile pairs (exact); the three fused flavors, the plain
+     backward kernels' and the linear_rstat GEMM's wgmma / TMA tile and
+     fragment layouts on integer-valued tile pairs (exact); the three fused
+     flavors, the plain
      forward and the backward pair at shapes that straddle their tiles and
      CTAs; twenty back-to-back launches of each forward flavor, bit-identical;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
@@ -29,6 +31,11 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
   4. one timed batched-CFG denoise step at 480x832x81 (the two timed steps'
      predictions must be bit-identical), then the same step under
      torch.profiler: device time by kernel and the device's idle share;
+     then the same pipeline built from the same seed in a fresh process
+     (`chip_smoke.py --denoise-digest`) runs the same step, and the SHA-256
+     of its prediction, of its text embedding, of its inputs and of the DiT
+     weights must equal this process's (a mismatch fails the smoke at its
+     end);
   5. the training path: GeoAdapter-only training of the full-width
      Wan2.1-1.3B + GeoAdapter at 480x832x81, batch 1: loss and gradients on
      the card against the CPU at 192 tokens, a warm-up and two timed steps
@@ -45,14 +52,18 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      the default's.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
-bf16 kernel within the int8 envelope).
+bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
+shapes, a ragged M and the Wan2.1-14B width (K = N = 5120), with twenty
+back-to-back launches at M = 65,520 bit-identical.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
 """
 
 import gc
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -374,8 +385,11 @@ def check_flash(fa, fab, B, N, Sq, Skv, dev, window=(-1, -1), k_lens=None,
 def check_wgmma_layout(fab, dev):
     """The backward kernels' product forms on integer-valued tiles (entries
     -1, 0, 1, so every sum is exact): A B^T from swizzled shared memory and
-    with A from registers, and bf16(A B^T) B with B read transposed. Matrix 0
-    of 2 has 50 rows: rows 50..63 of its tile must read as zeros."""
+    with A from registers, and bf16(A B^T) B with B read transposed; and the
+    linear_rstat GEMM's A[:, :64] [A | B | B], A K-major and B read
+    transposed, both from shared memory (n256 over A and B as one tile, then
+    n128). Matrix 0 of 2 has 50 rows: rows 50..63 of its tile must read as
+    zeros."""
     g = torch.Generator().manual_seed(0)
     a = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
     b = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
@@ -385,11 +399,13 @@ def check_wgmma_layout(fab, dev):
         at, bt = torch.zeros(64, 128), torch.zeros(64, 128)
         at[:50], bt[:50] = a[which], b[which]
         want = at @ bt.T
-        for name, x, ref in zip(("A B^T (shared)", "A B^T (register A)", "bf16(A B^T) B"),
-                                got, (want, want, want @ bt)):
+        for name, x, ref in zip(("A B^T (shared)", "A B^T (register A)", "bf16(A B^T) B",
+                                 "A [A | B | B] (shared, B transposed)"),
+                                got, (want, want, want @ bt,
+                                      at[:, :64] @ torch.cat([at, bt, bt], 1))):
             if not torch.equal(x.cpu(), ref):
                 raise AssertionError(f"wgmma layout check, matrix {which}: {name} is not exact")
-    log("  wgmma / TMA layout check: three product forms exact on integer tiles, "
+    log("  wgmma / TMA layout check: five product forms exact on integer tiles, "
         "rows past the matrix read as zeros")
 
 
@@ -470,14 +486,17 @@ PTXAS_KERNELS = {  # mangled-name fragment -> (source, flavor)
     "fused_wgmma_kernelILb1ELb1E": ("fused_attention", "int8"),
     "flash_wgmma_kernelILb1E": ("flash_attention", "stats"),
     "flash_wgmma_kernelILb0E": ("flash_attention", "inference"),
+    "dq_kernel": ("flash_attention_bwd", "dQ"),
+    "dkv_kernel": ("flash_attention_bwd", "dK/dV"),
+    "gemm_rstat_kernel": ("matmul_stat", "linear_rstat"),
 }
 
 
 def ptxas_check(_build, reports):
-    """Registers and spills of the wgmma attention kernels from ptxas's
-    reports of csrc/fused_attention.cu and csrc/flash_attention.cu; fails on
-    warning C7512 (every wgmma serialised for lack of registers) anywhere in
-    either source, and on a spill in any of these kernels."""
+    """Registers and spills of the wgmma kernels from ptxas's reports of
+    their sources; fails on warning C7512 (every wgmma serialised for lack
+    of registers) anywhere in these sources, and on a spill in any of these
+    kernels."""
     found = set()
     for src, report in reports.items():
         for name, res in _build.ptxas_kernels(report).items():
@@ -498,10 +517,13 @@ def ptxas_check(_build, reports):
     log(f"[build] ptxas: no C7512 and no spill in {', '.join(s_ + '.cu' for s_ in reports)}")
 
 
-def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
+def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536, launches=0):
     """The linear_rstat GEMM against its plain version at x [M, K] bf16 and
-    W [K, N]: y within 2*2^-8*max|y|, rs within 1e-4 relative; with `timed`,
-    kernel, plain, library-yardstick and bound times."""
+    W [K, N]: y within 2*2^-8*max|y|, rs within 1e-4 relative; with
+    `launches`, that many more launches queued with no host sync between
+    them must equal the first bit for bit; with `timed`, kernel, plain,
+    library-yardstick (addmm + statistic, and addmm alone) and bound
+    times."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
     p = {"kernel": (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)}
@@ -520,6 +542,15 @@ def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
         f"(bar 1e-4) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("linear_rstat disagrees with its plain version")
+    if launches:
+        outs = [ms.linear_rstat(p, x, 1e-6) for _ in range(launches)]
+        torch.cuda.synchronize()
+        same = sum(torch.equal(y2, y) and torch.equal(rs2, rs) for y2, rs2 in outs)
+        log(f"  linear_rstat x{launches} back to back at M={M}: {same}/{launches} equal "
+            f"the first")
+        if same != launches:
+            raise AssertionError("linear_rstat: back-to-back launches disagree")
+        del outs
     rec = {"max_abs_err": err}
     if timed:
         b = p.get("bias")
@@ -532,11 +563,15 @@ def check_rstat(ms, M, dev, bias=True, timed=False, seed=0, K=1536, N=1536):
 
         rec["library_ms"] = cuda_ms(library, 20)
         rec["library_note"] = "torch.addmm + the row statistic in torch (two calls)"
+        # how close the GEMM comes to cuBLAS: addmm alone, no statistic
+        rec["library_gemm_ms"] = cuda_ms(
+            lambda: torch.addmm(b, x, p["kernel"]) if b is not None else x @ p["kernel"], 20)
         flops = 2 * M * K * N
         nbytes = (M * K + K * N + M * N) * 2 + (N * 2 if bias else 0) + M * 4
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
         log(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.2f} "
             f"library_ms={rec['library_ms']:.4f} (addmm + statistic) "
+            f"library_gemm_ms={rec['library_gemm_ms']:.4f} (addmm alone) "
             f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: {flops:.3e} FLOP, "
             f"{nbytes / 1e6:.1f} MB) -> {flops / rec['ms'] / 1e9:.1f} TFLOP/s")
     del x, y, ry
@@ -553,6 +588,86 @@ def randomize_zero_inits(params, dev, seed=7):
     for leaf in leaves:
         w = leaf["kernel"]
         w.copy_(torch.randn(w.shape, generator=g, device=dev) * 0.02)
+
+
+def build_pipeline(dev):
+    """The full-width pipeline every generate phase uses: umT5-xxl, Wan2.1-1.3B
+    + GeoAdapter and the Wan VAE from seed 0, the zero-init leaves made random
+    (randomize_zero_inits, seed 7)."""
+    from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
+    pipe = default_pipeline_factory(scale="1.3b", device=dev, seed=0)()
+    randomize_zero_inits(pipe.dit_params, dev)
+    return pipe
+
+
+def step_inputs(pipe, dev):
+    """Phase 4's 480x832x81 CFG-2 denoise step: latents and control latents
+    from seed 81, the prompt pair's embedding, the RoPE tables."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    g4 = torch.Generator(device=dev).manual_seed(81)
+    lat = torch.randn(1, 16, 21, 60, 104, generator=g4, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, 128, 21, 60, 104, generator=g4, device=dev).to(torch.bfloat16)
+    ctx = pipe.encode_prompt("a red car drives left", "blurry").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, 21, 30, 52, device=dev)
+    return lat, geo, ctx, cos, sin
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def sha256_of(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_digest(pipe, lat, geo, ctx, pred):
+    """SHA-256 of a phase-4 step's prediction and of what it was computed
+    from (the text embedding, the two latent inputs, every DiT weight), and
+    max|prediction|."""
+    return {"pred": sha256_of(pred), "ctx": sha256_of(ctx), "inputs": sha256_of(lat, geo),
+            "dit_weights": sha256_of(*tree_leaves(pipe.dit_params)),
+            "max_abs_pred": pred.float().abs().max().item()}
+
+
+def denoise_digest_main(dev):
+    """`chip_smoke.py --denoise-digest`: phase 4's step in a fresh process on
+    a pipeline built from the same seeds; prints its step_digest as one JSON
+    line."""
+    pipe = build_pipeline(dev)
+    lat, geo, ctx, cos, sin = step_inputs(pipe, dev)
+    pred = pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
+    torch.cuda.synchronize()
+    print(json.dumps(step_digest(pipe, lat, geo, ctx, pred)), flush=True)
+    return 0
+
+
+def fresh_process_digest(want):
+    """Runs `chip_smoke.py --denoise-digest` in a new interpreter and holds
+    its digest to this process's `want`; returns the keys that differ."""
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--denoise-digest"],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh-process step failed:\n{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    differ = [k for k in want if got.get(k) != want[k]]
+    log(f"[step] the same step in a fresh process ({time.perf_counter() - t1:.1f} s): "
+        f"pred {got['pred'][:16]} vs {want['pred'][:16]}, max|pred| "
+        f"{got['max_abs_pred']:.6g} vs {want['max_abs_pred']:.6g}; "
+        + ("every digest equal" if not differ else f"DIFFERENT: {differ}"))
+    for k in ("ctx", "inputs", "dit_weights"):
+        log(f"  {k}: {got[k][:16]} vs {want[k][:16]}")
+    return differ
 
 
 def synth_request(n_frames, h, w, seed):
@@ -852,14 +967,15 @@ def main() -> int:
     from versecrafter_tpu_torch.kernels import flash_attention as fa
     from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
     from versecrafter_tpu_torch.kernels import matmul_stat as ms
-    from versecrafter_tpu_torch.serve.model_server import (
-        _call_pipe, default_pipeline_factory)
+    from versecrafter_tpu_torch.serve.model_server import _call_pipe
     from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
     from versecrafter_tpu_torch.sampling.pipeline import _to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--denoise-digest"]:
+        return denoise_digest_main(dev)
     card = gpu_line()
     t_all = time.perf_counter()
     failures = []
@@ -868,9 +984,9 @@ def main() -> int:
     log(f"[env] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # beside the builds' own nvccs
+    with ThreadPoolExecutor(max_workers=4) as pool:  # beside the builds' own nvccs
         reports = {src: pool.submit(_build.ptxas_report, src)
-                   for src in ("fused_attention", "flash_attention")}
+                   for src in sorted({src for src, _ in PTXAS_KERNELS.values()})}
         _build.build_all(_build.kernel_sources())
         reports = {src: r.result() for src, r in reports.items()}
     log(f"[build] {_build.kernel_sources()} built in {time.perf_counter() - t0:.1f} s")
@@ -929,17 +1045,17 @@ def main() -> int:
     check_kernel(fa, int8, 2, 14040, 14040, 12, dev)
     check_kernel(fa, int8, 2, 520, 520, 12, dev)
     check_kernel(fa, int8, 2, 520, 520, 2, dev, window=(64, 32), k_lens=(300, 0))
-    records["linear_rstat"] = check_rstat(ms, 65520, dev, timed=True)
+    records["linear_rstat"] = check_rstat(ms, 65520, dev, timed=True, launches=20)
     check_rstat(ms, 65520, dev, bias=False)
     check_rstat(ms, 32760, dev)
     check_rstat(ms, 333, dev)
     check_rstat(ms, 333, dev, bias=False)
+    check_rstat(ms, 333, dev, K=5120, N=5120)  # the Wan2.1-14B width
     log(f"[parity] {time.perf_counter() - t0:.1f} s")
 
     # -- 3. the slice end to end -----------------------------------------
     t0 = time.perf_counter()
-    pipe = default_pipeline_factory(scale="1.3b", device=dev, seed=0)()
-    randomize_zero_inits(pipe.dit_params, dev)
+    pipe = build_pipeline(dev)
     torch.cuda.synchronize()
     log(f"[e2e] pipeline built (umT5-xxl + Wan2.1-1.3B + GeoAdapter "
         f"{len(pipe.dit_params['geoada_blocks'])} blocks + Wan VAE) in "
@@ -1002,11 +1118,7 @@ def main() -> int:
 
     # -- 4. one timed denoise step at 480x832x81 -------------------------
     t0 = time.perf_counter()
-    g4 = torch.Generator(device=dev).manual_seed(81)
-    lat = torch.randn(1, 16, 21, 60, 104, generator=g4, device=dev).to(torch.bfloat16)
-    geo = torch.randn(1, 128, 21, 60, 104, generator=g4, device=dev).to(torch.bfloat16)
-    ctx = pipe.encode_prompt("a red car drives left", "blurry").to(torch.bfloat16)
-    cos, sin = grid_cos_sin(pipe._angles, 21, 30, 52, device=dev)
+    lat, geo, ctx, cos, sin = step_inputs(pipe, dev)
 
     def step():
         return pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
@@ -1035,9 +1147,14 @@ def main() -> int:
         f"(45 x each flavor); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase {time.perf_counter() - t0:.1f} s")
     profile_step(step, min(times), card)
+    digest = step_digest(pipe, lat, geo, ctx, pred)
     del pipe, lat, geo, ctx, pred
     gc.collect()
     torch.cuda.empty_cache()
+    # the same step in a fresh process on a pipeline built from the same seeds
+    differ = fresh_process_digest(digest)
+    if differ:  # the later phases still run; the smoke fails at its end
+        failures.append(f"the 480x832x81 denoise step in a fresh process differs: {differ}")
 
     # -- 5. GeoAdapter training at 480x832x81 ----------------------------
     launches_main.update(train_phase(fa, fab, ms, dev, card))
@@ -1058,7 +1175,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{k_: v for k_, v in rec.items()
                if k_.startswith("cross_") or k_ in ("inference_ms", "inference_plain_ms",
-                                                    "library_note")}})
+                                                    "library_note", "library_gemm_ms")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -360,14 +360,18 @@ def test_wgmma_fragment_layout(dev):
     """The backward kernels' wgmma forms on an integer-valued tile pair: A Bᵀ
     with both operands K-major from TMA-written swizzled tiles, the same
     with A from registers, and bf16(A Bᵀ) B with the packed accumulator as
-    register A and B read MN-major; all exact. Matrix 0 of 2 has 50 rows, so
-    rows 50..63 of its tile must read as zeros, not as matrix 1's rows."""
+    register A and B read MN-major; and the linear_rstat GEMM's forms, A
+    K-major and B MN-major both from shared memory at n256 (over the A and B
+    tiles read as one [64, 256] tile) and n128: all exact. Matrix 0 of 2 has
+    50 rows, so rows 50..63 of its tile must read as zeros, not as matrix
+    1's rows."""
     from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
     g = torch.Generator().manual_seed(0)
     a = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
     b = torch.randint(-1, 2, (2, 50, 128), generator=g).float()
     for which in (0, 1):
-        ss, rs, pb = fab.wgmma_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(), which)
+        ss, rs, pb, sb = fab.wgmma_layout_check(a.to(dev).bfloat16(), b.to(dev).bfloat16(),
+                                                which)
         torch.cuda.synchronize()
         at, bt = torch.zeros(64, 128), torch.zeros(64, 128)
         at[:50], bt[:50] = a[which], b[which]
@@ -375,6 +379,7 @@ def test_wgmma_fragment_layout(dev):
         assert torch.equal(ss.cpu(), want)
         assert torch.equal(rs.cpu(), want)
         assert torch.equal(pb.cpu(), want @ bt)
+        assert torch.equal(sb.cpu(), at[:, :64] @ torch.cat([at, bt, bt], 1))
 
 
 def test_backward_rejects_misaligned_or_strided_inputs(dev):
@@ -505,16 +510,19 @@ def _rstat_inputs(dev, M, K=256, N=384, bias=True, seed=0):
     return x, p
 
 
-@pytest.mark.parametrize("M", [333, 128, 1])
+@pytest.mark.parametrize("M,K,N", [(333, 256, 384), (128, 256, 384), (1, 256, 384),
+                                   (333, 5120, 5120)])
 @pytest.mark.parametrize("bias", [True, False])
-def test_linear_rstat_matches_plain(dev, M, bias):
+def test_linear_rstat_matches_plain(dev, M, K, N, bias):
+    """N = 384 ends in a 128-wide tile after a 256-wide one; 5120 is the
+    Wan2.1-14B width (twenty 256-wide tiles, 80 K slices)."""
     from versecrafter_tpu_torch.kernels import matmul_stat as ms
-    x, p = _rstat_inputs(dev, M, bias=bias)
+    x, p = _rstat_inputs(dev, M, K, N, bias=bias)
     before = ms.LAUNCHES["linear_rstat"]
     y, rs = ms.linear_rstat(p, x[None], 1e-6)
     torch.cuda.synchronize()
     assert ms.LAUNCHES["linear_rstat"] == before + 1
-    assert y.shape == (1, M, 384) and rs.shape == (1, M, 1) and rs.dtype == torch.float32
+    assert y.shape == (1, M, N) and rs.shape == (1, M, 1) and rs.dtype == torch.float32
     ry, rrs = ms.linear_rstat_plain(x, p["kernel"], p.get("bias"), 1e-6)
     err, mx = _err(y[0], ry)
     assert err <= BF16_BAR * mx, (err, mx)
@@ -524,13 +532,30 @@ def test_linear_rstat_matches_plain(dev, M, bias):
     assert torch.equal(y, y2) and torch.equal(rs, rs2)
 
 
+def test_linear_rstat_back_to_back_launches_agree(dev):
+    """Twenty launches queued without a host sync between them at M = 65,520,
+    K = N = 1536 (the CFG-2 q/k projection): every output equals the first
+    bit for bit and holds the plain version's bars."""
+    from versecrafter_tpu_torch.kernels import matmul_stat as ms
+    x, p = _rstat_inputs(dev, 65520, 1536, 1536)
+    outs = [ms.linear_rstat(p, x, 1e-6) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, outs[0][0]) and torch.equal(rs, outs[0][1]) for y, rs in outs)
+    ry, rrs = ms.linear_rstat_plain(x, p["kernel"], p["bias"], 1e-6)
+    err, mx = _err(outs[0][0], ry)
+    assert err <= BF16_BAR * mx, (err, mx)
+    assert ((outs[0][1] - rrs).abs() / rrs.abs()).max().item() <= 1e-4
+
+
 def test_linear_rstat_rejects_what_it_cannot_take(dev):
     from versecrafter_tpu_torch.kernels import matmul_stat as ms
     x, p = _rstat_inputs(dev, 64)
     with pytest.raises(ValueError):  # fp32 activations
         ms.linear_rstat(p, x.float())
-    with pytest.raises(ValueError):  # K not a multiple of 32
+    with pytest.raises(ValueError):  # K not a multiple of 64
         ms.linear_rstat({"kernel": p["kernel"][:200]}, x[:, :200].contiguous())
+    with pytest.raises(ValueError):  # K a multiple of 32 but not of 64
+        ms.linear_rstat({"kernel": p["kernel"][:224]}, x[:, :224].contiguous())
     with pytest.raises(ValueError):  # N not a multiple of 128
         ms.linear_rstat({"kernel": p["kernel"][:, :100].contiguous()}, x)
     with pytest.raises(ValueError):  # not 16-byte aligned

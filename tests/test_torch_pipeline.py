@@ -4,6 +4,9 @@ with the same weights, noise and prompts, on the tiny configs of
 tests/test_pipeline.py (CPU)."""
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from versecrafter_tpu_torch.core import config as tconfig
 from versecrafter_tpu_torch.core.convert import params_from_jax
 from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.serve import model_server as tserve
+from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
 
 VAE_CFG = VAEConfig(base_dim=8, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
                     temporal_downsample=(True,), spatial_compression_ratio=2,
@@ -54,9 +58,12 @@ def pipes():
                                            leaf["kernel"].shape) * 0.05
     vae = init_vae(jax.random.key(1), VAE_CFG, jnp.float32)
     t5 = init_t5(jax.random.key(2), T5_CFG, jnp.float32)
+    # both pipelines tokenize with the port's hash tokenizer: the JAX
+    # package's hashes words with the process's salted hash()
     jp = jpipe.VerseCrafterPipeline(
         dit_params=dit, dit_cfg=DIT_CFG, vae_params=vae, vae_cfg=VAE_CFG,
-        t5_params=t5, t5_cfg=T5_CFG, scheduler_name="unipc", attn_impl="pallas")
+        t5_params=t5, t5_cfg=T5_CFG, scheduler_name="unipc", attn_impl="pallas",
+        tokenizer=HashTokenizer(T5_CFG.vocab))
     to_t = lambda tree: params_from_jax(jax.tree.map(np.asarray, tree))
     tp = tpipe.VerseCrafterPipeline(
         dit_params=to_t(dit), dit_cfg=_port(DIT_CFG, tconfig.WanDiTConfig),
@@ -128,6 +135,23 @@ def test_stages_match_jax(pipes):
     ref = jp.encode_controls(controls, mask, jnp.float32)[0]
     got = tp.encode_controls(controls, mask, torch.float32)
     assert _rel_err(got, ref) <= 1e-4
+
+
+def test_hash_tokenizer_repeats_across_processes():
+    """A prompt gives the same ids in two fresh interpreters with different
+    hash salts (Python's hash() would not): the same request and seed give
+    the same video in every process."""
+    code = ("from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer; "
+            "print(HashTokenizer()(['a red car drives left', 'blurry'], max_length=8)"
+            "['input_ids'].tolist())")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = [subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                           text=True, check=True, timeout=120,
+                           env={**os.environ, "PYTHONHASHSEED": salt}).stdout
+            for salt in ("1", "2")]
+    assert outs[0] == outs[1] and outs[0].strip()
+    assert outs[0].strip() == str(HashTokenizer()(["a red car drives left", "blurry"],
+                                                  max_length=8)["input_ids"].tolist())
 
 
 def test_mask_pixelshuffle_matches_jax():

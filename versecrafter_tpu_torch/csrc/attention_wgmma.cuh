@@ -333,28 +333,6 @@ __device__ __forceinline__ void attend_tiles(const Sm& sm, Ring& r, int c, int l
   release(prev);
 }
 
-// One output row held by a quad (word j of thread tig: columns 8j + 2tig and
-// 8j + 2tig + 1, packed bf16), written as 16-byte stores: a 4 x 4 word
-// transpose inside the quad by two exchanges, after which thread tig holds
-// column groups 4m + tig (m = 0..3) whole. Every lane takes part in the
-// exchanges; only `valid` rows are written.
-__device__ __forceinline__ void store_row(__nv_bfloat16* dst, const uint32_t (&w)[D / 8], int tig,
-                                          bool valid) {
-  const bool odd = tig & 1, high = tig & 2;
-#pragma unroll
-  for (int m = 0; m < D / 32; ++m) {
-    const uint32_t a0 = w[4 * m], a1 = w[4 * m + 1], a2 = w[4 * m + 2], a3 = w[4 * m + 3];
-    const uint32_t x = __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 1);
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, odd ? a2 : a3, 1);
-    const uint32_t c0 = odd ? x : a0, c1 = odd ? a1 : x, c2 = odd ? y : a2, c3 = odd ? a3 : y;
-    const uint32_t u = __shfl_xor_sync(0xffffffffu, high ? c0 : c2, 2);
-    const uint32_t v = __shfl_xor_sync(0xffffffffu, high ? c1 : c3, 2);
-    if (valid)
-      *reinterpret_cast<uint4*>(dst + 8 * (4 * m + tig)) =
-          high ? make_uint4(u, v, c2, c3) : make_uint4(c0, c1, u, v);
-  }
-}
-
 // out = O / l for this thread's rows row0 (accumulator e = 0, 1) and row0 +
 // 8 (e = 2, 3), l summed over the quad (l_run holds the sums afterwards);
 // l == 0 writes 0. row_ptr(row) is the row's first output element; rows at
@@ -376,16 +354,6 @@ __device__ __forceinline__ void store_rows(const float (&o)[64], float (&l_run)[
     const int row = row0 + 8 * r2;
     store_row(row_ptr(row), w, tig, row < rows);
   }
-}
-
-// The persistent grid: at most one CTA an SM
-inline int persistent_grid(int items, int* grid) {
-  int dev = 0, sms = 0;
-  if (cudaError_t err = cudaGetDevice(&dev)) return int(err);
-  if (cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-    return int(err);
-  *grid = items < sms ? items : sms;
-  return 0;
 }
 
 }  // namespace

@@ -61,7 +61,9 @@
 // `vc_wgmma_layout_check` runs one warpgroup over an integer-valued tile
 // pair and returns every product form the kernels use (K-major from shared
 // memory and from registers, register A from a packed accumulator with the
-// MN-major B); the CUDA tests hold it to an exact integer product.
+// MN-major B) and the forms of csrc/matmul_stat.cu (A K-major and B MN-major
+// both from shared memory, n256 and n128); the CUDA tests hold it to an
+// exact integer product.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (name and
 // power limit as nvidia-smi gives them), batch 1, 12 heads: dQ 14.99 ms and
@@ -471,10 +473,15 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_qs, const __grid_constant__ C
 //   c_rs [64, 64]  = A B^T, A from registers (ldmatrix of the swizzled tile)
 //   c_pb [64, 128] = bf16(c_ss) B, the accumulator packed as register A and
 //                    B read MN-major from the same tile
+//   c_sb [64, 384] = A[:, :64] [A | B | B], A K-major and B MN-major both
+//                    from shared memory, as csrc/matmul_stat.cu's GEMM reads
+//                    x and W: columns 0..255 by the n256 form over the A
+//                    and B tiles read as one [64, 256] tile (four 64-column
+//                    blocks), 256..383 by the n128 form over B
 __global__ void __launch_bounds__(128, 1)
 layout_check_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, int which, float* c_ss,
-                    float* c_rs, float* c_pb) {
+                    float* c_rs, float* c_pb, float* c_sb) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -529,6 +536,28 @@ layout_check_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     c_pb[r * D + col] = pb[i];
   }
+
+  float sb[128];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256k16_ss_bt(sb, desc_k_major(at, kk * 16), desc_mn_major(at, kk * 16), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sb);
+#pragma unroll
+  for (int i = 0; i < 128; ++i)
+    c_sb[(row + ((i >> 1) & 1) * 8) * 384 + (i >> 2) * 8 + tig * 2 + (i & 1)] = sb[i];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16_ss_bt(sb, desc_k_major(at, kk * 16), desc_mn_major(bt, kk * 16), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sb);
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    c_sb[(row + ((i >> 1) & 1) * 8) * 384 + 256 + (i >> 2) * 8 + tig * 2 + (i & 1)] = sb[i];
 }
 
 Params make_params(const void* L, const void* delta, const void* k_lens, int N, int Sq,
@@ -601,16 +630,17 @@ extern "C" int vc_fa_backward_dkv(const void* qs, const void* k, const void* v,
 }
 
 // The wgmma / TMA layout check: a, b are bf16 [count, rows, 128]; c_ss, c_rs
-// fp32 [64, 64] and c_pb fp32 [64, 128] (see layout_check_kernel).
+// fp32 [64, 64], c_pb fp32 [64, 128] and c_sb fp32 [64, 384] (see
+// layout_check_kernel).
 extern "C" int vc_wgmma_layout_check(const void* a, const void* b, int rows, int count,
                                      int which, void* c_ss, void* c_rs, void* c_pb,
-                                     void* stream) {
+                                     void* c_sb, void* stream) {
   CUtensorMap map_a, map_b;
   if (int err = make_rows_map(&map_a, a, rows, count)) return err;
   if (int err = make_rows_map(&map_b, b, rows, count)) return err;
   if (int err = opt_in_shared_memory(layout_check_kernel)) return err;
   layout_check_kernel<<<1, 128, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       map_a, map_b, which, static_cast<float*>(c_ss), static_cast<float*>(c_rs),
-      static_cast<float*>(c_pb));
+      static_cast<float*>(c_pb), static_cast<float*>(c_sb));
   return int(cudaGetLastError());
 }

@@ -1,9 +1,12 @@
-// Hopper (sm_90a) building blocks for kernels built on warpgroup MMA:
-// wgmma.mma_async bf16 -> fp32 with A from shared memory or registers and
-// B from shared memory in either major, s8 -> s32 with A from registers, 128-byte swizzled tiles fed by the
-// Tensor Memory Accelerator (cp.async.bulk.tensor) with mbarrier
-// completion, register hand-over between warpgroups (setmaxnreg), and the
-// host side of a tensor map with nothing linked but the CUDA runtime.
+// Hopper (sm_90a) building blocks for every kernel of the port, all built
+// on warpgroup MMA: wgmma.mma_async bf16 -> fp32 with A from shared memory
+// or registers and B from shared memory in either major, s8 -> s32 with A
+// from registers, 128-byte swizzled tiles fed by the Tensor Memory
+// Accelerator (cp.async.bulk.tensor) with mbarrier completion, register
+// hand-over between warpgroups (setmaxnreg), 16-byte row stores of a
+// quad's accumulator words, bf16 packing and the softmax constants, and
+// the host side of a tensor map and of a persistent grid with nothing
+// linked but the CUDA runtime.
 //
 // Shared-memory tile convention used throughout: a [64 rows, 128 columns]
 // bf16 tile is two halves of 64 columns, each an 8 KB block of 64 rows x
@@ -19,9 +22,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"  // pack_bf16, ldmatrix_x4, LOG2E_F
-
 namespace {
+
+constexpr float NEG_INF = -0.7f * 3.40282346638528859812e+38f;
+constexpr float LOG2E_F = 1.44269504088896340736f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 constexpr uint32_t SW_ROW_BYTES = 128;                 // one swizzled row
 constexpr uint32_t SW_GROUP_BYTES = 8 * SW_ROW_BYTES;  // 8 rows: the swizzle period
@@ -187,6 +196,17 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int k0,
   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
   "%61, %62, %63}"
 
+#define VC_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
 // memory; `accumulate` false overwrites d
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
@@ -236,6 +256,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_bt(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], A K-major and B MN-major in
+// shared memory (the transposed read of a row-major [k, n] tile, its
+// 64-column blocks the descriptor's leading offset apart: desc_mn_major)
+__device__ __forceinline__ void wgmma_m64n256k16_ss_bt(float (&d)[128], uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " VC_D128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : VC_F32(d, 0), VC_F32(d, 32), VC_F32(d, 64), VC_F32(d, 96)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the same at n = 128, into the first 64 registers of d (an accumulator
+// sized for either width)
+template <int NA>
+__device__ __forceinline__ void wgmma_m64n128k16_ss_bt(float (&d)[NA], uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  static_assert(NA >= 64, "an m64n128 accumulator is 64 registers a thread");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VC_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : VC_F32(d, 0), VC_F32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #define VC_U8(d, i)                                                             \
   "+r"((d)[i]), "+r"((d)[i + 1]), "+r"((d)[i + 2]), "+r"((d)[i + 3]),           \
       "+r"((d)[i + 4]), "+r"((d)[i + 5]), "+r"((d)[i + 6]), "+r"((d)[i + 7])
@@ -283,6 +330,30 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t tile, int
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+// ---- stores ----------------------------------------------------------------
+
+// One output row held by a quad (word j of thread tig: columns 8j + 2tig and
+// 8j + 2tig + 1, packed bf16), written as 16-byte stores: a 4 x 4 word
+// transpose inside the quad by two exchanges, after which thread tig holds
+// column groups 4m + tig (m = 0..3) whole. Every lane takes part in the
+// exchanges; only `valid` rows are written.
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst, const uint32_t (&w)[16], int tig,
+                                          bool valid) {
+  const bool odd = tig & 1, high = tig & 2;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const uint32_t a0 = w[4 * m], a1 = w[4 * m + 1], a2 = w[4 * m + 2], a3 = w[4 * m + 3];
+    const uint32_t x = __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 1);
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, odd ? a2 : a3, 1);
+    const uint32_t c0 = odd ? x : a0, c1 = odd ? a1 : x, c2 = odd ? y : a2, c3 = odd ? a3 : y;
+    const uint32_t u = __shfl_xor_sync(0xffffffffu, high ? c0 : c2, 2);
+    const uint32_t v = __shfl_xor_sync(0xffffffffu, high ? c1 : c3, 2);
+    if (valid)
+      *reinterpret_cast<uint4*>(dst + 8 * (4 * m + tig)) =
+          high ? make_uint4(u, v, c2, c3) : make_uint4(c0, c1, u, v);
+  }
 }
 
 // ---- register hand-over between warpgroups --------------------------------
@@ -372,6 +443,16 @@ inline int make_flat_map(CUtensorMap* map, const void* base, int batch, int rows
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 100000 + int(res);
+}
+
+// The persistent grid: at most one CTA an SM
+inline int persistent_grid(int items, int* grid) {
+  int dev = 0, sms = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return int(err);
+  if (cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return int(err);
+  *grid = items < sms ? items : sms;
+  return 0;
 }
 
 }  // namespace

@@ -101,9 +101,11 @@ def _launch_error(what: str, err: int) -> RuntimeError:
 def wgmma_layout_check(a: torch.Tensor, b: torch.Tensor, which: int = 0):
     """One warpgroup over the first 64 rows of matrix `which` of a and b
     (bf16 [count, rows, 128] on the card): (A Bᵀ from shared memory, A Bᵀ
-    with A from registers, bf16(A Bᵀ) B with B read transposed), fp32
-    [64, 64], [64, 64], [64, 128]. Every product form, tile layout and
-    fragment layout the backward kernels rely on; exact on small integers."""
+    with A from registers, bf16(A Bᵀ) B with B read transposed, A[:, :64]
+    [A | B | B] with A and B both from shared memory and B read transposed),
+    fp32 [64, 64], [64, 64], [64, 128], [64, 384]. Every product form, tile
+    layout and fragment layout the backward kernels and the linear_rstat
+    GEMM rely on; exact on small integers."""
     _check_cuda("a", a, torch.bfloat16)
     _check_cuda("b", b, torch.bfloat16, a.shape)
     count, rows, d = a.shape
@@ -111,8 +113,9 @@ def wgmma_layout_check(a: torch.Tensor, b: torch.Tensor, which: int = 0):
         raise ValueError(f"need [count, rows, 128] and 0 <= which < count, got {a.shape}")
     fn = _build.load("flash_attention_bwd").vc_wgmma_layout_check
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-    outs = [torch.empty(64, n, dtype=torch.float32, device=a.device) for n in (64, 64, 128)]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    outs = [torch.empty(64, n, dtype=torch.float32, device=a.device)
+            for n in (64, 64, 128, 384)]
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), rows, count, which,
                  *(t.data_ptr() for t in outs),

@@ -11,8 +11,9 @@ dtype, and the statistic is taken from the rounded y, exactly the tensor a
 separate rms_norm pass would read.
 
 On a CUDA tensor the wrapper launches the hand-written GEMM of
-csrc/matmul_stat.cu (or raises); a CPU tensor takes the plain version. Under
-grad (an input needs a gradient) the plain math runs through torch
+csrc/matmul_stat.cu (one persistent wgmma + TMA kernel that takes the
+statistic in its epilogue) or raises; a CPU tensor takes the plain version.
+Under grad (an input needs a gradient) the plain math runs through torch
 autograd, as the JAX custom_vjp runs its reference math under jax.grad.
 """
 
@@ -25,7 +26,12 @@ import torch
 from versecrafter_tpu_torch.kernels import _build
 from versecrafter_tpu_torch.kernels.flash_attention import _check_cuda, _needs_grad
 
-BN, BK = 128, 32  # the kernel's tile: N columns, K depth
+# The kernel's geometry (csrc/matmul_stat.cu): row blocks of BM rows, each
+# swept by one cluster of two CTAs over N tiles of BN columns (alternate
+# tiles a CTA; the last of BN_TAIL when N % BN == BN_TAIL), K slices of BK;
+# N must be a multiple of BN_TAIL and at most MAX_N (the bias row sits in
+# shared memory beside the ring).
+BM, BN, BN_TAIL, BK, MAX_N = 128, 256, 128, 64, 8192
 
 # Kernel launches since the last reset (comparison launches count too; a
 # caller measuring a path resets first).
@@ -54,17 +60,23 @@ def _kernel_fn():
     fn = _build.load("matmul_stat").vc_linear_rstat
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
+
+
+def check_shape(M: int, K: int, N: int) -> None:
+    """Raises ValueError for a product [M, K] x [K, N] the kernel does not
+    take: K a multiple of BK, N of BN_TAIL and at most MAX_N, M > 0."""
+    if K <= 0 or K % BK or N <= 0 or N % BN_TAIL or N > MAX_N or M <= 0:
+        raise ValueError(f"the linear_rstat kernel needs K % {BK} == 0, N % {BN_TAIL} == 0, "
+                         f"N <= {MAX_N} and M > 0, got M={M} K={K} N={N}")
 
 
 def _launch(x, w, bias, eps):
     M, K = x.shape
     N = w.shape[1]
-    if K % BK or N % BN or M == 0:
-        raise ValueError(f"the linear_rstat kernel needs K % {BK} == 0, N % {BN} == 0 "
-                         f"and M > 0, got M={M} K={K} N={N}")
+    check_shape(M, K, N)
     _check_cuda("x", x, torch.bfloat16)
     _check_cuda("w", w, torch.bfloat16, (K, N))
     if bias is not None:
@@ -73,14 +85,14 @@ def _launch(x, w, bias, eps):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = torch.empty((M, N // BN), dtype=torch.float32, device=x.device)
     rs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel_fn()(x.data_ptr(), w.data_ptr(),
                            bias.data_ptr() if bias is not None else None,
-                           y.data_ptr(), part.data_ptr(), rs.data_ptr(),
-                           M, N, K, float(eps), stream)
+                           y.data_ptr(), rs.data_ptr(), M, N, K, float(eps), stream)
+    if err >= 100000:
+        raise RuntimeError(f"linear_rstat kernel: tensor map refused, CUresult {err - 100000}")
     if err != 0:
         raise RuntimeError(f"linear_rstat kernel launch failed: cudaError {err}")
     LAUNCHES["linear_rstat"] += 1

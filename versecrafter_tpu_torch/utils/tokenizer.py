@@ -1,13 +1,20 @@
 """Tokenizer loading: the HuggingFace umT5 tokenizer when `transformers` and
 local files are available, else a deterministic hash tokenizer (the only one
-on a machine without `transformers`). The hash tokenizer uses Python's
-salted hash(), so its ids agree only within one process."""
+on a machine without `transformers`). The hash tokenizer hashes each word
+with BLAKE2b, so a prompt gives the same ids in every process (the JAX
+package's uses Python's salted hash(), whose ids agree only within one
+process)."""
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import numpy as np
+
+
+def _word_hash(word: str) -> int:
+    return int.from_bytes(hashlib.blake2b(word.encode(), digest_size=8).digest(), "little")
 
 
 class HashTokenizer:
@@ -24,7 +31,7 @@ class HashTokenizer:
         ids = np.full((len(texts), max_length), self.pad_id, np.int32)
         mask = np.zeros((len(texts), max_length), np.int32)
         for i, t in enumerate(texts):
-            toks = [2 + (hash(w) % (self.vocab_size - 2)) for w in t.split()]
+            toks = [2 + (_word_hash(w) % (self.vocab_size - 2)) for w in t.split()]
             toks = toks[: max_length - 1] + [self.eos_id]
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1
