@@ -24,14 +24,24 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      CTAs; twenty back-to-back launches of each forward flavor, bit-identical;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
      pipeline with umT5-xxl and the Wan VAE from random weights serves two
-     generate requests (480x832x81, 3 UniPC steps, CFG 5) through the
-     serving mapping; the launch counters must read 45 per step per fused
-     flavor, and the DiT on the card must agree with the same DiT on the CPU
-     at a small input;
+     generate requests (480x832x81, 3 UniPC steps, CFG 5; the VAE streams
+     at that size) through the serving mapping; the launch counters must
+     read 45 per step per fused flavor, and the DiT on the card must agree
+     with the same DiT on the CPU at a small input; one 480x832x81 control
+     video through the streaming and the full-sequence VAE (in fp32 on its
+     first 33 frames the two within 2*2^-8*max; in bf16 at 81 frames the
+     streaming path within 2*2^-8*max of the full path's own distance from
+     the fp32 result; each path's time and peak memory); one 480x832x81
+     request with TeaCache and cfg-skip (8 steps),
+     whose skip schedule must equal the one recomputed here from the
+     timesteps' e0 and whose launches must be 45 per evaluation that ran the
+     blocks;
   4. one timed batched-CFG denoise step at 480x832x81 (the two timed steps'
      predictions must be bit-identical), then the same step under
      torch.profiler: device time by kernel and the device's idle share;
-     then the same pipeline built from the same seed in a fresh process
+     the same step as sequential CFG (two batch-1 forwards), held to
+     correlation > 0.999 and twice the model's noise floor of the batched
+     one; then the same pipeline built from the same seed in a fresh process
      (`chip_smoke.py --denoise-digest`) runs the same step, and the SHA-256
      of its prediction, of its text embedding, of its inputs and of the DiT
      weights must equal this process's (a mismatch fails the smoke at its
@@ -49,7 +59,17 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      GEMM), each with its launch counts; then one timed CFG-2 denoise step
      per variant under torch.profiler, its prediction held against the
      default path's on the same inputs, and each variant's step time beside
-     the default's.
+     the default's;
+  7. the flagship: the fused attention kernels at the Wan2.1-14B width (40
+     heads, [2, 32,760, 5120], cross against 512 keys) against their plain
+     versions, timed, reruns bit-identical; then Wan2.1-T2V-14B + GeoAdapter
+     with umT5-xxl and the Wan VAE from random weights (build time, resident
+     memory), its first GeoAdapter superstep on the card against the CPU at
+     192 tokens, one 480x832x81 request with TeaCache and cfg-skip (4 steps;
+     schedule, 60 launches per evaluation that ran the blocks, stage split,
+     peak memory), one timed CFG-2 step under torch.profiler and the same
+     step as sequential CFG held to it (twice the noise floor, in max error
+     and in correlation).
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -59,6 +79,7 @@ The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
 """
 
+import dataclasses
 import gc
 import hashlib
 import json
@@ -85,6 +106,8 @@ TPU_KERNELS = {
     "fa_backward_dkv": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
     "fused_rope_rms_attention_int8": "versecrafter_tpu/kernels/flash_attention.py:800",
     "linear_rstat": "versecrafter_tpu/kernels/matmul_stat.py:76",
+    "fused_rope_rms_attention_14b": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "fused_rms_cross_attention_14b": "versecrafter_tpu/kernels/flash_attention.py:800",
 }
 SOURCES = {
     "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
@@ -94,12 +117,24 @@ SOURCES = {
     "fa_backward_dkv": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_rope_rms_attention_int8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
     "linear_rstat": "versecrafter_tpu_torch/csrc/matmul_stat.cu",
+    "fused_rope_rms_attention_14b": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "fused_rms_cross_attention_14b": "versecrafter_tpu_torch/csrc/fused_attention.cu",
 }
 # (B, N, Sq, Skv, window, k_lens) that straddle the fused kernel's tiles
 FUSED_EDGE_CASES = [(1, 2, 193, 321, (-1, -1), None), (2, 2, 129, 64, (-1, -1), (64, 0)),
                     (1, 2, 200, 40, (-1, -1), None), (2, 2, 700, 77, (-1, -1), (77, 5)),
                     (1, 1, 32760, 192, (-1, -1), None), (1, 2, 384, 384, (64, 32), None),
                     (2, 2, 333, 333, (100, 27), (333, 0)), (1, 2, 300, 300, (-1, 0), None)]
+# TeaCache requests (phases 3 and 7). With these random weights the
+# rescaled e0 distance of one step is ~4,500-29,000 under the 14B
+# coefficients (fitted to trained weights, whose e0 moves far less), so the
+# thresholds are of that size; each makes at least one step skip and at
+# least one step after skip_start calculate (expected_tea_schedule checks)
+TEA_13B = {"steps": 8, "threshold": 12000.0, "skip_start": 2, "cfg_skip_ratio": 0.25}
+TEA_14B = {"steps": 4, "threshold": 20000.0, "skip_start": 2, "cfg_skip_ratio": 0.25}
+TEA_MARGIN = 0.05
+CFG_PARALLEL_14B = True  # batched CFG-2 fits beside the 14B weights on 80 GB
+VAE_EXACT_FRAMES = 33  # the fp32 stream-vs-full check's length (full path fits)
 TRAIN_STEPS = 3  # a warm-up step and two timed ones
 TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
 STEPS = 3
@@ -828,7 +863,7 @@ def train_phase(fa, fab, ms, dev, card):
     return {k: counts[k] for k in ("flash_attention", "fa_backward_dq", "fa_backward_dkv")}
 
 
-def timed_step(step, label, card, reps=2):
+def timed_step(step, label, card, reps=2, tag="variants"):
     """A warm-up, then `reps` host-timed synchronised runs of a denoise step
     and one under torch.profiler; returns (prediction, times)."""
     first = step()
@@ -841,7 +876,7 @@ def timed_step(step, label, card, reps=2):
         times.append((time.perf_counter() - t1) * 1e3)
     if not torch.isfinite(pred).all():
         raise AssertionError(f"non-finite {label} prediction at 480x832x81")
-    log(f"[variants] {label}: CFG-2 denoise step "
+    log(f"[{tag}] {label}: CFG-2 denoise step "
         f"{' '.join(f'{t:.1f}' for t in times)} ms on {card}; the prediction repeats "
         f"bit for bit: {torch.equal(first, pred)}")
     profile_step(step, min(times), card)
@@ -959,6 +994,329 @@ def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=(480, 832, FRAMES_
     return launches
 
 
+def expected_tea_schedule(pipe, tea):
+    """The skip schedule a TeaCache request must take, recomputed here: e0 of
+    each of the request's timesteps from the port's wan_dit_e0 on the card,
+    then the gate's decision in numpy with the pipeline's fp32 arithmetic
+    (the relative L1 drift of e0, the polynomial by Horner's rule; every CFG
+    row sees the same e0). Each decision from skip_start on must clear the
+    threshold by TEA_MARGIN of it, at least one of them must skip and one
+    must calculate. Returns (calc per step, accumulator before each
+    decision)."""
+    from versecrafter_tpu_torch.models.wan_dit import wan_dit_e0
+    from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
+    timesteps = make_scheduler(pipe.scheduler_name, pipe.scheduler_cfg).set_timesteps(
+        tea["steps"], shift=16.0)  # a request's default shift
+    thr, start = np.float32(tea["threshold"]), tea["skip_start"]
+    calc, before, prev, accum = [], [], None, np.float32(0.0)
+    for i, t in enumerate(timesteps):
+        tvec = torch.full((1,), float(np.float32(t)), dtype=torch.float32, device=pipe.device)
+        e0 = wan_dit_e0(pipe.dit_params, pipe.dit_cfg, tvec)[1][0].cpu().numpy()
+        if prev is not None:
+            rel = np.float32(np.abs(e0 - prev).mean(dtype=np.float32)
+                             / max(np.abs(prev).mean(dtype=np.float32), np.float32(1e-8)))
+            poly = np.float32(0.0)
+            for c in pipe.teacache_coefficients:
+                poly = np.float32(poly * rel + np.float32(c))
+            accum = np.float32(accum + poly)
+        before.append(float(accum))
+        calc.append(prev is None or i < start or bool(accum >= thr))
+        if i >= start and not abs(float(accum) - float(thr)) > TEA_MARGIN * float(thr):
+            raise AssertionError(f"TeaCache step {i}: accumulator {float(accum):.6g} within "
+                                 f"{TEA_MARGIN:.0%} of the threshold {float(thr):.6g}")
+        if calc[-1]:
+            accum = np.float32(0.0)
+        prev = e0
+    if all(calc[start:]) or not any(calc[start:]):
+        raise AssertionError(f"TeaCache threshold {float(thr)} gives the schedule {calc}: "
+                             "nothing to skip, or nothing calculated after skip_start")
+    return calc, before
+
+
+def block_evaluations(calc, tea, cfg_parallel):
+    """Model evaluations that ran the blocks: one a calculating step under
+    batched CFG or in the cfg-skip window, two (one a branch) under
+    sequential CFG."""
+    skip_from = tea["steps"] * (1.0 - tea["cfg_skip_ratio"])
+    return sum((1 if cfg_parallel or i >= skip_from else 2)
+               for i, c in enumerate(calc) if c)
+
+
+def tea_request(fa, fab, ms, pipe, tag, tea, blocks, seed, card):
+    """One 480x832x81 request with TeaCache and cfg-skip through the serving
+    toggles: its skip schedule (teacache_accum_history: 0 after a step that
+    ran the blocks) must equal expected_tea_schedule, each attention flavor
+    must launch `blocks` times per evaluation that ran the blocks and no
+    other kernel may launch, the toggles must be restored afterwards, and
+    the frames must be uint8 of the right shape, not constant. Returns the
+    launch counts."""
+    from versecrafter_tpu_torch.models import wan_dit
+    from versecrafter_tpu_torch.serve.model_server import run_loaded_request
+
+    h, w, n = 480, 832, FRAMES_E2E
+    calc, before = expected_tea_schedule(pipe, tea)
+    mode = "batched CFG (cfg_parallel=True)" if pipe.cfg_parallel else \
+        "sequential CFG (cfg_parallel=False)"
+    log(f"[{tag}] TeaCache request: {tea['steps']} UniPC steps, threshold "
+        f"{tea['threshold']}, skip_start {tea['skip_start']}, cfg_skip_ratio "
+        f"{tea['cfg_skip_ratio']}, {mode}; expected schedule "
+        f"{''.join('C' if c else 'S' for c in calc)} (C runs the blocks, S skips), "
+        f"accumulators before each decision {[round(a, 1) for a in before]}")
+    controls, mask = synth_request(n, h, w, seed)
+    params = {"prompt": "a lighthouse on a cliff at dusk", "negative_prompt": "blurry",
+              "num_inference_steps": tea["steps"], "guidance_scale": 5.0, "seed": seed,
+              "height": h, "width": w, "num_frames": n,
+              "teacache_threshold": tea["threshold"], "teacache_skip_start": tea["skip_start"],
+              "cfg_skip_ratio": tea["cfg_skip_ratio"]}
+    toggles = (pipe.teacache_threshold, pipe.teacache_skip_start, pipe.cfg_skip_ratio)
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe.teacache_debug = True
+    t1 = time.perf_counter()
+    try:
+        video = run_loaded_request(pipe, params, controls, mask)
+    finally:
+        pipe.teacache_debug = False
+    dt = time.perf_counter() - t1
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    history = pipe.teacache_accum_history
+    got = [bool(np.all(a == 0.0)) for a in history]
+    evals = block_evaluations(calc, tea, pipe.cfg_parallel)
+    log(f"[{tag}] TeaCache request: {video.shape} {video.dtype} in {dt:.1f} s "
+        f"{ {k_: round(v, 2) for k_, v in pipe.last_wall_profile.items()} } "
+        f"launches {counts}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"schedule {''.join('C' if c else 'S' for c in got)}, accumulators "
+        f"{[a.tolist() for a in history]}; {evals} evaluations ran the blocks")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    if float(video.std()) == 0.0:
+        raise AssertionError("constant output video")
+    if any(bool(np.any(a == 0.0)) != g for a, g in zip(history, got)):
+        raise AssertionError("TeaCache rows of one step decided apart")
+    if got != calc:
+        raise AssertionError(f"TeaCache schedule {got} != the recomputed {calc}")
+    want = {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * evals,
+            "fused_rms_cross_attention": blocks * evals}
+    if counts != want:
+        raise AssertionError(f"TeaCache request launches {counts} != {want}")
+    if (pipe.teacache_threshold, pipe.teacache_skip_start, pipe.cfg_skip_ratio) != toggles \
+            or wan_dit.INT8_QK_SCORE:
+        raise AssertionError("a request toggle outlived its request")
+    return counts
+
+
+def stream_vs_full(pipe, seed, card):
+    """One 480x832x81 control video through the full-sequence VAE and the
+    streaming one, encoded, and the full path's latents decoded by each.
+
+    In bf16, the pipeline's dtype, each path rounds at every conv and the
+    two round differently, so neither matches the other to 2*2^-8*max:
+    the bf16 streaming path must come within that bar of the bf16 full
+    path's own distance from the exact result (fp32 through the streaming
+    path), latents and frames; the log gives both paths' max_abs_err
+    against each other, bit-identity, time and peak memory above what was
+    allocated before. The streaming math is held to the full sequence in
+    fp32 on the first VAE_EXACT_FRAMES frames (the fp32 full path at 81
+    frames does not fit beside the weights): within 2*2^-8*max."""
+    from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
+    from versecrafter_tpu_torch.models.vae_stream import (vae_decode_chunked,
+                                                          vae_encode_chunked)
+    controls, _ = synth_request(FRAMES_E2E, 480, 832, seed)
+    video = torch.as_tensor(controls[0], device=pipe.device) * 2.0 - 1.0
+
+    def run(fn, *args):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = fn(pipe.vae_params, pipe.vae_cfg, *args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def max_err(got, ref):
+        if got.shape != ref.shape:
+            raise AssertionError(f"streaming VAE shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        return (got.float() - ref.float()).abs().max().item()
+
+    # the streaming math: fp32, both paths, the first VAE_EXACT_FRAMES frames
+    x = video[:, :, :VAE_EXACT_FRAMES].contiguous()
+    z_full, z_str = vae_encode(pipe.vae_params, pipe.vae_cfg, x), vae_encode_chunked(
+        pipe.vae_params, pipe.vae_cfg, x)
+    y_full = vae_decode(pipe.vae_params, pipe.vae_cfg, z_full)
+    y_str = vae_decode_chunked(pipe.vae_params, pipe.vae_cfg, z_full)
+    for what, got, ref in (("latents", z_str, z_full), ("frames", y_str, y_full)):
+        err, mx = max_err(got, ref), ref.abs().max().item()
+        ok = math.isfinite(err) and err <= BF16_BAR * mx
+        log(f"[e2e] VAE fp32 {what} {tuple(got.shape)}, streaming vs full sequence: "
+            f"max_abs_err {err:.4g} (bar {BF16_BAR * mx:.4g} = 2*2^-8*max|full|), "
+            f"bit-identical {torch.equal(got, ref)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"streaming VAE {what} disagree with the full sequence in fp32")
+    del x, z_full, z_str, y_full, y_str
+    torch.cuda.empty_cache()
+
+    # the pipeline's dtype at the full length, against the exact result
+    x = video.to(torch.bfloat16)
+    z_exact = vae_encode_chunked(pipe.vae_params, pipe.vae_cfg, video)
+    del video
+    z_full, t_ef, m_ef = run(vae_encode, x)
+    z_str, t_es, m_es = run(vae_encode_chunked, x)
+    del x
+    y_exact = vae_decode_chunked(pipe.vae_params, pipe.vae_cfg, z_full.float())
+    y_full, t_df, m_df = run(vae_decode, z_full)
+    y_str, t_ds, m_ds = run(vae_decode_chunked, z_full)
+    for what, got, ref, exact, tf, ts, mf, ms_ in (
+            ("latents", z_str, z_full, z_exact, t_ef, t_es, m_ef, m_es),
+            ("frames", y_str, y_full, y_exact, t_df, t_ds, m_df, m_ds)):
+        err, mx = max_err(got, ref), exact.abs().max().item()
+        err_str, err_full = max_err(got, exact), max_err(ref, exact)
+        ok = math.isfinite(err_str) and err_str <= err_full + BF16_BAR * mx
+        log(f"[e2e] VAE bf16 {what} {tuple(got.shape)}: streaming vs full sequence max_abs_err "
+            f"{err:.4g} ({err / mx:.4g} of max), bit-identical {torch.equal(got, ref)}; "
+            f"against the exact (fp32) result: streaming {err_str:.4g}, full sequence "
+            f"{err_full:.4g} (bar {err_full + BF16_BAR * mx:.4g} = the full path's + "
+            f"2*2^-8*max); full {tf:.2f} s, peak +{mf:.2f} GiB; streaming {ts:.2f} s, peak "
+            f"+{ms_:.2f} GiB, on {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"streaming VAE {what} less accurate than the full sequence")
+    del z_exact, z_full, z_str, y_exact, y_full, y_str
+    torch.cuda.empty_cache()
+
+
+def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2):
+    """The CFG-2 step as sequential CFG (two batch-1 forwards, the positive
+    prompt's and then the negative one's, combined): `reps` timed runs and
+    the peak memory above what was allocated before; returns the
+    prediction."""
+    from versecrafter_tpu_torch.sampling.pipeline import Denoiser
+    pipe.cfg_parallel = False
+    try:
+        den = Denoiser(pipe, lat.shape[0], cos.shape[0], 5.0, torch.bfloat16, 1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            pred = den.step(0, 999.0, lat, ctx, geo, cos, sin, 1.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        pipe.cfg_parallel = True
+    log(f"[{tag}] sequential-CFG step: {' '.join(f'{t:.1f}' for t in times)} ms on {card}; "
+        f"peak +{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB allocated before it")
+    return pred
+
+
+def dit_subtree(params, cfg, base_blocks, geoada_blocks):
+    """(params, cfg) of the DiT's embeddings, head, first `base_blocks`
+    blocks and first `geoada_blocks` GeoAdapter blocks (the same
+    interleaving: GeoAdapter block i before base block stride * i)."""
+    sub = {k: v for k, v in params.items() if k not in ("blocks", "geoada_blocks")}
+    sub["blocks"] = params["blocks"][:base_blocks]
+    sub["geoada_blocks"] = params["geoada_blocks"][:geoada_blocks]
+    stride = cfg.resolved_geoada_layers[1] - cfg.resolved_geoada_layers[0]
+    return sub, dataclasses.replace(cfg, num_layers=base_blocks,
+                                    geoada_layers=tuple(range(0, base_blocks, stride)))
+
+
+def dit_card_vs_cpu(pipe, params, cfg, tag, what):
+    """The DiT (or a sub-tree of it) on the card against the same weights on
+    the CPU at 192 tokens (bf16, CFG-2 batch), bar 5e-2 * max."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
+    from versecrafter_tpu_torch.sampling.pipeline import _to_device
+    dev = pipe.device
+    gsm = torch.Generator(device=dev).manual_seed(5)
+    lat = torch.randn(1, 16, 3, 16, 16, generator=gsm, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, 128, 3, 16, 16, generator=gsm, device=dev).to(torch.bfloat16)
+    ctx = pipe.encode_prompt("a small check", "").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, 3, 8, 8, device=dev)
+    tvec = torch.full((2,), 700.0, device=dev)
+    lat2, geo2 = torch.cat([lat, lat]), torch.cat([geo, geo])
+    out_gpu = wan_dit_forward(params, cfg, lat2, tvec, ctx, cos, sin,
+                              geoada_context=geo2).float().cpu()
+    cpu_params = _to_device(params, "cpu")
+    out_cpu = wan_dit_forward(cpu_params, cfg, lat2.cpu(), tvec.cpu(), ctx.cpu(),
+                              cos.cpu(), sin.cpu(), geoada_context=geo2.cpu()).float()
+    del cpu_params
+    rel = ((out_gpu - out_cpu).abs().max() / out_cpu.abs().max()).item()
+    log(f"[{tag}] {what} card vs CPU at 192 tokens (bf16): rel err {rel:.4g} (bar 5e-2), "
+        f"finite={bool(torch.isfinite(out_gpu).all())}")
+    if not (rel <= 5e-2 and torch.isfinite(out_gpu).all()):
+        raise AssertionError(f"{what} on the card disagrees with the CPU reference")
+
+
+def flagship_phase(fa, fab, ms, dev, card, records):
+    """Phase 7: Wan2.1-T2V-14B + GeoAdapter with umT5-xxl and the Wan VAE
+    (the '14b' factory, random weights from seed 0). First, with the card
+    empty, the fused attention kernels at its width (40 heads: [2, 32,760,
+    5120], cross against 512 context tokens), timed, with reruns; then the
+    pipeline's build time and resident memory, its first GeoAdapter
+    superstep (2 base + 1 GeoAdapter blocks) card vs CPU, one 480x832x81
+    TeaCache + cfg-skip request, one timed CFG-2 step under the profiler and
+    one sequential-CFG step held to it. Returns the request's launches."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14b] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase")
+    for name, ctx_len in (("fused_rope_rms_attention", None), ("fused_rms_cross_attention", 512)):
+        records[name + "_14b"] = check_kernel(fa, name, 2, 32760, ctx_len or 32760, 40, dev,
+                                              timed=True, rerun=True)
+    t1 = time.perf_counter()
+    pipe = default_pipeline_factory(scale="14b", device=dev, seed=0)()
+    randomize_zero_inits(pipe.dit_params, dev)
+    torch.cuda.synchronize()
+    cfg = pipe.dit_cfg
+    n_dit = sum(t.numel() for t in tree_leaves(pipe.dit_params))
+    log(f"[14b] pipeline built (umT5-xxl + Wan2.1-T2V-14B + GeoAdapter, {cfg.num_layers} + "
+        f"{len(pipe.dit_params['geoada_blocks'])} blocks, {n_dit / 1e9:.2f}B DiT params, + Wan "
+        f"VAE) in {time.perf_counter() - t1:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    sub, sub_cfg = dit_subtree(pipe.dit_params, cfg, 2, 1)
+    dit_card_vs_cpu(pipe, sub, sub_cfg, "14b", "first GeoAdapter superstep (2 base + 1 "
+                    "GeoAdapter blocks of the 14B DiT)")
+    del sub
+    pipe.cfg_parallel = CFG_PARALLEL_14B
+    counts = tea_request(fa, fab, ms, pipe, "14b", TEA_14B, 60, 21, card)
+
+    f, th, tw = TRAIN_GRID
+    g7 = torch.Generator(device=dev).manual_seed(81)
+    lat = torch.randn(1, 16, f, 2 * th, 2 * tw, generator=g7, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, 128, f, 2 * th, 2 * tw, generator=g7, device=dev).to(torch.bfloat16)
+    ctx = pipe.encode_prompt("a red car drives left", "blurry").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, f, th, tw, device=dev)
+
+    def step():
+        return pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
+
+    torch.cuda.reset_peak_memory_stats()
+    base, _ = timed_step(step, "14B default path", card, tag="14b")
+    log(f"[14b] peak over the timed steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
+    moved = pipe.denoise_step(lat_p, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
+    floor = compare("14B step at latents x (1 + 2^-8) vs 14B step (noise floor)", moved, base)
+    # twice the noise floor, in correlation as in max error: one bf16 ulp of
+    # the latents already takes this random-weight 40-layer DiT's prediction
+    # below correlation 0.999, so a bar of 0.999 would fail on any rounding
+    corr_bar = min(0.999, 1.0 - 2.0 * (1.0 - correlation(moved, base)))
+    del lat_p, moved
+    seq = sequential_step(pipe, lat, ctx, geo, cos, sin, "14b", card)
+    compare("14B sequential-CFG step vs batched", seq, base, corr_bar=corr_bar,
+            err_bar=2 * floor)
+    del pipe, lat, geo, ctx, base, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14b] {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -968,8 +1326,6 @@ def main() -> int:
     from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab
     from versecrafter_tpu_torch.kernels import matmul_stat as ms
     from versecrafter_tpu_torch.serve.model_server import _call_pipe
-    from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
-    from versecrafter_tpu_torch.sampling.pipeline import _to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1092,28 +1448,16 @@ def main() -> int:
             raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} "
                                  f"!= {want}")
     log(f"[e2e] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(torch.cuda.max_memory_allocated)")
+        f"(torch.cuda.max_memory_allocated); the VAE streams above "
+        f"{pipe.VAE_STREAM_THRESHOLD} voxels, a {n}x{h}x{w} video has {n * h * w}")
 
     # small-input reference: the same DiT on the CPU (plain attention)
-    gsm = torch.Generator(device=dev).manual_seed(5)
-    lat = torch.randn(1, 16, 3, 16, 16, generator=gsm, device=dev).to(torch.bfloat16)
-    geo = torch.randn(1, 128, 3, 16, 16, generator=gsm, device=dev).to(torch.bfloat16)
-    ctx = pipe.encode_prompt("a small check", "").to(torch.bfloat16)
-    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
-    cos, sin = grid_cos_sin(pipe._angles, 3, 8, 8, device=dev)
-    tvec = torch.full((2,), 700.0, device=dev)
-    lat2, geo2 = torch.cat([lat, lat]), torch.cat([geo, geo])
-    out_gpu = wan_dit_forward(pipe.dit_params, pipe.dit_cfg, lat2, tvec, ctx, cos, sin,
-                              geoada_context=geo2).float().cpu()
-    cpu_params = _to_device(pipe.dit_params, "cpu")
-    out_cpu = wan_dit_forward(cpu_params, pipe.dit_cfg, lat2.cpu(), tvec.cpu(), ctx.cpu(),
-                              cos.cpu(), sin.cpu(), geoada_context=geo2.cpu()).float()
-    del cpu_params
-    rel = ((out_gpu - out_cpu).abs().max() / out_cpu.abs().max()).item()
-    log(f"[e2e] DiT card vs CPU at 192 tokens (bf16, 45 blocks): rel err {rel:.4g} "
-        f"(bar 5e-2), finite={bool(torch.isfinite(out_gpu).all())}")
-    if not (rel <= 5e-2 and torch.isfinite(out_gpu).all()):
-        raise AssertionError("DiT on the card disagrees with the CPU reference")
+    dit_card_vs_cpu(pipe, pipe.dit_params, pipe.dit_cfg, "e2e", "DiT (45 blocks)")
+    # the streaming VAE against the full-sequence one on a full-size video
+    stream_vs_full(pipe, 11, card)
+    # TeaCache with cfg-skip: the skip schedule and the launches it implies
+    for k_, v in tea_request(fa, fab, ms, pipe, "e2e", TEA_13B, 45, 15, card).items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
     log(f"[e2e] {time.perf_counter() - t0:.1f} s")
 
     # -- 4. one timed denoise step at 480x832x81 -------------------------
@@ -1148,7 +1492,14 @@ def main() -> int:
         f"phase {time.perf_counter() - t0:.1f} s")
     profile_step(step, min(times), card)
     digest = step_digest(pipe, lat, geo, ctx, pred)
-    del pipe, lat, geo, ctx, pred
+    # sequential CFG against the batched step, held to twice the noise floor
+    lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
+    floor = compare("step at latents x (1 + 2^-8) vs step (noise floor)",
+                    pipe.denoise_step(lat_p, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True), pred)
+    del lat_p
+    seq = sequential_step(pipe, lat, ctx, geo, cos, sin, "step", card)
+    compare("sequential-CFG step vs batched", seq, pred, corr_bar=0.999, err_bar=2 * floor)
+    del pipe, lat, geo, ctx, pred, seq
     gc.collect()
     torch.cuda.empty_cache()
     # the same step in a fresh process on a pipeline built from the same seeds
@@ -1162,6 +1513,11 @@ def main() -> int:
     # -- 6. the opt-in variants: int8 attention, projection statistics ----
     for k_, v in variants_phase(fa, fab, ms, dev, card).items():
         launches_main[k_] = launches_main.get(k_, 0) + v
+
+    # -- 7. the flagship: Wan2.1-T2V-14B + GeoAdapter at 480x832x81 -------
+    counts = flagship_phase(fa, fab, ms, dev, card, records)
+    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
+        launches_main[name + "_14b"] = counts[name]
 
     if failures:
         raise AssertionError("; ".join(failures))

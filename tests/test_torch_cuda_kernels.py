@@ -99,7 +99,8 @@ def test_kernel_rejects_what_it_cannot_take(dev):
 
 # shapes that straddle the bf16 fused kernel's 128-row q tiles and 128-key
 # tiles in both directions, keys shorter than a tile, k_lens holding a 0,
-# windows, and 32,760 = 255 * 128 + 120 q rows at one head
+# windows, 32,760 = 255 * 128 + 120 q rows at one head, and the Wan2.1-14B
+# head count (40 heads: rows of 5120 columns, 10,240 bytes)
 FUSED_CASES = [  # (B, N, Sq, Skv, window, k_lens)
     (1, 2, 193, 321, (-1, -1), None),
     (2, 2, 129, 64, (-1, -1), (64, 0)),
@@ -109,6 +110,7 @@ FUSED_CASES = [  # (B, N, Sq, Skv, window, k_lens)
     (1, 2, 384, 384, (64, 32), None),
     (2, 2, 333, 333, (100, 27), (333, 0)),
     (1, 2, 300, 300, (-1, 0), None),
+    (2, 40, 1000, 600, (-1, -1), (600, 77)),
 ]
 
 

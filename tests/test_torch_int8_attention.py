@@ -222,14 +222,24 @@ def test_serving_toggle_sets_and_restores(tiny_pipe, monkeypatch):
                                  {"quantize_bits": 4}, {"int8_compute": True},
                                  {"quantize_int8": True}])
 def test_serving_toggle_restored_when_request_raises(tiny_pipe, bad):
+    """Quantization params raise; the TeaCache and cfg-skip params (ported)
+    serve the request. Either way every toggle is restored afterwards."""
     params, controls, mask = _tiny_request()
     old = twan.INT8_QK_SCORE
+    before = (tiny_pipe.teacache_threshold, tiny_pipe.teacache_skip_start,
+              tiny_pipe.teacache_coefficients, tiny_pipe.cfg_skip_ratio)
     try:
         twan.INT8_QK_SCORE = False
-        with pytest.raises(NotImplementedError):
-            tserve.run_loaded_request(tiny_pipe, {**params, "int8_attention": True, **bad},
-                                      controls, mask)
+        request = {**params, "int8_attention": True, **bad}
+        if "teacache_threshold" in bad or "cfg_skip_ratio" in bad:
+            out = tserve.run_loaded_request(tiny_pipe, request, controls, mask)
+            assert out.dtype == np.uint8 and out.shape == (1, 5, 16, 16, 3)
+        else:
+            with pytest.raises(NotImplementedError):
+                tserve.run_loaded_request(tiny_pipe, request, controls, mask)
         assert twan.INT8_QK_SCORE is False
+        assert (tiny_pipe.teacache_threshold, tiny_pipe.teacache_skip_start,
+                tiny_pipe.teacache_coefficients, tiny_pipe.cfg_skip_ratio) == before
     finally:
         twan.INT8_QK_SCORE = old
 

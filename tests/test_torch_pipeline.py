@@ -173,11 +173,24 @@ def test_uint8_request_through_call_pipe(pipes):
 
 
 def test_not_ported_features_raise(pipes):
+    """clip_fea still raises; TeaCache and cfg-skip (ported) now apply: the
+    toggles set the pipeline's fields and a request runs with them."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError):
-        tp.enable_teacache(0.1)
-    with pytest.raises(NotImplementedError):
-        tp.enable_cfg_skip(0.2)
+    try:
+        tp.enable_teacache(0.1, skip_start=1)
+        tp.enable_cfg_skip(0.5)
+        tp.teacache_debug = True
+        assert (tp.teacache_threshold, tp.teacache_skip_start, tp.cfg_skip_ratio) == \
+            (0.1, 1, 0.5)
+        _run(tp, torch.float32, "latent", steps=3)
+        # one accumulator snapshot a step; the rows shrink to the cond half
+        # when the cfg-skip window starts (steps i >= 3 * (1 - 0.5))
+        assert [len(a) for a in tp.teacache_accum_history] == [2, 2, 1]
+    finally:
+        tp.disable_teacache()
+        tp.enable_cfg_skip(0.0)
+        tp.teacache_debug = False
+    assert tp.teacache_threshold == 0.0 and tp.cfg_skip_ratio == 0.0
     with pytest.raises(NotImplementedError):
         _run_kw = dict(clip_fea=np.zeros((1, 257, 1280), np.float32))
         controls, mask, noise = _inputs()

@@ -136,7 +136,8 @@ def _init_block(gen, cfg: WanDiTConfig, dtype, device, geoada=False):
     return p
 
 
-def _check_supported(cfg: WanDiTConfig):
+def check_supported(cfg: WanDiTConfig):
+    """Raise for the config branches the port does not have yet."""
     if cfg.model_type == "i2v" or cfg.add_img_emb:
         raise NotImplementedError("the i2v img_emb branch is not ported yet")
     if cfg.add_control_adapter:
@@ -147,7 +148,7 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
                  dtype=torch.bfloat16) -> Params:
     """Random init from `generator`, on the generator's device; the head
     projection is zero, as in the reference."""
-    _check_supported(cfg)
+    check_supported(cfg)
     device = generator.device
     pt, ph, pw = cfg.patch_size
     g = generator
@@ -338,7 +339,7 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
     """Full denoiser forward: x [B, C_in, F, H, W] latents, t [B] timesteps,
     context [B, text_len, text_dim], cos/sin [S, head_dim/2] RoPE tables,
     geoada_context [B, geoada_in_dim, F, H, W] -> velocity [B, C_out, F, H, W]."""
-    _check_supported(cfg)
+    check_supported(cfg)
     if y is not None or clip_fea is not None or y_camera is not None:
         raise NotImplementedError(
             "i2v y / clip_fea and y_camera conditioning are not ported yet")

@@ -1,19 +1,26 @@
 """End-to-end controlled video generation: umT5 prompt encoding, VAE
 encoding of the 4 control videos plus the 8x8 pixel-shuffled mask (the
 GeoAdapter context), the UniPC + batched-CFG denoise loop over the Wan DiT,
-and the VAE decode.
+and the VAE decode, with the JAX pipeline's runtime accelerations: TeaCache
+(sampling/teacache.py) and cfg-skip, sequential CFG (cfg_parallel=False:
+the two branches as batch-1 forwards, with separate TeaCache states, gated
+on the host above teacache.TEA_HOST_GATE_ROWS rows), and the streaming VAE
+(models/vae_stream.py) above VAE_STREAM_THRESHOLD voxels, whose decode
+moves chunk N to the host while chunk N+1 decodes.
 
-Not ported yet (each raises NotImplementedError when asked for): TeaCache,
-cfg-skip, sequential CFG and its host-gated path, MoE experts, the device
-mesh, and the i2v / CLIP / camera / masked-init-video / reference-image
-extras.
+Not ported yet (each raises NotImplementedError when asked for): MoE
+experts, the device mesh, and the i2v / CLIP / camera / masked-init-video /
+reference-image extras.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import queue
+import threading
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +31,11 @@ from versecrafter_tpu_torch.core.config import (
 from versecrafter_tpu_torch.kernels.rope import grid_cos_sin, rope_3d_angles
 from versecrafter_tpu_torch.models.t5 import t5_encode
 from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
-from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
+from versecrafter_tpu_torch.models.vae_stream import vae_decode_stream, vae_encode_chunked
+from versecrafter_tpu_torch.models.wan_dit import (
+    check_supported, geoada_patch_embedding, wan_dit_blocks, wan_dit_e0, wan_dit_embed,
+    wan_dit_head)
+from versecrafter_tpu_torch.sampling import teacache as tc
 from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
 from versecrafter_tpu_torch.utils import prng
 from versecrafter_tpu_torch.utils.tokenizer import load_tokenizer
@@ -81,8 +92,27 @@ class VerseCrafterPipeline:
     scheduler_name: str = "unipc"
     scheduler_cfg: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     device: Any = None
+    # TeaCache (off at threshold 0) and cfg-skip: the last cfg_skip_ratio of
+    # the steps run the cond branch only
+    teacache_threshold: float = 0.0
+    teacache_skip_start: int = 5
+    teacache_coefficients: Tuple[float, ...] = tc.VERSECRAFTER_COEFFS
+    cfg_skip_ratio: float = 0.0
+    # True: cond and uncond as one batch-2 forward; False: two batch-1
+    # forwards in turn (half the activation working set), each CFG branch
+    # with its own TeaCache state
+    cfg_parallel: bool = True
+    # teacache_debug: the cond TeaCache state's accumulator after every step
+    # goes to teacache_accum_history, reset by each call (0.0 after a step
+    # that ran the blocks); teacache_record: set by record_teacache_stats
+    teacache_debug: bool = False
+    teacache_record: Any = None
+
+    # above this many voxels a video goes through the streaming VAE
+    VAE_STREAM_THRESHOLD = 1 << 24
 
     def __post_init__(self):
+        check_supported(self.dit_cfg)
         self.device = resolve_device(self.device)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(vocab_size=self.t5_cfg.vocab)
@@ -93,14 +123,21 @@ class VerseCrafterPipeline:
         self._angles = rope_3d_angles(self.dit_cfg.head_dim,
                                       self.dit_cfg.rope_max_pos,
                                       self.dit_cfg.rope_theta)
+        self.teacache_accum_history = []
         self.last_wall_profile: Dict[str, float] = {}
 
-    # -- accelerations of the JAX pipeline that wait for a later slice ----
-    def enable_teacache(self, *args, **kwargs):
-        _not_ported("TeaCache")
+    # -- runtime toggles (the JAX pipeline's enable_* surface) -------------
+    def enable_teacache(self, threshold: float, skip_start: int = 5,
+                        coefficients=tc.VERSECRAFTER_COEFFS):
+        self.teacache_threshold = threshold
+        self.teacache_skip_start = skip_start
+        self.teacache_coefficients = tuple(coefficients)
 
-    def enable_cfg_skip(self, *args, **kwargs):
-        _not_ported("cfg-skip")
+    def disable_teacache(self):
+        self.teacache_threshold = 0.0
+
+    def enable_cfg_skip(self, ratio: float):
+        self.cfg_skip_ratio = ratio
 
     def enable_int8_attention(self, enabled: bool = True):
         """int8 QK^T scoring inside the fused self-attention kernel
@@ -109,6 +146,39 @@ class VerseCrafterPipeline:
         sets wan_dit.INT8_QK_SCORE."""
         from versecrafter_tpu_torch.models import wan_dit
         wan_dit.INT8_QK_SCORE = bool(enabled)
+
+    def enable_riflex(self, k: int, L_test: int, L_test_scale: Optional[float] = None):
+        """RIFLEx: the temporal RoPE table's frequency k-1 set for
+        extrapolation to L_test latent frames."""
+        self._angles = rope_3d_angles(
+            self.dit_cfg.head_dim, self.dit_cfg.rope_max_pos, self.dit_cfg.rope_theta,
+            riflex_k=k, riflex_L_test=L_test, riflex_L_test_scale=L_test_scale)
+
+    def record_teacache_stats(self, *args, **kwargs):
+        """One full generation (never skipping, no cfg-skip) that records the
+        TeaCache observables; returns (rel_e0, rel_residual), each
+        [num_steps - 1, rows], for teacache.fit_teacache_coefficients. rel_e0
+        is the relative L1 drift of e0 between consecutive steps,
+        rel_residual that of the blocks residual. Under sequential CFG only
+        the cond branch is recorded. Takes __call__'s arguments; the latents
+        it produced are kept as last_record_latents."""
+        self.teacache_record = []
+        old_thresh, old_skip = self.teacache_threshold, self.cfg_skip_ratio
+        self.teacache_threshold = 0.0
+        self.cfg_skip_ratio = 0.0
+        try:
+            kwargs.setdefault("output_type", "latent")
+            self.last_record_latents = self(*args, **kwargs)
+            rec = self.teacache_record
+        finally:
+            self.teacache_record = None
+            self.teacache_threshold, self.cfg_skip_ratio = old_thresh, old_skip
+        mods = np.stack([r[0] for r in rec])      # [steps, rows, 6, D]
+        rel_res = np.stack([r[1] for r in rec])   # [steps, rows]
+        prev, cur = mods[:-1], mods[1:]
+        rel_e0 = (np.abs(cur - prev).mean(axis=(2, 3))
+                  / np.maximum(np.abs(prev).mean(axis=(2, 3)), 1e-8))
+        return rel_e0, rel_res[1:]
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -134,12 +204,18 @@ class VerseCrafterPipeline:
     def encode_controls(self, control_videos: Sequence[np.ndarray],
                         mask_video: np.ndarray, dtype=torch.bfloat16) -> torch.Tensor:
         """control_videos: list of [B, 3, T, H, W] in [0, 1]; mask_video
-        [B, 1, T, H, W] -> geoada context [B, n*z + s*s, T', H/s, W/s]."""
+        [B, 1, T, H, W] -> geoada context [B, n*z + s*s, T', H/s, W/s].
+        A video of more than VAE_STREAM_THRESHOLD voxels (T*H*W, T > 1)
+        goes through the streaming encoder."""
         lat = []
         for cv in control_videos:
-            x = torch.as_tensor(np.asarray(cv), device=self.device).to(dtype)
-            lat.append(vae_encode(self.vae_params, self.vae_cfg, x * 2.0 - 1.0).to(dtype))
+            x = torch.as_tensor(np.asarray(cv), device=self.device).to(dtype) * 2.0 - 1.0
+            if x.shape[2] > 1 and math.prod(x.shape[2:]) > self.VAE_STREAM_THRESHOLD:
+                z = vae_encode_chunked(self.vae_params, self.vae_cfg, x)
+            else:
+                z = vae_encode(self.vae_params, self.vae_cfg, x)
             del x
+            lat.append(z.to(dtype))
         zs = torch.cat(lat, dim=1)
         stride = (self.vae_cfg.temporal_compression_ratio,
                   self.vae_cfg.spatial_compression_ratio,
@@ -150,9 +226,14 @@ class VerseCrafterPipeline:
 
     @torch.no_grad()
     def denoise_step(self, latents, t: float, context, geoada_context, cos, sin,
-                     guidance_scale: float, geoada_scale: float, use_cfg: bool):
+                     guidance_scale: float, geoada_scale: float, use_cfg: bool,
+                     blocks: Optional[Callable] = None):
         """One model evaluation: the batched-CFG forward (cond + uncond as one
-        batch, uncond + g*(cond - uncond)) or the cond-only forward."""
+        batch, uncond + g*(cond - uncond)) or the cond-only forward over the
+        second half of `context`. blocks: None runs the whole DiT; otherwise
+        a function (run_blocks, tokens, e0) -> tokens that wraps the blocks
+        section (TeaCache's gate or its record pass) between the embeddings
+        and the head."""
         if use_cfg:
             x = torch.cat([latents, latents], dim=0)
             g = torch.cat([geoada_context, geoada_context], dim=0)
@@ -161,9 +242,17 @@ class VerseCrafterPipeline:
             x, g, ctx = latents, geoada_context, context[context.shape[0] // 2:]
         tvec = torch.full((x.shape[0],), float(t), dtype=torch.float32,
                           device=self.device)
-        pred = wan_dit_forward(self.dit_params, self.dit_cfg, x, tvec, ctx,
-                               cos, sin, geoada_context=g,
-                               geoada_scale=geoada_scale)
+        p, cfg = self.dit_params, self.dit_cfg
+        tokens, e, e0, ctx_e, grid = wan_dit_embed(p, cfg, x, tvec, ctx)
+        gtok = geoada_patch_embedding(p, cfg, g) if cfg.has_geoadapter else None
+        cos, sin = cos.to(x.device), sin.to(x.device)
+
+        def run(tk):
+            return wan_dit_blocks(p, cfg, tk, e0, cos, sin, ctx_e,
+                                  geoada_tokens=gtok, geoada_scale=geoada_scale)
+
+        tokens = run(tokens) if blocks is None else blocks(run, tokens, e0)
+        pred = wan_dit_head(p, cfg, tokens, e, grid)
         if use_cfg:
             pred = cfg_combine(*pred.chunk(2, dim=0), guidance_scale)
         return pred
@@ -197,7 +286,9 @@ class VerseCrafterPipeline:
     ):
         """Returns the video as numpy [B, T, H, W, 3] in [0, 1]
         (output_type 'numpy'), uint8 0..255 ('uint8', quantized on the
-        device), or the latents as a tensor ('latent')."""
+        device), or the latents as a tensor ('latent'). The wall time of each
+        stage (text_encode, encode_controls, denoise, vae_decode, download)
+        goes to last_wall_profile."""
         for name, val in (("video= masked init-video conditioning", video),
                           ("subject_ref_images", subject_ref_images),
                           ("i2v y", y), ("clip_fea", clip_fea),
@@ -246,8 +337,8 @@ class VerseCrafterPipeline:
         h_lat = height // self.vae_cfg.spatial_compression_ratio
         w_lat = width // self.vae_cfg.spatial_compression_ratio
         pt, ph, pw = self.dit_cfg.patch_size
-        cos, sin = grid_cos_sin(self._angles, t_lat // pt, h_lat // ph,
-                                w_lat // pw, device=self.device)
+        grid = (t_lat // pt, h_lat // ph, w_lat // pw)
+        cos, sin = grid_cos_sin(self._angles, *grid, device=self.device)
 
         sched = make_scheduler(self.scheduler_name, self.scheduler_cfg)
         if timesteps is not None:
@@ -266,11 +357,13 @@ class VerseCrafterPipeline:
                 raise ValueError(f"latents= shape {tuple(latents.shape)} != "
                                  f"expected {lat_shape}")
 
-        use_cfg = guidance_scale > 1.0
+        denoise = Denoiser(self, batch, math.prod(grid), guidance_scale, dtype,
+                           num_inference_steps)
+        if self.teacache_debug:
+            self.teacache_accum_history = []
         for i, t in enumerate(timesteps):
-            noise_pred = self.denoise_step(
-                latents, float(np.float32(t)), context, geoada_context, cos, sin,
-                guidance_scale, geoada_context_scale, use_cfg)
+            noise_pred = denoise.step(i, float(np.float32(t)), latents, context,
+                                      geoada_context, cos, sin, geoada_context_scale)
             latents = sched.step(noise_pred, i, latents)
             if callback_on_step_end is not None:
                 out = callback_on_step_end(self, i, float(t), {"latents": latents})
@@ -282,17 +375,171 @@ class VerseCrafterPipeline:
         if output_type == "latent":
             self.last_wall_profile = wall
             return latents
-        out = self.decode_latents(latents, output_type)
-        mark("vae_decode")
+        out = self.decode_latents(latents, output_type, mark)
         self.last_wall_profile = wall
         return out
 
     @torch.no_grad()
-    def decode_latents(self, latents, output_type: str = "numpy") -> np.ndarray:
+    def decode_latents(self, latents, output_type: str = "numpy",
+                       mark: Callable[[str], None] = lambda name: None) -> np.ndarray:
         """VAE-decode latents -> frames [B, T, H, W, 3] in [0, 1] (float32)
-        or 0..255 (uint8, quantized on the device)."""
-        video = vae_decode(self.vae_params, self.vae_cfg, latents)
-        video = torch.clamp(video.float() / 2.0 + 0.5, 0.0, 1.0)
-        if output_type == "uint8":
-            video = (video * 255.0).to(torch.uint8)
-        return video.permute(0, 2, 3, 4, 1).cpu().numpy()
+        or 0..255 (uint8, quantized on the device). Above
+        VAE_STREAM_THRESHOLD output voxels the streaming decoder runs, its
+        chunks moved to the host as they finish. mark(name) closes the
+        'vae_decode' and 'download' stages."""
+        out_voxels = (math.prod(latents.shape[2:])
+                      * self.vae_cfg.temporal_compression_ratio
+                      * self.vae_cfg.spatial_compression_ratio ** 2)
+        if latents.shape[2] > 1 and out_voxels > self.VAE_STREAM_THRESHOLD:
+            return self._decode_stream_overlapped(latents, output_type, mark)
+        video = _finalize_pixels(vae_decode(self.vae_params, self.vae_cfg, latents),
+                                 output_type)
+        mark("vae_decode")
+        out = video.permute(0, 2, 3, 4, 1).cpu().numpy()
+        mark("download")
+        return out
+
+    def _decode_stream_overlapped(self, latents, output_type: str,
+                                  mark: Callable[[str], None] = lambda name: None
+                                  ) -> np.ndarray:
+        """Streaming decode whose chunks go to the host on a worker thread:
+        chunk N is copied (on a side stream of its own, after an event that
+        marks the end of the chunk's device work) while chunk N+1 decodes.
+        An error of the worker is raised here."""
+        cuda = latents.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(latents.device) if cuda else None
+        chunks: list = []
+        err: list = []
+        work: "queue.Queue" = queue.Queue(maxsize=2)
+
+        def downloader():
+            while True:
+                item = work.get()
+                if item is None:
+                    return
+                frames, ready = item
+                del item
+                try:
+                    if cuda:
+                        with torch.cuda.stream(copy_stream):
+                            copy_stream.wait_event(ready)
+                            host = frames.cpu()
+                    else:
+                        host = frames
+                    chunks.append(host.numpy().transpose(0, 2, 3, 4, 1))
+                except Exception as e:  # noqa: BLE001 — raised by the caller
+                    err.append(e)
+                finally:
+                    del frames
+
+        worker = threading.Thread(target=downloader, daemon=True)
+        worker.start()
+        try:
+            for y in vae_decode_stream(self.vae_params, self.vae_cfg, latents):
+                frames = _finalize_pixels(y, output_type)
+                del y
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
+                work.put((frames, ready))
+                del frames
+        finally:
+            work.put(None)
+            worker.join()
+        if err:
+            raise err[0]
+        mark("vae_decode")
+        out = np.concatenate(chunks, axis=1)
+        mark("download")
+        return out
+
+
+def _finalize_pixels(y: torch.Tensor, output_type: str) -> torch.Tensor:
+    """The decoder's output [-1, 1] -> [0, 1] fp32, or 0..255 uint8."""
+    video = torch.clamp(y.float() / 2.0 + 0.5, 0.0, 1.0)
+    if output_type == "uint8":
+        video = (video * 255.0).to(torch.uint8)
+    return video
+
+
+class Denoiser:
+    """One generation's model evaluations, step by step: batched or
+    sequential CFG, cfg-skip, and the TeaCache states (cond and uncond under
+    sequential CFG), gated on the device's fp32 arithmetic or, for
+    sequential CFG above teacache.TEA_HOST_GATE_ROWS rows, by host_gate."""
+
+    def __init__(self, pipe: VerseCrafterPipeline, batch: int, seq_len: int,
+                 guidance_scale: float, dtype, num_steps: int):
+        self.pipe, self.batch, self.guidance = pipe, batch, guidance_scale
+        self.do_cfg = guidance_scale > 1.0
+        self.seq_cfg = self.do_cfg and not pipe.cfg_parallel
+        self.recording = pipe.teacache_record is not None
+        self.tea = pipe.teacache_threshold > 0.0 or self.recording
+        self.host_gated = (self.seq_cfg and pipe.teacache_threshold > 0.0
+                           and not self.recording
+                           and batch * seq_len > tc.TEA_HOST_GATE_ROWS)
+        self.skip_from = num_steps * (1.0 - pipe.cfg_skip_ratio)
+        dim = pipe.dit_cfg.dim
+        rows = 2 * batch if self.do_cfg and not self.seq_cfg else batch
+        seq = seq_len
+        if self.recording and rows * seq_len > tc.TEA_RECORD_SUBSAMPLE_ROWS:
+            seq = -(-seq_len // tc.RECORD_SUBSAMPLE_STRIDE)
+        self.states = {}
+        if self.tea:
+            self.states["c"] = tc.init_state(rows, seq, dim, dtype, device=pipe.device)
+            if self.seq_cfg:
+                self.states["u"] = tc.init_state(batch, seq, dim, dtype, device=pipe.device)
+        self.hosts = ({"c": tc.HostTeaState(batch, dim), "u": tc.HostTeaState(batch, dim)}
+                      if self.host_gated else None)
+
+    def step(self, i: int, t: float, latents, context, geo, cos, sin, gscale):
+        pipe, batch = self.pipe, self.batch
+        use_cfg = self.do_cfg and not (pipe.cfg_skip_ratio > 0.0 and i >= self.skip_from)
+        if (self.tea and not self.seq_cfg
+                and use_cfg != (tc.res_shape(self.states["c"])[0] == 2 * batch)):
+            # cfg-skip starts: keep the cond half of the state
+            self.states["c"] = tc.slice_rows(self.states["c"], slice(-batch, None))
+        e0_host = None
+        if self.host_gated:
+            tvec = torch.full((batch,), t, dtype=torch.float32, device=pipe.device)
+            e0_host = wan_dit_e0(pipe.dit_params, pipe.dit_cfg, tvec)[1].cpu().numpy()
+
+        def evaluate(name, ctx, batched):
+            blocks = (None if not self.tea else
+                      lambda run, tokens, e0: self._blocks(name, i, e0_host, run, tokens, e0))
+            return pipe.denoise_step(latents, t, ctx, geo, cos, sin, self.guidance,
+                                     gscale, batched, blocks=blocks)
+
+        if self.seq_cfg:
+            pred = evaluate("c", context, False)
+            if use_cfg:  # the negative prompts as the cond-only forward's context
+                ctx_u = torch.cat([context[batch:], context[:batch]])
+                pred = cfg_combine(evaluate("u", ctx_u, False), pred, self.guidance)
+        else:
+            pred = evaluate("c", context, use_cfg)
+        if self.recording:
+            st = self.states["c"]
+            pipe.teacache_record.append((st.prev_mod.cpu().numpy(), st.accum.cpu().numpy()))
+        if pipe.teacache_debug and pipe.teacache_threshold > 0.0:
+            pipe.teacache_accum_history.append(
+                self.hosts["c"].accum.copy() if self.host_gated
+                else self.states["c"].accum.cpu().numpy())
+        return pred
+
+    def _blocks(self, name, i, e0_host, run, tokens, e0):
+        pipe, state = self.pipe, self.states[name]
+        if self.recording:
+            out, self.states[name] = tc.recording_blocks(run, tokens, e0, state)
+        elif self.host_gated:
+            calc = bool(tc.host_gate(self.hosts[name], e0_host, i, pipe.teacache_threshold,
+                                     pipe.teacache_skip_start,
+                                     pipe.teacache_coefficients).any())
+            should = torch.full((tokens.shape[0],), calc, dtype=torch.bool)
+            out, res = tc.apply_gate(run, tokens, state.prev_residual, should)
+            self.states[name] = state._replace(prev_residual=res)
+        else:
+            out, self.states[name] = tc.gated_blocks(
+                run, tokens, e0, state, i, pipe.teacache_threshold,
+                pipe.teacache_skip_start, pipe.teacache_coefficients)
+        return out
