@@ -35,7 +35,8 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      request with TeaCache and cfg-skip (8 steps),
      whose skip schedule must equal the one recomputed here from the
      timesteps' e0 and whose launches must be 45 per evaluation that ran the
-     blocks;
+     blocks; the two generate requests' uint8 frames and denoised latents are
+     kept as SHA-256 digests for phase 8;
   4. one timed batched-CFG denoise step at 480x832x81 (the two timed steps'
      predictions must be bit-identical), then the same step under
      torch.profiler: device time by kernel and the device's idle share;
@@ -69,7 +70,22 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      schedule, 60 launches per evaluation that ran the blocks, stage split,
      peak memory), one timed CFG-2 step under torch.profiler and the same
      step as sequential CFG held to it (twice the noise floor, in max error
-     and in correlation).
+     and in correlation);
+  8. the front door: phase 3's pipeline written by this script's own
+     inverse mapping as a reference-layout model directory under a
+     temporary directory (config.json, the DiT and the GeoAdapter as two
+     safetensors shards, Wan2.1_VAE.pth, the full umT5-xxl .pth; ~16 GB, the
+     free bytes checked first), loaded through the port's
+     default_pipeline_factory(model_path=...) with the configs and the
+     SHA-256 of every leaf held to the built pipeline's (seconds, host RSS,
+     device memory printed), then phase 3's two requests posted back to
+     back to a port ApiServer whose tier is a port ModelServer, over HTTP
+     on 127.0.0.1: the queue must be seen at depth 1, the mirrored progress
+     must never fall and end at 100, request 0's frames must equal phase 3's
+     bit for bit, and each request must launch each fused flavor 45 x 3
+     times. The card has no cv2, so the model server takes phase 3's
+     synthetic control arrays through its _generate / _save override
+     points; the CPU tests hold the mp4 path.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -139,6 +155,11 @@ TRAIN_STEPS = 3  # a warm-up step and two timed ones
 TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
 STEPS = 3
 FRAMES_E2E = 81
+E2E_SIZE = (480, 832, FRAMES_E2E)  # height, width, frames of the served requests
+# phase 3's two generate requests, served again through the HTTP tiers in
+# phase 8: (prompt, seed)
+E2E_REQUESTS = (("a red car drives left along a coast road", 11),
+                ("a dog runs across a snowy field", 12))
 
 
 def log(msg):
@@ -661,7 +682,7 @@ def tree_leaves(tree):
 def sha256_of(*tensors):
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
     return h.hexdigest()
 
 
@@ -883,7 +904,7 @@ def timed_step(step, label, card, reps=2, tag="variants"):
     return pred, times
 
 
-def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=(480, 832, FRAMES_E2E),
+def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=E2E_SIZE,
                    blocks=45):
     """Phase 6: the two opt-in variants of the generate path on a fresh
     full-width pipeline. One 480x832x81 request with `int8_attention`
@@ -1317,6 +1338,428 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     return counts
 
 
+def latent_digests(pipe):
+    """Has `pipe` record the SHA-256 of the latents each request decodes
+    (where two runs of a request differ, this tells the denoise from the
+    decode); returns the list they are appended to."""
+    seen = []
+    decode = pipe.decode_latents
+
+    def recording(latents, *a, **kw):
+        seen.append(sha256_of(latents))
+        return decode(latents, *a, **kw)
+
+    pipe.decode_latents = recording
+    return seen
+
+
+def frames_digest(video):
+    """SHA-256 of a request's uint8 frames, with their shape."""
+    return hashlib.sha256(np.ascontiguousarray(video)).hexdigest() + f" {video.shape}"
+
+
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file: the 8-byte little-endian header length, the JSON
+    header {name: {dtype, shape, data_offsets}} padded to 8 bytes, then each
+    tensor's bytes; one tensor at a time on the host. Returns its size."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+    return os.path.getsize(path)
+
+
+def dit_state_dict(p, cfg):
+    """The port's DiT + GeoAdapter tree in the reference's torch layout (this
+    script's own inverse of core/convert.convert_wan_dit): Linear weights
+    [out, in], patch embeddings [D, C, pt, ph, pw], modulations [1, n, D]."""
+    sd = {}
+
+    def lin(name, q):
+        sd[f"{name}.weight"] = q["kernel"].t().contiguous()
+        sd[f"{name}.bias"] = q["bias"]
+
+    def patch(name, q, c):
+        sd[f"{name}.weight"] = q["kernel"].t().reshape(cfg.dim, c, *cfg.patch_size).contiguous()
+        sd[f"{name}.bias"] = q["bias"]
+
+    patch("patch_embedding", p["patch_embedding"], cfg.in_dim)
+    for fc, idx in (("fc1", 0), ("fc2", 2)):
+        lin(f"text_embedding.{idx}", p["text_embedding"][fc])
+        lin(f"time_embedding.{idx}", p["time_embedding"][fc])
+    lin("time_projection.1", p["time_projection"])
+    lin("head.head", p["head"]["head"])
+    sd["head.modulation"] = p["head"]["modulation"][None]
+    blocks = ([(f"blocks.{i}", b) for i, b in enumerate(p["blocks"])]
+              + [(f"geoada_blocks.{i}", b) for i, b in enumerate(p["geoada_blocks"])])
+    for pre, b in blocks:
+        for attn in ("self_attn", "cross_attn"):
+            for n in "qkvo":
+                lin(f"{pre}.{attn}.{n}", b[attn][n])
+            sd[f"{pre}.{attn}.norm_q.weight"] = b[attn]["norm_q"]["scale"]
+            sd[f"{pre}.{attn}.norm_k.weight"] = b[attn]["norm_k"]["scale"]
+        lin(f"{pre}.ffn.0", b["ffn_in"])
+        lin(f"{pre}.ffn.2", b["ffn_out"])
+        sd[f"{pre}.modulation"] = b["modulation"][None]
+        sd[f"{pre}.norm3.weight"] = b["norm3"]["scale"]
+        sd[f"{pre}.norm3.bias"] = b["norm3"]["bias"]
+        if "after_proj" in b:
+            lin(f"{pre}.after_proj", b["after_proj"])
+    lin("geoada_blocks.0.before_proj", p["geoada_before_proj"])
+    patch("geoada_patch_embedding", p["geoada_patch_embedding"], cfg.resolved_geoada_in_dim)
+    return sd
+
+
+def vae_state_dict(p):
+    """The Wan VAE tree in its torch layout: the encoder's downsamples and
+    the decoder's upsamples numbered over res blocks and resamples, RMS
+    gammas [C, 1, 1, 1] ([C, 1, 1] in attention), 1x1 attention convs."""
+    sd = {}
+
+    def conv(name, q):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = q["kernel"], q["bias"]
+
+    def res(pre, q):
+        sd[f"{pre}.residual.0.gamma"] = q["norm1"]["gamma"].reshape(-1, 1, 1, 1)
+        conv(f"{pre}.residual.2", q["conv1"])
+        sd[f"{pre}.residual.3.gamma"] = q["norm2"]["gamma"].reshape(-1, 1, 1, 1)
+        conv(f"{pre}.residual.6", q["conv2"])
+        if "shortcut" in q:
+            conv(f"{pre}.shortcut", q["shortcut"])
+
+    def mid(pre, q):
+        res(f"{pre}.middle.0", q["res1"])
+        a = q["attn"]
+        sd[f"{pre}.middle.1.norm.gamma"] = a["norm"]["gamma"].reshape(-1, 1, 1)
+        for ours, theirs in (("qkv", "to_qkv"), ("proj", "proj")):
+            sd[f"{pre}.middle.1.{theirs}.weight"] = a[ours]["kernel"].t().contiguous()[..., None, None]
+            sd[f"{pre}.middle.1.{theirs}.bias"] = a[ours]["bias"]
+        res(f"{pre}.middle.2", q["res2"])
+
+    for side, stages, resample in (("encoder", "downsamples", "down"),
+                                   ("decoder", "upsamples", "up")):
+        q = p[side]
+        conv(f"{side}.conv1", q["conv_in"])
+        idx = 0
+        for st in q["stages"]:
+            for r in st["res"]:
+                res(f"{side}.{stages}.{idx}", r)
+                idx += 1
+            if resample in st:
+                conv(f"{side}.{stages}.{idx}.resample.1", st[resample]["conv"])
+                if "time_conv" in st[resample]:
+                    conv(f"{side}.{stages}.{idx}.time_conv", st[resample]["time_conv"])
+                idx += 1
+        mid(side, q["mid"])
+        sd[f"{side}.head.0.gamma"] = q["norm_out"]["gamma"].reshape(-1, 1, 1, 1)
+        conv(f"{side}.head.2", q["conv_out"])
+    conv("conv1", p["encoder"]["quant_conv"])
+    conv("conv2", p["decoder"]["post_quant_conv"])
+    return sd
+
+
+def t5_state_dict(p):
+    """The umT5 encoder tree in the Wan t5.py layout."""
+    sd = {"token_embedding.weight": p["embed"], "norm.weight": p["final_norm"]}
+    for i, b in enumerate(p["blocks"]):
+        pre = f"blocks.{i}"
+        for n in "qkvo":
+            sd[f"{pre}.attn.{n}.weight"] = b["attn"][n].t().contiguous()
+        sd[f"{pre}.pos_embedding.embedding.weight"] = b["attn"]["rel_bias"]
+        sd[f"{pre}.norm1.weight"] = b["norm1"]
+        sd[f"{pre}.norm2.weight"] = b["norm2"]
+        for ours, theirs in (("wi_0", "gate.0"), ("wi_1", "fc1"), ("wo", "fc2")):
+            sd[f"{pre}.ffn.{theirs}.weight"] = b["ffn"][ours].t().contiguous()
+    return sd
+
+
+def export_reference_layout(pipe, d):
+    """Writes `pipe` as a reference-layout model directory: config.json, the
+    DiT in one safetensors shard and the GeoAdapter in another,
+    Wan2.1_VAE.pth and models_t5_umt5-xxl-enc-bf16.pth (torch.save copies one
+    storage at a time to the host). Returns {file: bytes}."""
+    cfg = pipe.dit_cfg
+    keys = ("model_type", "patch_size", "in_dim", "dim", "ffn_dim", "freq_dim", "text_dim",
+            "out_dim", "num_heads", "num_layers", "geoada_in_dim")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({k: getattr(cfg, k) for k in keys}, f)
+    sizes = {"config.json": os.path.getsize(os.path.join(d, "config.json"))}
+    dit = dit_state_dict(pipe.dit_params, cfg)
+    for i, part in enumerate(({k: v for k, v in dit.items() if not k.startswith("geoada")},
+                              {k: v for k, v in dit.items() if k.startswith("geoada")})):
+        name = f"diffusion_pytorch_model-{i + 1:05d}-of-00002.safetensors"
+        sizes[name] = write_safetensors(os.path.join(d, name), part)
+    del dit
+    for name, sd in (("Wan2.1_VAE.pth", vae_state_dict(pipe.vae_params)),
+                     ("models_t5_umt5-xxl-enc-bf16.pth", t5_state_dict(pipe.t5_params))):
+        torch.save(sd, os.path.join(d, name))
+        sizes[name] = os.path.getsize(os.path.join(d, name))
+        del sd
+        torch.cuda.empty_cache()
+    return sizes
+
+
+def tree_digests(pipe):
+    """SHA-256 over every DiT, VAE and T5 leaf of `pipe` (sorted keys), with
+    each tree's leaf shapes and dtypes; the three hashed on threads."""
+    def digest(tree):
+        leaves = list(tree_leaves(tree))
+        return sha256_of(*leaves), [(tuple(t.shape), str(t.dtype)) for t in leaves]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = {k: pool.submit(digest, getattr(pipe, f"{k}_params")) for k in ("dit", "vae", "t5")}
+        return {k: j.result() for k, j in jobs.items()}
+
+
+def host_rss():
+    """(resident, resident and not file-backed) bytes of this process now,
+    from /proc/self/statm."""
+    with open("/proc/self/statm") as f:
+        _, resident, shared = (int(v) for v in f.read().split()[:3])
+    page = os.sysconf("SC_PAGE_SIZE")
+    return resident * page, (resident - shared) * page
+
+
+class RssSampler:
+    """The largest host_rss() values seen every 20 ms while the block runs."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = host_rss()
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.02):
+                self.peak = tuple(map(max, self.peak, host_rss()))
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = tuple(map(max, self.peak, host_rss()))
+
+
+def http_json(url, body=None):
+    """GET (or POST `body` as JSON) -> the JSON answer."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def front_door_phase(fa, fab, ms, dev, card, direct):
+    """Phase 8: phase 3's pipeline written as a reference-layout checkpoint
+    directory by this script's own inverse mapping, loaded through the
+    port's default_pipeline_factory(model_path=...) (configs and the SHA-256
+    of every leaf held to the built pipeline's), then phase 3's two requests
+    posted back to back to a port ApiServer whose tier is a port ModelServer,
+    both over HTTP on 127.0.0.1. Request 0's frames must equal phase 3's bit
+    for bit, and each request must launch each fused flavor 45 x STEPS
+    times. Returns (the launches, a failure message or None)."""
+    import resource
+    import shutil
+    import tempfile
+
+    from versecrafter_tpu_torch.serve import api_server as api_mod
+    from versecrafter_tpu_torch.serve import model_server as msrv
+    from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 1. the checkpoint directory
+    pipe = build_pipeline(dev)
+    torch.cuda.synchronize()
+    want_cfgs = (pipe.dit_cfg, pipe.vae_cfg, pipe.t5_cfg)
+    need = sum(t.numel() * t.element_size() for k in ("dit", "vae", "t5")
+               for t in tree_leaves(getattr(pipe, f"{k}_params")))
+    roots = {r: shutil.disk_usage(r).free
+             for r in (tempfile.gettempdir(), os.path.dirname(os.path.abspath(__file__)))}
+    root = max(roots, key=roots.get)
+    log(f"[front] free bytes: {roots}; the checkpoint needs {need} bytes; writing under {root}")
+    if roots[root] < need * 1.02:
+        raise AssertionError(f"only {roots[root]} bytes free under {root}: the 1.3B "
+                             f"reference-layout checkpoint needs {need} (~16 GB)")
+    t1 = time.perf_counter()
+    want = tree_digests(pipe)
+    log(f"[front] SHA-256 of the built pipeline's leaves in {time.perf_counter() - t1:.1f} s: "
+        + ", ".join(f"{k} {v[0][:16]} ({len(v[1])} leaves)" for k, v in want.items()))
+    d = tempfile.mkdtemp(prefix="versecrafter_ckpt_", dir=root)
+    api_dir = tempfile.mkdtemp(prefix="versecrafter_api_")
+    servers = []
+    try:
+        t1 = time.perf_counter()
+        sizes = export_reference_layout(pipe, d)
+        log(f"[front] wrote {sum(sizes.values())} bytes in {time.perf_counter() - t1:.1f} s: {sizes}")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. load it through the port
+        maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        mem0 = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        with RssSampler() as rss:
+            loaded = msrv.default_pipeline_factory(model_path=d, device=dev)()
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        maxrss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        log(f"[front] loaded through default_pipeline_factory(model_path=...) in {load_s:.1f} s; "
+            f"host peak RSS (ru_maxrss) {maxrss0} -> {maxrss1} bytes; RSS (all, not "
+            f"file-backed) {rss.start} before the load, {host_rss()} after, largest sampled "
+            f"during it {rss.peak}; device memory resident "
+            f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.2f} GiB "
+            f"(torch.cuda.memory_allocated {torch.cuda.memory_allocated()} bytes)")
+        got_cfgs = (loaded.dit_cfg, loaded.vae_cfg, loaded.t5_cfg)
+        if got_cfgs != want_cfgs:
+            raise AssertionError(f"loaded configs {got_cfgs} != built {want_cfgs}")
+        got = tree_digests(loaded)
+        bad = [k for k in want if got[k] != want[k]]
+        log(f"[front] configs equal; SHA-256 of every leaf: "
+            + ", ".join(f"{k} {got[k][0][:16]}" for k in got)
+            + (" - all equal to the built pipeline's" if not bad else f" - DIFFERENT: {bad}"))
+        if bad:
+            raise AssertionError(f"the loaded checkpoint's {bad} leaves differ from the built ones")
+        decoded = latent_digests(loaded)
+
+        # 3. both serving tiers over HTTP
+        class SmokeModelServer(msrv.ModelServer):
+            """Serves phase 3's synthetic control videos (no cv2 here to read
+            mp4 maps) and keeps each request's digests, times and launches."""
+
+            def _generate(self, pipe, params, progress):
+                seed = int(params["seed"])
+                n_, h_, w_ = (int(params[k]) for k in ("num_frames", "height", "width"))
+                t2 = time.perf_counter()
+                controls, mask = synth_request(n_, h_, w_, seed)
+                t3 = time.perf_counter()
+                before = dict(fa.LAUNCHES)
+                video = msrv.run_loaded_request(pipe, params, controls, mask, progress)
+                served[seed] = {
+                    "inputs_s": t3 - t2, "s": time.perf_counter() - t3,
+                    "profile": dict(pipe.last_wall_profile),
+                    "latents": decoded[-1], "frames": frames_digest(video),
+                    "launches": {k: v - before.get(k, 0) for k, v in fa.LAUNCHES.items()}}
+                return video
+
+            def _save(self, video, params):
+                return f"(frames kept in memory, seed {params['seed']})"
+
+        def serve(router):
+            httpd = make_server(router, "127.0.0.1", 0)
+            serve_forever_in_thread(httpd)
+            servers.append(httpd)
+            return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        served = {}
+        ms_url = serve(msrv.build_router(SmokeModelServer(lambda: loaded)))
+        api_url = serve(api_mod.build_router(api_mod.ApiServer(
+            workdir=api_dir, model_server_url=ms_url, subprocess_fallback=False, device=dev)))
+        log(f"[front] ModelServer at {ms_url}, ApiServer at {api_url} (model_server_url "
+            f"{ms_url}, no subprocess fallback)")
+        log("[front] mp4 decoding and encoding did not run on this machine (no cv2 here): "
+            "the served requests take phase 3's synthetic control arrays through "
+            "ModelServer._generate / _save; tests/test_torch_video_io.py and "
+            "tests/test_torch_serving.py hold the mp4 path to the JAX package on the CPU")
+        health = http_json(f"{ms_url}/health")
+        log(f"[front] GET /health before the first request: {health}")
+        if health["model_loaded"] is not False:
+            raise AssertionError(f"/health before the first request: {health}")
+        h, w, n = E2E_SIZE
+        fa.reset_launch_counts()
+        fab.reset_launch_counts()
+        ms.reset_launch_counts()
+        posted, tasks = {}, {}
+        for prompt, seed in E2E_REQUESTS:
+            posted[seed] = time.perf_counter()
+            tasks[seed] = http_json(f"{api_url}/api/generate", {
+                "rendering_maps_path": f"maps_{seed}", "prompt": prompt,
+                "negative_prompt": "blurry", "num_inference_steps": STEPS,
+                "guidance_scale": 5.0, "seed": seed, "height": h, "width": w,
+                "num_frames": n})["task_id"]
+        progress = {seed: [] for seed in tasks}
+        done, max_queue = {}, 0
+        while len(done) < len(tasks):
+            if time.perf_counter() - posted[E2E_REQUESTS[0][1]] > 1200:
+                raise AssertionError("the served requests did not finish in 1200 s")
+            queue_depth = http_json(f"{ms_url}/metrics")["queue_depth"]
+            if not done:
+                max_queue = max(max_queue, queue_depth)
+            for seed, task in tasks.items():
+                if seed in done:
+                    continue
+                st = http_json(f"{api_url}/api/status/{task}")
+                progress[seed].append(st["progress"])
+                if st["status"] in ("COMPLETED", "FAILED"):
+                    done[seed] = (st, time.perf_counter() - posted[seed])
+            time.sleep(0.5)
+        for seed, (st, dt) in done.items():
+            srv = served.get(seed, {})
+            log(f"  seed {seed}: {st['status']} through ApiServer -> ModelServer in {dt:.1f} s "
+                f"(in the model server: synthetic inputs {srv.get('inputs_s', float('nan')):.1f} "
+                f"s, request {srv.get('s', float('nan')):.1f} s, last_wall_profile "
+                f"{ {k: round(v, 2) for k, v in srv.get('profile', {}).items()} }; "
+                f"direct in phase 3 {direct[seed]['s']:.1f} s "
+                f"{ {k: round(v, 2) for k, v in direct[seed]['profile'].items()} }); "
+                f"progress seen {progress[seed]}; launches {srv.get('launches')}")
+            if st["status"] != "COMPLETED":
+                raise AssertionError(f"served request seed {seed}: {st}")
+            if progress[seed] != sorted(progress[seed]) or progress[seed][-1] != 100:
+                raise AssertionError(f"mirrored progress of seed {seed}: {progress[seed]}")
+        log(f"[front] largest /metrics queue_depth while the first request ran: {max_queue}")
+        if max_queue < 1:
+            raise AssertionError("the second request never waited in the model server's queue")
+        counts = dict(fa.LAUNCHES)
+        per = 45 * STEPS
+        want_counts = {"fused_rope_rms_attention": 2 * per, "fused_rms_cross_attention": 2 * per,
+                       "fused_rope_rms_attention_int8": 0, "flash_attention": 0}
+        per_request = [served[s]["launches"] for s in tasks]
+        if (counts != want_counts or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values())
+                or any(c["fused_rope_rms_attention"] != per or c["fused_rms_cross_attention"] != per
+                       for c in per_request)):
+            raise AssertionError(f"served launches {counts} (per request {per_request}) "
+                                 f"{fab.LAUNCHES} {ms.LAUNCHES} != {want_counts}")
+        seed0 = E2E_REQUESTS[0][1]
+        got0, want0 = served[seed0], direct[seed0]
+        same = got0["frames"] == want0["frames"]
+        log(f"[front] served request 0 (seed {seed0}) frames {got0['frames'][:16]} vs phase 3 "
+            f"{want0['frames'][:16]}: " + ("bit-identical" if same else "DIFFERENT")
+            + f"; denoised latents {got0['latents'][:16]} vs {want0['latents'][:16]} "
+            + ("equal" if got0["latents"] == want0["latents"] else "DIFFERENT"))
+        differ = None if same else (
+            f"served request 0's frames differ from phase 3's (latents "
+            f"{'equal' if got0['latents'] == want0['latents'] else 'differ'})")
+        after = http_json(f"{ms_url}/health")
+        unloaded = http_json(f"{ms_url}/unload", {})
+        log(f"[front] GET /health after: {after}; POST /unload: {unloaded}")
+        if not after["model_loaded"] or not unloaded["unloaded"]:
+            raise AssertionError(f"/health {after}, /unload {unloaded} after the requests")
+        return counts, differ
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(api_dir, ignore_errors=True)
+        loaded = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[front] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1417,12 +1860,13 @@ def main() -> int:
         f"{len(pipe.dit_params['geoada_blocks'])} blocks + Wan VAE) in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-    h, w, n = 480, 832, FRAMES_E2E
+    h, w, n = E2E_SIZE
     log(f"[e2e] requests at {h}x{w}x{n}")
     torch.cuda.reset_peak_memory_stats()
     launches_main = {k: 0 for k in fa.LAUNCHES}
-    for r, (prompt, seed) in enumerate((("a red car drives left along a coast road", 11),
-                                        ("a dog runs across a snowy field", 12))):
+    decoded = latent_digests(pipe)
+    direct = {}  # phase 8 serves the same requests: frames and times to hold it to
+    for r, (prompt, seed) in enumerate(E2E_REQUESTS):
         controls, mask = synth_request(n, h, w, seed)
         fa.reset_launch_counts()
         fab.reset_launch_counts()
@@ -1435,9 +1879,12 @@ def main() -> int:
         counts = dict(fa.LAUNCHES)
         for k_ in counts:
             launches_main[k_] += counts[k_]
+        direct[seed] = {"s": dt, "profile": dict(pipe.last_wall_profile),
+                        "frames": frames_digest(video), "latents": decoded[-1]}
         log(f"  request {r}: {video.shape} {video.dtype} in {dt:.1f} s "
             f"{ {k_: round(v, 2) for k_, v in pipe.last_wall_profile.items()} } "
-            f"launches {counts}")
+            f"launches {counts}; SHA-256 of the uint8 frames {direct[seed]['frames'][:16]}, "
+            f"of the denoised latents {decoded[-1][:16]}")
         if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8:
             raise AssertionError(f"bad output {video.shape} {video.dtype}")
         if float(video.std()) == 0.0:
@@ -1518,6 +1965,13 @@ def main() -> int:
     counts = flagship_phase(fa, fab, ms, dev, card, records)
     for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
         launches_main[name + "_14b"] = counts[name]
+
+    # -- 8. the front door: a reference-layout checkpoint served over HTTP --
+    counts, differ = front_door_phase(fa, fab, ms, dev, card, direct)
+    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
+        launches_main[name] += counts[name]
+    if differ:  # reported after the phase's other checks ran
+        failures.append(differ)
 
     if failures:
         raise AssertionError("; ".join(failures))

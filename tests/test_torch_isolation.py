@@ -48,6 +48,33 @@ def test_importing_the_port_loads_no_jax():
     assert [n for n in loaded if _forbidden(n)] == []
 
 
+# absent from the GPU machine's installation
+CARD_MISSING = ("cv2", "safetensors", "transformers")
+
+
+def test_the_port_imports_without_cv2_safetensors_transformers():
+    """Every module of the port and chip_smoke.py import with OpenCV,
+    safetensors and transformers blocked, as on the GPU machine."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"sys.modules.update(dict.fromkeys({CARD_MISSING!r}))\n"
+        "import versecrafter_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(versecrafter_tpu_torch.__path__,"
+        " 'versecrafter_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(' '.join(names))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split()
+    for name in ("core.convert", "core.checkpoint", "serve.api_server", "serve.http",
+                 "serve.tasks", "utils.video", "utils.profiling", "cli.inference"):
+        assert f"versecrafter_tpu_torch.{name}" in names
+
+
 @pytest.mark.parametrize("path", _sources())
 def test_no_source_imports_jax(path):
     tree = ast.parse(open(os.path.join(REPO, path)).read())

@@ -6,13 +6,15 @@
 The flags are the JAX package's cli/train.py flags plus --device (default
 cuda). It trains on --synthetic N random-latent samples: the default model
 is Wan2.1-1.3B + GeoAdapter (15 blocks, 128 control channels) from a random
-init with an un-zeroed head, in bf16; --tiny is a small fp32 model (head_dim
-16, so it runs on the CPU only: the kernels take head_dim 128). The trainable
-tree is saved with torch.save as <output_dir>/step_%06d.pt.
+init with an un-zeroed head, in bf16; --model_name starts from the DiT of a
+reference-layout model directory (core.convert.load_versecrafter, 128
+control channels); --tiny is a small fp32 model (head_dim 16, so it runs on
+the CPU only: the kernels take head_dim 128). The trainable tree is saved
+through core/checkpoint.py as <output_dir>/step_%06d.pt ({"params": tree}).
 
-Not ported yet (each raises NotImplementedError): --data_dir (video IO and
-the VAE/T5 encode of clips), --model_name (checkpoint conversion),
---lora_rank > 0 (LoRA) and any mesh axis > 1 (parallelism).
+Not ported yet (each raises NotImplementedError): --data_dir (the VAE/T5
+encode of clips), --lora_rank > 0 (LoRA) and any mesh axis > 1
+(parallelism).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def parse_args(argv=None):
                    help="Train on N synthetic samples")
     p.add_argument("--output_dir", type=str, default="outputs/train")
     p.add_argument("--model_name", type=str, default=None,
-                   help="Converted checkpoint dir (not ported yet)")
+                   help="Reference-layout model dir to start from")
     p.add_argument("--tiny", action="store_true",
                    help="Tiny random-init fp32 model (CPU smoke tests)")
     p.add_argument("--steps", type=int, default=1000)
@@ -66,17 +68,14 @@ def parse_args(argv=None):
 def _check_ported(args):
     if args.data_dir is not None:
         raise NotImplementedError(
-            "--data_dir waits for video IO and the VAE/T5 clip encode "
-            "(ROADMAP queue 1, items 4 and 7); use --synthetic")
-    if args.model_name is not None:
-        raise NotImplementedError(
-            "--model_name waits for checkpoint conversion (ROADMAP queue 1, item 7)")
+            "--data_dir waits for the VAE/T5 clip encode (ROADMAP queue 1, "
+            "item 11); use --synthetic")
     if args.lora_rank > 0:
         raise NotImplementedError("LoRA training waits for utils/lora.py "
-                                  "(ROADMAP queue 1, item 6)")
+                                  "(ROADMAP queue 1, item 7)")
     if max(args.dp, args.fsdp, args.sp, args.tp) > 1:
         raise NotImplementedError("mesh training (dp/fsdp/sp/tp) waits for the "
-                                  "parallelism port (ROADMAP queue 1, item 10)")
+                                  "parallelism port (ROADMAP queue 1, item 11)")
     if args.attn_impl != "auto":
         raise NotImplementedError(f"--attn_impl {args.attn_impl}: the port has "
                                   "one attention path ('auto')")
@@ -116,20 +115,26 @@ def main(argv=None):
     import torch
 
     from versecrafter_tpu_torch import resolve_device
+    from versecrafter_tpu_torch.core.checkpoint import save_checkpoint
     from versecrafter_tpu_torch.kernels.rope import grid_cos_sin, rope_3d_angles
     from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
     from versecrafter_tpu_torch.parallel.train_step import (
         make_optimizer, make_train_step, split_trainable, tree_leaves)
-    from versecrafter_tpu_torch.sampling.pipeline import _to_device
     from versecrafter_tpu_torch.utils import prng
 
     dev = resolve_device(args.device)
     h, w = (int(x) for x in args.sample_size.split(","))
     n_frames = args.video_length
-    cfg, dtype = ((tiny_config(), torch.float32) if args.tiny
-                  else (default_config(), torch.bfloat16))
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = unzero_head(init_wan_dit(cfg, gen, dtype), args.seed + 7)
+    if args.model_name and not args.tiny:  # a converted checkpoint's trained head
+        from versecrafter_tpu_torch.core.convert import load_versecrafter
+        pipe = load_versecrafter(args.model_name, geoada_in_dim=128, device=dev)
+        cfg, params = pipe.dit_cfg, pipe.dit_params
+        del pipe
+    else:
+        cfg, dtype = ((tiny_config(), torch.float32) if args.tiny
+                      else (default_config(), torch.bfloat16))
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = unzero_head(init_wan_dit(cfg, gen, dtype), args.seed + 7)
     train, _frozen = split_trainable(params, geoadapter_only=not args.train_full)
     n_train = sum(t.numel() for t in tree_leaves(train))
     mode = "full model" if args.train_full else "GeoAdapter only"
@@ -152,6 +157,8 @@ def main(argv=None):
     cos, sin = grid_cos_sin(rope_3d_angles(cfg.head_dim), t_lat // pt,
                             h_lat // ph, w_lat // pw, device=dev)
 
+    dtype = params["patch_embedding"]["kernel"].dtype
+
     def batch(idx, k):
         return torch.as_tensor(np.stack([data[j][k] for j in idx]),
                                dtype=torch.float32, device=dev).to(dtype)
@@ -170,7 +177,7 @@ def main(argv=None):
                   flush=True)
         if (i + 1) % args.save_every == 0 or i + 1 == args.steps:
             path = os.path.join(args.output_dir, f"step_{i + 1:06d}.pt")
-            torch.save({"params": _to_device(train, "cpu")}, path)
+            save_checkpoint(path, {"params": train})
             print(f"saved {path}", flush=True)
     print(f"final loss {losses[-1]:.4f}")
     return losses

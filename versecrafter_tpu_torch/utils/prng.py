@@ -15,7 +15,8 @@ noise in both packages:
   output words XORed (32 bits) or its low byte (8 bits);
 - ``uniform``: the top mantissa bits under the exponent of 1.0, minus 1,
   scaled into [minval, maxval) in the target dtype (bf16 takes 8 random
-  bits, as JAX does for a mantissa narrower than 8 bits);
+  bits, as JAX does for a mantissa narrower than 8 bits; in fp32 the scale
+  and shift are one fused multiply-add, as XLA compiles them);
 - ``normal``: sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1)). In bf16 the
   erfinv is taken in fp32 and rounded to bf16, then multiplied by
   bf16(sqrt 2) and rounded again: bit-identical to JAX on the CPU. In fp32
@@ -111,7 +112,24 @@ def uniform(k: torch.Tensor, shape: Sequence[int], dtype=torch.float32,
     floats = _bits_to_unit(bits, dtype)
     lo = torch.tensor(minval, dtype=dtype, device=k.device)
     hi = torch.tensor(maxval, dtype=dtype, device=k.device)
+    if dtype == torch.float32:  # XLA contracts floats * range + lo into an FMA
+        return torch.maximum(lo, _fma32(floats, hi - lo, lo))
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 a * b + c rounded once, as a fused multiply-add: the product is
+    exact in fp64, the sum is rounded to odd in fp64 (TwoSum gives its
+    rounding error), and rounding that to fp32 is then the single rounding
+    (53 >= 2 * 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double().expand_as(p)
+    s = p + c
+    bc = s - p
+    err = (p - (s - bc)) + (c - bc)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
 
 
 # nextafter(-1, 0) in each dtype: the lower end of normal's uniform draw
