@@ -1,6 +1,6 @@
 """The port's CUDA kernels (fused attention with its int8 flavor, plain
 flash attention and its FA2 backward, the linear_rstat GEMM) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, and the W8A8 product against the CPU, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. This
 module imports no JAX, so on a GPU machine without JAX it runs with the
@@ -562,3 +562,28 @@ def test_linear_rstat_rejects_what_it_cannot_take(dev):
         ms.linear_rstat({"kernel": p["kernel"][:, :100].contiguous()}, x)
     with pytest.raises(ValueError):  # not 16-byte aligned
         ms.linear_rstat(p, x.view(-1)[1:1 + 63 * 256].view(63, 256))
+
+
+@pytest.mark.parametrize("rows", [1, 9, 17, 300])
+@pytest.mark.parametrize("K,N", [(256, 384), (12, 20)])
+@pytest.mark.parametrize("bits,static", [(8, False), (8, True), (4, False)])
+def test_int8_compute_dot_on_the_card_matches_the_cpu(dev, monkeypatch, rows, K, N, bits,
+                                                     static):
+    """The W8A8 / W4A8 product (utils/quantize.int8_compute_dot) on the card
+    equals the CPU's bit for bit, also where torch._int_mm's shape minimum
+    (> 16 rows, K and N multiples of 8) makes the wrapper pad."""
+    from versecrafter_tpu_torch.utils import quantize as qz
+
+    monkeypatch.setattr(qz, "MIN_SIZE", 1)
+
+    rng = np.random.default_rng(rows + K)
+    w = torch.as_tensor(rng.standard_normal((K, N)), dtype=torch.float32).to(torch.bfloat16)
+    x = torch.as_tensor(rng.standard_normal((2, rows, K)), dtype=torch.float32).to(torch.bfloat16)
+    scales = {"ffn_in/kernel": 0.02} if static else None
+    tree = qz.tag_int8_compute(qz.quantize_tree({"ffn_in": {"kernel": w}}, bits,
+                                                0 if bits == 4 else None), scales)
+    leaf = tree["ffn_in"]["kernel"]
+    assert qz.is_compute_tagged(leaf)
+    got = qz.int8_compute_dot({k: v.to(dev) for k, v in leaf.items()}, x.to(dev))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), qz.int8_compute_dot(leaf, x))

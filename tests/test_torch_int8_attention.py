@@ -222,26 +222,34 @@ def test_serving_toggle_sets_and_restores(tiny_pipe, monkeypatch):
                                  {"quantize_bits": 4}, {"int8_compute": True},
                                  {"quantize_int8": True}])
 def test_serving_toggle_restored_when_request_raises(tiny_pipe, bad):
-    """Quantization params raise; the TeaCache and cfg-skip params (ported)
-    serve the request. Either way every toggle is restored afterwards."""
+    """The TeaCache and cfg-skip params serve the request. A quantization
+    param that asks for another mode than the one the resident pipeline was
+    quantized in raises ValueError. Either way every toggle is restored
+    afterwards."""
     params, controls, mask = _tiny_request()
     old = twan.INT8_QK_SCORE
     before = (tiny_pipe.teacache_threshold, tiny_pipe.teacache_skip_start,
               tiny_pipe.teacache_coefficients, tiny_pipe.cfg_skip_ratio)
+    saved_dit = tiny_pipe.dit_params
     try:
         twan.INT8_QK_SCORE = False
         request = {**params, "int8_attention": True, **bad}
         if "teacache_threshold" in bad or "cfg_skip_ratio" in bad:
             out = tserve.run_loaded_request(tiny_pipe, request, controls, mask)
             assert out.dtype == np.uint8 and out.shape == (1, 5, 16, 16, 3)
-        else:
-            with pytest.raises(NotImplementedError):
+        else:  # resident in another (bits, int8_compute) mode than asked
+            resident = (4, False) if "quantize_int8" in bad else (8, False)
+            tiny_pipe.quantize_weights(bits=resident[0])
+            tiny_pipe._quantized = resident
+            with pytest.raises(ValueError, match="already quantized"):
                 tserve.run_loaded_request(tiny_pipe, request, controls, mask)
         assert twan.INT8_QK_SCORE is False
         assert (tiny_pipe.teacache_threshold, tiny_pipe.teacache_skip_start,
                 tiny_pipe.teacache_coefficients, tiny_pipe.cfg_skip_ratio) == before
     finally:
         twan.INT8_QK_SCORE = old
+        tiny_pipe.dit_params = saved_dit
+        tiny_pipe.__dict__.pop("_quantized", None)
 
 
 def test_pipeline_enable_int8_attention(tiny_pipe):

@@ -190,7 +190,7 @@ def test_model_server_serves_the_jax_request(pipes, model_server, workdir):
 
 @pytest.mark.parametrize("bad,match", [
     ({"rendering_maps_path": "/nonexistent/maps"}, "no control maps"),
-    ({"quantize_bits": 4}, "queue 1, item 7"),
+    ({"quantize_bits": 3}, "must be 8 or 4"),
 ])
 def test_model_server_failed_tasks(model_server, workdir, bad, match):
     _, url = model_server
@@ -390,7 +390,7 @@ def test_cli_in_process(workdir, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--staged"], "item 6"), (["--fit_teacache"], "item 6"), (["--moe"], "item 8"),
-    (["--lora_path", "x"], "item 7"), (["--quantize_int8"], "item 7"),
+    (["--transformer_high_path", "x"], "item 8"), (["--ring_degree", "2"], "item 11"),
     (["--ulysses_degree", "2"], "item 11"), (["--auto_parallel"], "item 11"),
 ])
 def test_cli_unported_flags_raise(flags, item):
@@ -419,3 +419,70 @@ def test_entry_points_default_to_cuda():
         tinf.main(["--rendering_maps_path", "m", "--prompt", "x", "--input_image_path", ""])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapi.main(["--port", "0"])
+
+
+def test_model_server_queues_a_second_request():
+    """Two requests posted back to back: the second waits in the queue
+    (depth 1 while the first runs) and both complete, in order."""
+    import threading
+
+    release, started, order = threading.Event(), threading.Event(), []
+
+    class Held(tserve.ModelServer):
+        def _generate(self, pipe, params, progress):
+            order.append(params["seed"])
+            started.set()
+            assert release.wait(30)
+            return np.zeros((1, 1, 2, 2, 3), np.uint8)
+
+        def _save(self, video, params):
+            return f"seed {params['seed']}"
+
+    server = Held(lambda: object())
+    httpd, url = _serve(tserve.build_router(server))
+    try:
+        ids = [_call(f"{url}/generate", "POST", {"seed": s})[1]["task_id"] for s in (1, 2)]
+        assert started.wait(30)
+        assert _call(f"{url}/metrics")[1]["queue_depth"] == 1
+        release.set()
+        for task_id in ids:
+            st, _ = _wait(f"{url}/status/{task_id}")
+            assert st["status"] == "COMPLETED", st
+        assert order == [1, 2] and _call(f"{url}/metrics")[1]["queue_depth"] == 0
+    finally:
+        release.set()
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_unload_frees_the_pipeline_after_a_request():
+    """After a served request and /unload, nothing holds the pipeline: the
+    idle worker keeps no reference to it (its device memory is freed)."""
+    import gc
+    import weakref
+
+    class Pipe:
+        last_wall_profile = {}
+
+    built = []
+
+    class Server(tserve.ModelServer):
+        def _generate(self, pipe, params, progress):
+            return np.zeros((1, 1, 2, 2, 3), np.uint8)
+
+        def _save(self, video, params):
+            return "kept nowhere"
+
+    server = Server(lambda: built.append(Pipe()) or built[-1])
+    httpd, url = _serve(tserve.build_router(server))
+    try:
+        task_id = _call(f"{url}/generate", "POST", {"seed": 1})[1]["task_id"]
+        st, _ = _wait(f"{url}/status/{task_id}")
+        assert st["status"] == "COMPLETED", st
+        alive = weakref.ref(built.pop())
+        assert _call(f"{url}/unload", "POST")[1] == {"unloaded": True}
+        gc.collect()
+        assert alive() is None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()

@@ -244,7 +244,7 @@ def test_cli_trains_and_saves(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--data_dir", "x"], ["--fsdp", "2"],
-                                   ["--lora_rank", "4"], ["--sp", "2"],
+                                   ["--dp", "2"], ["--sp", "2"],
                                    ["--attn_impl", "xla"]])
 def test_cli_unported_options_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError):

@@ -13,12 +13,15 @@ pipeline of --smoke_scale. --offline_smoke defaults the size to 64x64x9 at
 4 steps unless the size flags are given. It prints "denoise i / n" after
 each step and the saved mp4's path as its last line (the API server's
 subprocess tier reads both). Reading the maps and writing the mp4 need
-OpenCV (utils/video.py).
+OpenCV (utils/video.py). As in the JAX CLI, --lora_path (any state dict
+core.convert.load_torch_state_dict reads) is merged at --lora_weight first,
+then --quantize_int8 / --int8_compute store the DiT in --quantize_bits
+(W8A8 / W4A8 with --int8_compute), then --int8_attention applies.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 --staged and --fit_teacache (staged residency), --moe and
---transformer_high_path (Wan2.2 experts), --lora_path and the quantize
-flags, mesh degrees > 1 and --auto_parallel.
+--transformer_high_path (Wan2.2 experts), mesh degrees > 1 and
+--auto_parallel.
 """
 
 from __future__ import annotations
@@ -70,14 +73,19 @@ def parse_args(argv=None):
     p.add_argument("--riflex_k", type=int, default=6)
     p.add_argument("--geoada_context_scale", type=float, default=1.0)
     p.add_argument("--geoada_in_dim", type=int, default=128)
-    p.add_argument("--lora_path", type=str, default=None, help="not ported yet")
+    p.add_argument("--lora_path", type=str, default=None,
+                   help="LoRA state dict (.safetensors, shard dir, .npz, .pth) "
+                        "merged into the DiT")
     p.add_argument("--lora_weight", type=float, default=0.55)
-    p.add_argument("--quantize_int8", action="store_true", help="not ported yet")
-    p.add_argument("--int8_compute", action="store_true", help="not ported yet")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="store the DiT's big kernels quantized (--quantize_bits)")
+    p.add_argument("--int8_compute", action="store_true",
+                   help="with --quantize_int8 (implied): run the block matmuls as "
+                        "s8 x s8 -> s32 products (W8A8; W4A8 with 4 bits)")
     p.add_argument("--int8_attention", action="store_true",
                    help="int8 QK^T scoring inside the fused self-attention kernel")
     p.add_argument("--quantize_bits", type=int, default=8, choices=(8, 4),
-                   help="with --quantize_int8 (not ported yet)")
+                   help="with --quantize_int8: int8, or nibble-packed int4")
     p.add_argument("--auto_parallel", action="store_true", help="not ported yet")
     p.add_argument("--offline_smoke", action="store_true",
                    help="random-weight model, tiny shapes unless the size flags are given")
@@ -101,7 +109,7 @@ def parse_args(argv=None):
 
 def _check_ported(args):
     from versecrafter_tpu_torch.serve.model_server import (
-        QUANTIZE, STAGED, check_ported_serving_flags)
+        STAGED, check_ported_serving_flags)
 
     check_ported_serving_flags(args)
     if args.fit_teacache is not None:
@@ -109,8 +117,6 @@ def _check_ported(args):
     if args.moe or args.transformer_high_path:
         raise NotImplementedError("the Wan2.2 two-expert MoE is not ported yet "
                                   "(ROADMAP queue 1, item 8)")
-    if args.lora_path or args.quantize_int8 or args.int8_compute:
-        raise NotImplementedError(f"--lora_path and quantization are not ported yet {QUANTIZE}")
 
 
 def main(argv=None):
@@ -156,6 +162,11 @@ def main(argv=None):
     if args.enable_riflex:
         lat_frames = (args.video_length - 1) // pipe.vae_cfg.temporal_compression_ratio + 1
         pipe.enable_riflex(k=args.riflex_k, L_test=lat_frames)
+    if args.lora_path:
+        from versecrafter_tpu_torch.core.convert import load_torch_state_dict
+        pipe.merge_lora(load_torch_state_dict(args.lora_path), args.lora_weight)
+    if args.quantize_int8 or args.int8_compute:
+        pipe.quantize_weights(int8_compute=args.int8_compute, bits=args.quantize_bits)
     if args.int8_attention:
         pipe.enable_int8_attention()
 

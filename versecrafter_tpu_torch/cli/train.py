@@ -1,7 +1,8 @@
-"""CLI: GeoAdapter finetuning of the Wan DiT on one device.
+"""CLI: GeoAdapter (or LoRA) finetuning of the Wan DiT on one device.
 
     python -m versecrafter_tpu_torch.cli.train --tiny --synthetic 4 --steps 3 --device cpu
     python -m versecrafter_tpu_torch.cli.train --synthetic 1 --steps 10    # 1.3B, 480x832x81, GPU
+    python -m versecrafter_tpu_torch.cli.train --synthetic 1 --steps 3 --lora_rank 16
 
 The flags are the JAX package's cli/train.py flags plus --device (default
 cuda). It trains on --synthetic N random-latent samples: the default model
@@ -12,9 +13,15 @@ control channels); --tiny is a small fp32 model (head_dim 16, so it runs on
 the CPU only: the kernels take head_dim 128). The trainable tree is saved
 through core/checkpoint.py as <output_dir>/step_%06d.pt ({"params": tree}).
 
+--lora_rank r > 0 trains LoRA factors (utils/lora.py) of rank r over every
+block's attention and FFN kernels, base and GeoAdapter, with the whole base
+tree frozen, at scale (lora_alpha or r) / r; the factors start from the
+threefry key(seed + 5), as the JAX CLI's do. Beside each checkpoint of
+the factors, step_%06d_lora.safetensors holds them in the dotted LoRA
+naming that cli/inference.py --lora_path (merge_lora) reads.
+
 Not ported yet (each raises NotImplementedError): --data_dir (the VAE/T5
-encode of clips), --lora_rank > 0 (LoRA) and any mesh axis > 1
-(parallelism).
+encode of clips) and any mesh axis > 1 (parallelism).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 
 
 def parse_args(argv=None):
@@ -42,8 +50,11 @@ def parse_args(argv=None):
     p.add_argument("--sample_size", type=str, default="480,832")
     p.add_argument("--video_length", type=int, default=81)
     p.add_argument("--lora_rank", type=int, default=0,
-                   help="> 0: LoRA finetuning (not ported yet)")
-    p.add_argument("--lora_alpha", type=float, default=None)
+                   help="> 0: LoRA finetuning: only low-rank factors over the "
+                        "block matmuls train (the whole base frozen); each "
+                        "checkpoint also exports step_N_lora.safetensors")
+    p.add_argument("--lora_alpha", type=float, default=None,
+                   help="LoRA scale numerator (default = rank -> scale 1)")
     p.add_argument("--train_full", action="store_true",
                    help="Train the full model (default: GeoAdapter only)")
     p.add_argument("--dp", type=int, default=1)
@@ -59,8 +70,9 @@ def parse_args(argv=None):
                    help="init from torch generators seeded with seed (weights) "
                         "and seed + 7 (head); synthetic data from numpy "
                         "seed and seed + 1 (sampling); step i draws its noise "
-                        "level and noise from the threefry key(seed + 2 + i), "
-                        "as the JAX CLI does")
+                        "level and noise from the threefry key(seed + 2 + i) "
+                        "and LoRA factors from key(seed + 5), as the JAX CLI "
+                        "does")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -70,9 +82,6 @@ def _check_ported(args):
         raise NotImplementedError(
             "--data_dir waits for the VAE/T5 clip encode (ROADMAP queue 1, "
             "item 11); use --synthetic")
-    if args.lora_rank > 0:
-        raise NotImplementedError("LoRA training waits for utils/lora.py "
-                                  "(ROADMAP queue 1, item 7)")
     if max(args.dp, args.fsdp, args.sp, args.tp) > 1:
         raise NotImplementedError("mesh training (dp/fsdp/sp/tp) waits for the "
                                   "parallelism port (ROADMAP queue 1, item 11)")
@@ -107,8 +116,31 @@ def unzero_head(params, seed: int):
     return params
 
 
+def build_model(args, dev):
+    """(cfg, params) the run starts from: --model_name's DiT, or the random
+    init of --tiny / the default model from --seed."""
+    import torch
+
+    from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
+
+    if args.model_name and not args.tiny:  # a converted checkpoint's trained head
+        from versecrafter_tpu_torch.core.convert import load_versecrafter
+        pipe = load_versecrafter(args.model_name, geoada_in_dim=128, device=dev)
+        return pipe.dit_cfg, pipe.dit_params
+    cfg, dtype = ((tiny_config(), torch.float32) if args.tiny
+                  else (default_config(), torch.bfloat16))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    return cfg, unzero_head(init_wan_dit(cfg, gen, dtype), args.seed + 7)
+
+
 def main(argv=None):
-    args = parse_args(argv)
+    return run(parse_args(argv))["losses"]
+
+
+def run(args):
+    """The training run of parsed args -> {"losses", "step_s" (each step's
+    seconds, its batch upload included), "params" (the whole tree), "train"
+    (the trained tree: GeoAdapter / all params, or the LoRA factors)}."""
     _check_ported(args)
 
     import numpy as np
@@ -116,30 +148,34 @@ def main(argv=None):
 
     from versecrafter_tpu_torch import resolve_device
     from versecrafter_tpu_torch.core.checkpoint import save_checkpoint
+    from versecrafter_tpu_torch.core.convert import save_safetensors
     from versecrafter_tpu_torch.kernels.rope import grid_cos_sin, rope_3d_angles
-    from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
     from versecrafter_tpu_torch.parallel.train_step import (
-        make_optimizer, make_train_step, split_trainable, tree_leaves)
+        make_lora_train_step, make_optimizer, make_train_step, split_trainable,
+        tree_leaves)
     from versecrafter_tpu_torch.utils import prng
+    from versecrafter_tpu_torch.utils.lora import init_lora, lora_to_torch_sd
 
     dev = resolve_device(args.device)
     h, w = (int(x) for x in args.sample_size.split(","))
     n_frames = args.video_length
-    if args.model_name and not args.tiny:  # a converted checkpoint's trained head
-        from versecrafter_tpu_torch.core.convert import load_versecrafter
-        pipe = load_versecrafter(args.model_name, geoada_in_dim=128, device=dev)
-        cfg, params = pipe.dit_cfg, pipe.dit_params
-        del pipe
+    cfg, params = build_model(args, dev)
+    if args.lora_rank > 0:
+        lora_scale = (args.lora_alpha or args.lora_rank) / args.lora_rank
+        train = init_lora(params, args.lora_rank, prng.key(args.seed + 5, dev),
+                          groups=("blocks", "geoada_blocks"))
+        opt = make_optimizer(train, args.lr, args.weight_decay)
+        lora_step = make_lora_train_step(cfg, opt, lora_scale)
+
+        def step_fn(params, *a, **kw):
+            return lora_step(train, params, *a, **kw)
+        mode = f"LoRA rank {args.lora_rank} (scale {lora_scale:g})"
     else:
-        cfg, dtype = ((tiny_config(), torch.float32) if args.tiny
-                      else (default_config(), torch.bfloat16))
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = unzero_head(init_wan_dit(cfg, gen, dtype), args.seed + 7)
-    train, _frozen = split_trainable(params, geoadapter_only=not args.train_full)
+        train, _frozen = split_trainable(params, geoadapter_only=not args.train_full)
+        step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay))
+        mode = "full model" if args.train_full else "GeoAdapter only"
     n_train = sum(t.numel() for t in tree_leaves(train))
-    mode = "full model" if args.train_full else "GeoAdapter only"
     print(f"trainable params: {n_train / 1e6:.1f}M ({mode}) on {dev}")
-    step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay))
 
     # synthetic data, drawn as the JAX CLI draws it
     t_lat = (n_frames - 1) // 4 + 1
@@ -165,22 +201,26 @@ def main(argv=None):
 
     os.makedirs(args.output_dir, exist_ok=True)
     sampler = np.random.default_rng(args.seed + 1)
-    losses = []
+    losses, step_s = [], []
     for i in range(args.steps):
         idx = sampler.integers(0, len(data), args.batch_size)
+        t0 = time.perf_counter()
         loss = step_fn(params, batch(idx, 0), batch(idx, 2), cos, sin, batch(idx, 1),
                        key=prng.key(args.seed + 2 + i, dev))
-        losses.append(float(loss))
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
         if (i + 1) % args.log_every == 0 or i == 0:
             recent = losses[-args.log_every:]
             print(f"step {i + 1}/{args.steps} loss {sum(recent) / len(recent):.4f}",
                   flush=True)
         if (i + 1) % args.save_every == 0 or i + 1 == args.steps:
-            path = os.path.join(args.output_dir, f"step_{i + 1:06d}.pt")
-            save_checkpoint(path, {"params": train})
-            print(f"saved {path}", flush=True)
+            path = os.path.join(args.output_dir, f"step_{i + 1:06d}")
+            save_checkpoint(path + ".pt", {"params": train})
+            if args.lora_rank > 0:
+                save_safetensors(path + "_lora.safetensors", lora_to_torch_sd(train))
+            print(f"saved {path}.pt", flush=True)
     print(f"final loss {losses[-1]:.4f}")
-    return losses
+    return {"losses": losses, "step_s": step_s, "params": params, "train": train}
 
 
 if __name__ == "__main__":

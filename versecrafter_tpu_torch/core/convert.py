@@ -6,7 +6,9 @@ dicts/lists of numpy arrays (np.asarray of each JAX leaf) and returns the
 port's tree: the same keys, every leaf a tensor of the same dtype (bf16
 included), linear kernels kept [in, out] and conv kernels kept OIDHW/OIHW.
 The DiT's stacked "blocks" / "geoada_blocks" ([L, ...] leading axis) become
-lists of per-block dicts.
+lists of per-block dicts. A quantized tree (utils/quantize.py) carries over
+too: each block gets its slice of qvalues / q4values / qscales and its
+scalar a_dyn / a_scale, and the leaf's zero-size qdtype token unsliced.
 
 `convert_wan_dit`, `convert_wan_vae` and `convert_wan_t5` map the
 reference's torch state dicts (the DiT + GeoAdapter from sharded
@@ -23,7 +25,8 @@ Each leaf goes to the target device as soon as it is read, and is cast
 there, so no second host copy of a whole tree is ever held (a 14B DiT is
 28 GB in bf16). State dicts come from `load_torch_state_dict`, whose
 safetensors reader is the port's own (8-byte little-endian header length,
-a JSON header, raw bytes) over mmap, and reads one tensor per key access.
+a JSON header, raw bytes) over mmap, and reads one tensor per key access;
+`save_safetensors` writes the same format.
 """
 
 from __future__ import annotations
@@ -58,14 +61,17 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def _unstack(tree, i: int):
+    """Block i of a stacked subtree. A quantized leaf's zero-size `qdtype`
+    token has no layer axis and goes into every block as it is."""
     if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
+        return {k: np.asarray(v) if k == "qdtype" else _unstack(v, i)
+                for k, v in tree.items()}
     return np.asarray(tree)[i]
 
 
 def _num_stacked(tree) -> int:
     while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+        tree = next(v for k, v in tree.items() if k != "qdtype")
     return np.asarray(tree).shape[0]
 
 
@@ -89,7 +95,7 @@ def params_from_jax(tree: Any, device=None) -> Any:
 
 _ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
               "F64": torch.float64, "I64": torch.int64, "I32": torch.int32,
-              "U8": torch.uint8, "BOOL": torch.bool}
+              "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 
 
 class SafetensorsFile:
@@ -128,6 +134,30 @@ class SafetensorsFile:
             return torch.frombuffer(buf, dtype=dtype).reshape(shape)
         return torch.frombuffer(self._mm, dtype=dtype, count=(end - start) // itemsize,
                                 offset=start).reshape(shape)
+
+
+def save_safetensors(path: str, tensors: Mapping) -> int:
+    """Writes {name: tensor} as a .safetensors file (the 8-byte
+    little-endian header length, the JSON header {name: {dtype, shape,
+    data_offsets}} padded to 8 bytes, then each tensor's bytes), one tensor
+    at a time through the host; the dtypes SafetensorsFile reads. Returns
+    the file's size."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        if t.dtype not in names:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name here")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+    return os.path.getsize(path)
 
 
 class LazyStateDict(Mapping):

@@ -12,6 +12,13 @@ INT8_QK_SCORE and PROJ_STAT_FUSION (below). GeoAdapter hints are computed
 interleaved: geoada block i runs right before base block stride*i, and its
 hint after_proj(c)*scale is added right after that base block. Training calls wan_dit_embed, wan_dit_blocks
 (remat=True) and wan_dit_head directly; wan_dit_forward is inference only.
+
+A linear kernel may be a quantized leaf (utils/quantize.py): a
+compute-tagged one runs the W8A8 product, a storage-only one is dequantized
+to the activations' dtype first. calibrate=True records each block's
+per-tensor activation absmax at every W8A8 site (the stats fit_act_scales
+takes). A LoRA (utils/lora.py) enters wan_dit_blocks as per-block factors
+whose effective kernels are formed inside each (rematerialised) block.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from versecrafter_tpu_torch.kernels.flash_attention import (
     prepare_fused_rope_tables)
 from versecrafter_tpu_torch.kernels.matmul_stat import linear_rstat
 from versecrafter_tpu_torch.kernels.norms import layer_norm
+from versecrafter_tpu_torch.utils import quantize as qz
+from versecrafter_tpu_torch.utils.lora import block_factors, lora_block
 
 Params = Dict[str, Any]
 
@@ -45,8 +54,22 @@ INT8_QK_SCORE = False
 PROJ_STAT_FUSION = False
 
 
+# Run the block FFN over row chunks of an eighth of this above it (rows are
+# independent through linear -> gelu -> linear: the same result up to the
+# GEMMs' summation order), so the [rows, ffn_dim] hidden never exists whole. 65,520 rows (480x832x81
+# at CFG-2) is the largest shape whose unchunked 14B step was measured on
+# the card (PERF.md).
+FFN_CHUNK_ROWS = 65_520
+
+
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    k = p["kernel"]
+    if not isinstance(k, dict):
+        y = torch.matmul(x, k.to(x.dtype))
+    elif qz.is_compute_tagged(k):
+        y = qz.int8_compute_dot(k, x)
+    else:  # storage-only: weight-only dequant to the activations' dtype
+        y = torch.matmul(x, qz.dequantize_leaf(k, x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -54,6 +77,29 @@ def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def _ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return _linear(p["ffn_out"], _gelu_tanh(_linear(p["ffn_in"], x)))
+
+
+def _ffn_chunked(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """_ffn over row chunks written into one output (differentiable)."""
+    b, s, d = x.shape
+    rows = b * s
+    n = -(-rows // max(1, FFN_CHUNK_ROWS // 8))
+    ch = -(-rows // n)
+    x2 = x.reshape(rows, d)
+    out = x2.new_empty((rows, d))
+    for i in range(0, rows, ch):
+        out[i:i + ch] = _ffn(p, x2[i:i + ch])
+    return out.reshape(b, s, d)
+
+
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor activation absmax (fp32 scalar): the calibration
+    statistic behind static W8A8 scales."""
+    return x.float().abs().amax()
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -195,7 +241,10 @@ def _plain_kernel(p: Params) -> bool:
     return isinstance(p["kernel"], torch.Tensor)
 
 
-def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig):
+def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=None):
+    if calib is not None:
+        calib["self_attn/q/kernel"] = calib["self_attn/k/kernel"] = \
+            calib["self_attn/v/kernel"] = _amax(x)
     rstats = None
     if (cfg.qk_norm and PROJ_STAT_FUSION and _plain_kernel(p["q"])
             and _plain_kernel(p["k"])):
@@ -213,10 +262,15 @@ def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig):
         p["norm_k"]["scale"] if cfg.qk_norm else None,
         num_heads=cfg.num_heads, eps=cfg.eps, window_size=cfg.window_size,
         tables_i=rope_i, rstats=rstats, int8_score=INT8_QK_SCORE)
+    if calib is not None:
+        calib["self_attn/o/kernel"] = _amax(out)
     return _linear(p["o"], out)
 
 
-def _cross_attention(p: Params, x, context, cfg: WanDiTConfig):
+def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None):
+    if calib is not None:
+        calib["cross_attn/q/kernel"] = _amax(x)
+        calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
     rq = None
     if cfg.qk_norm and PROJ_STAT_FUSION and _plain_kernel(p["q"]):
         # the q statistic comes from the projection; the k statistic spans
@@ -231,38 +285,53 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig):
         p["norm_q"]["scale"] if cfg.qk_norm else None,
         p["norm_k"]["scale"] if cfg.qk_norm else None,
         num_heads=cfg.num_heads, eps=cfg.eps, rq=rq)
+    if calib is not None:
+        calib["cross_attn/o/kernel"] = _amax(out)
     return _linear(p["o"], out)
 
 
 def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-                      rope_i=None):
+                      rope_i=None, calib=None, lora=None):
     """One Wan attention block. x [B, S, D]; e0 [B, 6, D] fp32 modulation;
     cos/sin the half-width RoPE tables (the differentiable attention path
     uses them) and rope_i the interleaved tables from
-    prepare_fused_rope_tables (the fused inference kernel uses them)."""
+    prepare_fused_rope_tables (the fused inference kernel uses them).
+    calib: a dict that receives the absmax at each W8A8 site (keys as in
+    utils/quantize.COMPUTE_SITES). lora: (this block's factors, scale), whose
+    effective kernels are formed here, inside any rematerialisation."""
+    if lora is not None:
+        p = lora_block(p, *lora)
     dtype = x.dtype
     e = p["modulation"][None].float() + e0
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 1][:, None]) + e[:, 0][:, None]).to(dtype)
-    y = _self_attention(p["self_attn"], tmp, cos, sin, rope_i, cfg)
+    y = _self_attention(p["self_attn"], tmp, cos, sin, rope_i, cfg, calib)
     x = (x.float() + y.float() * e[:, 2][:, None]).to(dtype)
 
     xn = (layer_norm(x, p["norm3"]["scale"], p["norm3"]["bias"], eps=cfg.eps)
           if cfg.cross_attn_norm else x)
-    x = x + _cross_attention(p["cross_attn"], xn, context, cfg)
+    x = x + _cross_attention(p["cross_attn"], xn, context, cfg, calib)
 
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 4][:, None]) + e[:, 3][:, None]).to(dtype)
-    y = _linear(p["ffn_out"], _gelu_tanh(_linear(p["ffn_in"], tmp)))
+    if calib is None and tmp.shape[0] * tmp.shape[1] > FFN_CHUNK_ROWS:
+        y = _ffn_chunked(p, tmp)
+    else:
+        h = _gelu_tanh(_linear(p["ffn_in"], tmp))
+        if calib is not None:
+            calib["ffn_in/kernel"] = _amax(tmp)
+            calib["ffn_out/kernel"] = _amax(h)
+        y = _linear(p["ffn_out"], h)
     return (x.float() + y.float() * e[:, 5][:, None]).to(dtype)
 
 
 def wan_dit_e0(params: Params, cfg: WanDiTConfig, t: torch.Tensor):
-    """(e [B, D], e0 [B, 6, D]) fp32 time embeddings of timesteps t [B]."""
-    te = params["time_embedding"]
+    """(e [B, D], e0 [B, 6, D]) fp32 time embeddings of timesteps t [B]
+    (quantized kernels dequantized to their recorded dtype, fp32)."""
+    te = qz.dequantize_tree(params["time_embedding"])
     e = sinusoidal_embedding_1d(cfg.freq_dim, t)
     e = _linear(te["fc2"], F.silu(_linear(te["fc1"], e).float())).float()
-    e0 = _linear(params["time_projection"], F.silu(e))
+    e0 = _linear(qz.dequantize_tree(params["time_projection"]), F.silu(e))
     return e, e0.reshape(t.shape[0], 6, cfg.dim).float()
 
 
@@ -284,42 +353,59 @@ def geoada_patch_embedding(params: Params, cfg: WanDiTConfig, geoada_context):
 
 
 def _block(remat: bool, p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-           rope_i):
+           rope_i, calib=None, lora=None):
     """wan_block_forward, rematerialised in the backward pass when `remat`
     and grad is enabled (the counterpart of jax.checkpoint on the block)."""
     if remat and torch.is_grad_enabled():
         return checkpoint(wan_block_forward, p, cfg, x, e0, cos, sin, context,
-                          rope_i, use_reentrant=False)
-    return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i)
+                          rope_i, None, lora, use_reentrant=False)
+    return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i, calib, lora)
+
+
+def _stack_stats(cals):
+    return {site: torch.stack([c[site] for c in cals]) for site in cals[0]}
 
 
 def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
                    geoada_tokens: Optional[torch.Tensor] = None,
-                   geoada_scale: float = 1.0, remat: bool = False):
+                   geoada_scale: float = 1.0, remat: bool = False,
+                   calibrate: bool = False, lora=None):
     """All transformer blocks, with the GeoAdapter superstep when present.
     cos/sin: half-width RoPE tables [S, head_dim/2]. remat: recompute each
     block (and each GeoAdapter block) in the backward pass instead of
-    keeping its activations, so only the block inputs stay alive."""
+    keeping its activations, so only the block inputs stay alive.
+    calibrate: also return the activation absmax stats
+    {"blocks": {site: [L]}, "geoada_blocks": {site: [G]}} (inference only).
+    lora: (factors of utils/lora.init_lora, scale), applied block by block."""
+    if calibrate and remat:
+        raise ValueError("calibrate is inference-only (stats escape remat)")
     rope_i = prepare_fused_rope_tables(cos, sin)
+    blocks = params["blocks"]
+    bcals = [{} if calibrate else None for _ in blocks]
     if not cfg.has_geoadapter or geoada_tokens is None:
-        for bp in params["blocks"]:
-            x = _block(remat, bp, cfg, x, e0, cos, sin, context, rope_i)
-        return x
+        for i, bp in enumerate(blocks):
+            x = _block(remat, bp, cfg, x, e0, cos, sin, context, rope_i, bcals[i],
+                       block_factors(lora, "blocks", i))
+        return (x, {"blocks": _stack_stats(bcals)}) if calibrate else x
     L = cfg.num_layers
     glayers = cfg.resolved_geoada_layers
     stride = glayers[1] - glayers[0] if len(glayers) > 1 else L
     if not (glayers == tuple(range(0, L, stride)) and L % stride == 0):
         raise NotImplementedError(f"non-uniform geoada_layers {glayers}")
     c = _linear(params["geoada_before_proj"], geoada_tokens) + x
-    blocks = params["blocks"]
+    gcals = [{} if calibrate else None for _ in params["geoada_blocks"]]
     for i, gp in enumerate(params["geoada_blocks"]):
-        c = _block(remat, gp, cfg, c, e0, cos, sin, context, rope_i)
+        c = _block(remat, gp, cfg, c, e0, cos, sin, context, rope_i, gcals[i],
+                   block_factors(lora, "geoada_blocks", i))
         for j in range(stride):
-            x = _block(remat, blocks[stride * i + j], cfg, x, e0, cos, sin, context,
-                       rope_i)
+            b = stride * i + j
+            x = _block(remat, blocks[b], cfg, x, e0, cos, sin, context, rope_i, bcals[b],
+                       block_factors(lora, "blocks", b))
             if j == 0:
                 hint = _linear(gp["after_proj"], c)
                 x = x + (hint * geoada_scale).to(x.dtype)
+    if calibrate:
+        return x, {"blocks": _stack_stats(bcals), "geoada_blocks": _stack_stats(gcals)}
     return x
 
 
@@ -335,10 +421,12 @@ def wan_dit_head(params: Params, cfg: WanDiTConfig, x, e, grid):
 @torch.no_grad()
 def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
                     geoada_context=None, geoada_scale: float = 1.0, y=None,
-                    clip_fea=None, y_camera=None):
+                    clip_fea=None, y_camera=None, calibrate: bool = False):
     """Full denoiser forward: x [B, C_in, F, H, W] latents, t [B] timesteps,
     context [B, text_len, text_dim], cos/sin [S, head_dim/2] RoPE tables,
-    geoada_context [B, geoada_in_dim, F, H, W] -> velocity [B, C_out, F, H, W]."""
+    geoada_context [B, geoada_in_dim, F, H, W] -> velocity [B, C_out, F, H, W];
+    with calibrate, (velocity, the activation absmax stats of
+    wan_dit_blocks)."""
     check_supported(cfg)
     if y is not None or clip_fea is not None or y_camera is not None:
         raise NotImplementedError(
@@ -349,5 +437,9 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
         gtokens = geoada_patch_embedding(params, cfg, geoada_context)
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos.to(x.device),
                             sin.to(x.device), ctx,
-                            geoada_tokens=gtokens, geoada_scale=geoada_scale)
+                            geoada_tokens=gtokens, geoada_scale=geoada_scale,
+                            calibrate=calibrate)
+    if calibrate:
+        tokens, stats = tokens
+        return wan_dit_head(params, cfg, tokens, e, grid), stats
     return wan_dit_head(params, cfg, tokens, e, grid)

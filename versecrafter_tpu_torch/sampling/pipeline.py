@@ -6,11 +6,14 @@ and the VAE decode, with the JAX pipeline's runtime accelerations: TeaCache
 the two branches as batch-1 forwards, with separate TeaCache states, gated
 on the host above teacache.TEA_HOST_GATE_ROWS rows), and the streaming VAE
 (models/vae_stream.py) above VAE_STREAM_THRESHOLD voxels, whose decode
-moves chunk N to the host while chunk N+1 decodes.
+moves chunk N to the host while chunk N+1 decodes. quantize_weights stores
+the DiT in int8 or int4 (optionally W8A8 / W4A8 compute,
+utils/quantize.py), one block at a time; merge_lora / unmerge_lora fold a
+LoRA state dict in or out (utils/lora.py).
 
 Not ported yet (each raises NotImplementedError when asked for): MoE
-experts, the device mesh, and the i2v / CLIP / camera / masked-init-video /
-reference-image extras.
+experts (and their act_scales_high), the device mesh, and the i2v / CLIP /
+camera / masked-init-video / reference-image extras.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from versecrafter_tpu_torch.models.wan_dit import (
     wan_dit_head)
 from versecrafter_tpu_torch.sampling import teacache as tc
 from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
+from versecrafter_tpu_torch.utils import lora as lora_utils
 from versecrafter_tpu_torch.utils import prng
+from versecrafter_tpu_torch.utils import quantize as qz
 from versecrafter_tpu_torch.utils.tokenizer import load_tokenizer
 
 
@@ -147,6 +152,58 @@ class VerseCrafterPipeline:
         from versecrafter_tpu_torch.models import wan_dit
         wan_dit.INT8_QK_SCORE = bool(enabled)
 
+    def quantize_weights(self, int8_compute: bool = False, act_scales=None,
+                         bits: int = 8, act_scales_high=None, int8_sites=None):
+        """Stores the DiT's big kernels as int8 (bits 8, per-channel scales)
+        or nibble-packed int4 (bits 4, 128-row group scales); the denoise
+        step dequantizes the non-block parts to their recorded dtype and
+        each block's storage-only kernels as it runs them.
+
+        int8_compute additionally runs the block matmuls (utils/quantize
+        COMPUTE_SITES, filtered by the substrings of `int8_sites`) as
+        s8 x s8 -> s32 products: W8A8, or W4A8 with bits 4, whose scales
+        are then per channel. Activation scales are dynamic per row, or the
+        calibrated per-tensor `act_scales` of fit_act_scales.
+
+        The tree is rebuilt one block at a time, so a bf16 block is dropped
+        as soon as its quantized copy exists (unless the caller still holds
+        the old tree)."""
+        if act_scales_high is not None:
+            raise NotImplementedError(
+                "act_scales_high belongs to the Wan2.2 high-noise expert, which is "
+                "not ported yet (ROADMAP queue 1, item 8)")
+        gs = 0 if (bits == 4 and int8_compute) else None
+        old = self.dit_params
+        p = qz.quantize_tree({k: v for k, v in old.items() if not isinstance(v, list)},
+                             bits=bits, group_size=gs)
+        if int8_compute:
+            p = qz.tag_int8_compute(p, act_scales, sites=int8_sites)
+        lists = {k: list(v) for k, v in old.items() if isinstance(v, list)}
+        # from here on the pipeline holds the new lists only, each block
+        # replaced in turn (a partly quantized tree still runs)
+        self.dit_params = {**p, **lists}
+        del old
+        for key, blocks in lists.items():
+            for i in range(len(blocks)):
+                blk = qz.quantize_block(blocks[i], key, len(blocks), bits, gs)
+                if int8_compute:
+                    blk = qz.tag_block(blk, key, i, len(blocks), act_scales, int8_sites)
+                blocks[i] = blk
+
+    def merge_lora(self, lora_sd, weight: float = 1.0):
+        """Folds weight * (up @ down)^T of each LoRA pair into the DiT."""
+        self.dit_params = lora_utils.merge_lora(self.dit_params, lora_sd, weight)
+
+    def unmerge_lora(self, lora_sd, weight: float = 1.0):
+        self.dit_params = lora_utils.unmerge_lora(self.dit_params, lora_sd, weight)
+
+    def dit_params_for_step(self):
+        """The DiT tree a step runs: the non-block parts of a quantized tree
+        dequantized to their recorded dtype (the blocks' kernels are
+        dequantized, or run W8A8, block by block)."""
+        return {k: (v if isinstance(v, list) else qz.dequantize_tree(v))
+                for k, v in self.dit_params.items()}
+
     def enable_riflex(self, k: int, L_test: int, L_test_scale: Optional[float] = None):
         """RIFLEx: the temporal RoPE table's frequency k-1 set for
         extrapolation to L_test latent frames."""
@@ -242,7 +299,7 @@ class VerseCrafterPipeline:
             x, g, ctx = latents, geoada_context, context[context.shape[0] // 2:]
         tvec = torch.full((x.shape[0],), float(t), dtype=torch.float32,
                           device=self.device)
-        p, cfg = self.dit_params, self.dit_cfg
+        p, cfg = self.dit_params_for_step(), self.dit_cfg
         tokens, e, e0, ctx_e, grid = wan_dit_embed(p, cfg, x, tvec, ctx)
         gtok = geoada_patch_embedding(p, cfg, g) if cfg.has_geoadapter else None
         cos, sin = cos.to(x.device), sin.to(x.device)
@@ -503,7 +560,8 @@ class Denoiser:
         e0_host = None
         if self.host_gated:
             tvec = torch.full((batch,), t, dtype=torch.float32, device=pipe.device)
-            e0_host = wan_dit_e0(pipe.dit_params, pipe.dit_cfg, tvec)[1].cpu().numpy()
+            e0_host = wan_dit_e0(pipe.dit_params_for_step(), pipe.dit_cfg,
+                                 tvec)[1].cpu().numpy()
 
         def evaluate(name, ctx, batched):
             blocks = (None if not self.tea else

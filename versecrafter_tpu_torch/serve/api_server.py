@@ -249,9 +249,12 @@ class ApiServer:
 
     def _build_subprocess_argv(self, params: dict) -> list:
         """A generate request -> the generate CLI's command line (tier 3):
-        the params that have a flag, TeaCache pinned off unless the request
-        sets it (the CLI's default is 0.10), --device, then
+        the params that have a flag (a quantize mode as --quantize_int8
+        --quantize_bits N, with --int8_compute), TeaCache pinned off unless
+        the request sets it (the CLI's default is 0.10), --device, then
         subprocess_model_args."""
+        from versecrafter_tpu_torch.serve.model_server import _requested_quant_mode
+
         argv = [sys.executable, "-m", "versecrafter_tpu_torch.cli.inference",
                 "--rendering_maps_path", params["rendering_maps_path"],
                 "--prompt", str(params.get("prompt", "")),
@@ -271,6 +274,11 @@ class ApiServer:
             argv += ["--teacache_threshold", "0"]
         if params.get("int8_attention"):
             argv.append("--int8_attention")
+        qmode = _requested_quant_mode(params)
+        if qmode is not None:  # the CLI quantizes only with --quantize_int8
+            argv += ["--quantize_int8", "--quantize_bits", str(qmode[0])]
+            if qmode[1]:
+                argv.append("--int8_compute")
         argv += ["--device", str(self.device or "cuda")]
         return argv + self.subprocess_model_args
 

@@ -43,7 +43,6 @@ from versecrafter_tpu_torch.serve.tasks import COMPLETED, FAILED, RUNNING, TaskR
 CONTROL_NAMES = ["background_RGB.mp4", "background_depth.mp4",
                  "3D_gaussian_RGB.mp4", "3D_gaussian_depth.mp4"]
 STAGED = "(ROADMAP queue 1, item 6: staged residency)"
-QUANTIZE = "(ROADMAP queue 1, item 7: quantization and LoRA)"
 MESH = "(ROADMAP queue 1, item 11: parallelism)"
 
 
@@ -136,8 +135,13 @@ def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
     int8 QK^T scoring, `teacache_threshold` (with `teacache_skip_start`,
     default 5, and `teacache_coefficients`, default the pipeline's) TeaCache
     and `cfg_skip_ratio` cfg-skip for this request; the previous settings
-    are restored afterwards, also when the request raises. Quantization
-    params (as the JAX server reads them) raise NotImplementedError."""
+    are restored afterwards, also when the request raises.
+
+    `quantize_int8` / `int8_compute` / `quantize_bits` (_requested_quant_mode)
+    quantize the resident DiT on the first request that asks; the mode then
+    stays for the pipeline's life (the weights are rewritten), and a request
+    for another mode raises ValueError. Every param is applied inside the
+    try, so a raising request leaves no toggle behind."""
     from versecrafter_tpu_torch.models import wan_dit
 
     h = int(params.get("height", 480))
@@ -156,14 +160,31 @@ def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
                                                          pipe.teacache_coefficients))
         if "cfg_skip_ratio" in params:
             pipe.enable_cfg_skip(float(params["cfg_skip_ratio"]))
-        if params.get("quantize_int8") or params.get("int8_compute") or "quantize_bits" in params:
-            raise NotImplementedError(
-                f"request quantization params are not ported yet {QUANTIZE}")
+        qmode = _requested_quant_mode(params)
+        if qmode is not None:
+            resident = getattr(pipe, "_quantized", None)
+            if resident is None:
+                pipe.quantize_weights(int8_compute=qmode[1], bits=qmode[0])
+                pipe._quantized = qmode
+            elif resident != qmode:
+                raise ValueError(
+                    f"pipeline already quantized as {resident} (bits, int8_compute); "
+                    f"cannot re-quantize as {qmode}")
         return _call_pipe(pipe, params, controls, mask, h, w, n, progress)
     finally:
         (pipe.teacache_threshold, pipe.teacache_skip_start,
          pipe.teacache_coefficients, pipe.cfg_skip_ratio) = saved
         wan_dit.INT8_QK_SCORE = saved_int8_attn
+
+
+def _requested_quant_mode(params):
+    """(bits, int8_compute) a request asks for, or None. quantize_bits alone
+    means weight quantization (a bare {"quantize_bits": 4} must not run
+    bf16)."""
+    if not (params.get("quantize_int8") or params.get("int8_compute")
+            or "quantize_bits" in params):
+        return None
+    return int(params.get("quantize_bits", 8)), bool(params.get("int8_compute"))
 
 
 def load_request_inputs(params: dict):
@@ -211,7 +232,7 @@ def run_generate_request(pipe, params: dict, progress=None,
     """One generate request: load_request_inputs, then run_loaded_request
     (uint8 frames [B, T, H, W, 3]). Shared by the model server, the API
     server's in-process tier and the generate CLI. Staged residency raises
-    NotImplementedError, as do quantization params (run_loaded_request)."""
+    NotImplementedError."""
     if staged_factories is not None:
         raise NotImplementedError(f"staged weight residency is not ported yet {STAGED}")
     controls, mask = load_request_inputs(params)
@@ -263,30 +284,35 @@ class ModelServer:
             return self._pipeline
 
     def _work_loop(self):
+        while True:
+            self._run_task(*self.queue.get())
+
+    def _run_task(self, task_id: str, params: dict):
+        """One queued request. Its references to the pipeline and the frames
+        end when it returns, so an /unload while the worker waits for the
+        next request frees the device memory."""
         from versecrafter_tpu_torch.utils.profiling import StepTimer
 
-        while True:
-            task_id, params = self.queue.get()
-            try:
-                self.tasks.update(task_id, status=RUNNING, message="loading model")
-                pipe = self._get_pipeline()
-                self.tasks.update(task_id, status=RUNNING, message="generating")
-                timer = StepTimer()
+        try:
+            self.tasks.update(task_id, status=RUNNING, message="loading model")
+            pipe = self._get_pipeline()
+            self.tasks.update(task_id, status=RUNNING, message="generating")
+            timer = StepTimer()
 
-                def progress(i, n):
-                    timer.tick(i, n)
-                    self.tasks.update(task_id, progress=int(100 * i / n),
-                                      message=f"step {i}/{n}")
+            def progress(i, n):
+                timer.tick(i, n)
+                self.tasks.update(task_id, progress=int(100 * i / n),
+                                  message=f"step {i}/{n}")
 
-                video = self._generate(pipe, params, progress)
-                self.last_step_stats = timer.summary()
-                self.last_wall_profile = dict(getattr(pipe, "last_wall_profile", {}))
-                out_path = self._save(video, params)
-                self.tasks.update(task_id, status=COMPLETED, progress=100,
-                                  result={"video_path": out_path})
-            except Exception as e:  # noqa: BLE001 — task boundary
-                self.tasks.update(task_id, status=FAILED, error=str(e),
-                                  message=traceback.format_exc()[-2000:])
+            video = self._generate(pipe, params, progress)
+            self.last_step_stats = timer.summary()
+            self.last_wall_profile = dict(getattr(pipe, "last_wall_profile", {}))
+            out_path = self._save(video, params)
+            self.tasks.update(task_id, status=COMPLETED, progress=100,
+                              result={"video_path": out_path})
+        except Exception as e:  # noqa: BLE001 — task boundary
+            self.tasks.update(task_id, status=FAILED, error=str(e),
+                              message=traceback.format_exc()[-2000:])
 
     def _generate(self, pipe, params: dict, progress):
         return run_generate_request(pipe, params, progress)
