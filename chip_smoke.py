@@ -70,7 +70,9 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      schedule, 60 launches per evaluation that ran the blocks, stage split,
      peak memory), one timed CFG-2 step under torch.profiler and the same
      step as sequential CFG held to it (twice the noise floor, in max error
-     and in correlation);
+     and in correlation), both steps' peaks printed beside the earlier
+     measurements with and without the FFN hidden held through the
+     residual (fault F1);
   8. the front door: phase 3's pipeline written by this script's own
      inverse mapping as a reference-layout model directory under a
      temporary directory (config.json, the DiT and the GeoAdapter as two
@@ -113,7 +115,26 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      the unmerged leaves' distance from the base in bf16 ulps. Its 14B part
      runs at the end of phase 7, on the resident 14B pipeline: quantized in
      place to W8A8, resident bytes, a warm-up and two timed CFG-2 steps
-     with their peak, the first GeoAdapter superstep against the CPU.
+     with their peak, the first GeoAdapter superstep against the CPU;
+ 10. the render -> generate workflow (the Blender add-on's postprocess): a
+     seeded synthetic scene (geometry/synthetic.py: a 480x832 image and
+     depth, four object masks carving the background through the port's
+     dilate, an 81-frame camera trajectory that moves and yaws, four moving
+     Gaussians, one absent for a third of the clip, one passing behind the
+     camera, one leaving the image) rendered by geometry/render.py on the
+     card at 96x160x9 and held to the same code on the CPU (merged_mask
+     equal on 99.9 % of its pixels, the other streams within one code on all
+     but 0.1 % of their values: the CPU tests' bars against the JAX
+     package), then at 480x832x81 (frame_batch 27): device and wall
+     seconds, frames per second, seconds by stage (CUDA events), peak
+     memory, a bit-identical rerun, each stream's shape, the Gaussians
+     drawn in every frame where one is present, in front and on screen; one
+     27-frame batch under torch.profiler (device time by kernel, idle
+     share); then the six streams as a generate request (the way
+     load_request_inputs makes them from decoded frames) served on phase
+     3's 1.3B pipeline through run_loaded_request at 480x832x81, 3 steps,
+     CFG 5: 45 launches a step per fused flavor, its stage split beside the
+     render's wall time.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -196,6 +217,19 @@ QUANT_MODES = (("int8", 8, False, False), ("int4", 4, False, False),
                ("W8A8 dynamic", 8, True, False), ("W8A8 static", 8, True, True),
                ("W4A8", 4, True, False))
 FFN_14B = (65520, 5120, 13824)
+# phase 10: the renderer's scene (height, width, frames; seed), the small
+# size at which the card's render is held to the CPU's, and the bars (the
+# CPU tests' bars against the JAX package)
+RENDER_SIZE = (480, 832, 81)
+RENDER_SMALL = (96, 160, 9)
+RENDER_SEED = 21
+MASK_AGREE = 0.999  # merged_mask: share of pixels equal
+BEYOND_ONE_CODE = 1e-3  # other streams: share of values more than one code apart
+# F1: the 14B CFG-2 step's peak in GiB as measured before the FFN hidden
+# was held through the residual, while it was, and the repaired bar; the
+# sequential step's extra peak, the same two ways
+PEAK_14B = (62.49, 63.57, 62.6)
+SEQ_EXTRA_14B = (5.04, 5.57)
 PRODUCT_CHECK_ROWS = 1024
 LORA_RANK = 16
 LORA_WEIGHT = 0.55
@@ -800,9 +834,10 @@ def profile_step(step, step_ms, card, top=15):
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     if busy_ms == 0.0:
         raise AssertionError("the profiler recorded no device time")
+    copy_ms = sum(us for name, (_, us) in by_name.items() if name.startswith("Memcpy")) / 1e3
     log(f"[profile] one step under torch.profiler: device busy {busy_ms:.1f} ms "
-        f"(profiled wall {wall_ms:.1f} ms); idle share of the {step_ms:.1f} ms "
-        f"unprofiled step {1 - busy_ms / step_ms:.4f} on {card}")
+        f"(copies {copy_ms:.1f} ms of it; profiled wall {wall_ms:.1f} ms); idle share of "
+        f"the {step_ms:.1f} ms unprofiled step {1 - busy_ms / step_ms:.4f} on {card}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {us / 1e3:9.1f} ms {100 * us / 1e3 / busy_ms:5.1f}% x{n:<4d} {name[:100]}")
     return 1 - busy_ms / step_ms
@@ -1252,7 +1287,7 @@ def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2):
     """The CFG-2 step as sequential CFG (two batch-1 forwards, the positive
     prompt's and then the negative one's, combined): `reps` timed runs and
     the peak memory above what was allocated before; returns the
-    prediction."""
+    prediction and that peak in GiB."""
     from versecrafter_tpu_torch.sampling.pipeline import Denoiser
     pipe.cfg_parallel = False
     try:
@@ -1268,10 +1303,10 @@ def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2):
             times.append((time.perf_counter() - t1) * 1e3)
     finally:
         pipe.cfg_parallel = True
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30
     log(f"[{tag}] sequential-CFG step: {' '.join(f'{t:.1f}' for t in times)} ms on {card}; "
-        f"peak +{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
-        f"{base / 2**30:.2f} GiB allocated before it")
-    return pred
+        f"peak +{extra:.2f} GiB above the {base / 2**30:.2f} GiB allocated before it")
+    return pred, extra
 
 
 def dit_subtree(params, cfg, base_blocks, geoada_blocks):
@@ -1361,7 +1396,11 @@ def flagship_phase(fa, fab, ms, dev, card, records):
 
     torch.cuda.reset_peak_memory_stats()
     base, _, _ = timed_step(step, "14B default path", card, tag="14b")
-    log(f"[14b] peak over the timed steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[14b] peak over the timed steps {peak:.2f} GiB (F1: {PEAK_14B[0]} before the "
+        f"FFN hidden was held through the residual, {PEAK_14B[1]} while it was; the "
+        f"repair's bar {PEAK_14B[2]}: "
+        f"{'met' if peak <= PEAK_14B[2] else 'NOT met'}) on {card}")
     lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
     moved = pipe.denoise_step(lat_p, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
     floor = compare("14B step at latents x (1 + 2^-8) vs 14B step (noise floor)", moved, base)
@@ -1370,7 +1409,9 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     # below correlation 0.999, so a bar of 0.999 would fail on any rounding
     corr_bar = min(0.999, 1.0 - 2.0 * (1.0 - correlation(moved, base)))
     del lat_p, moved
-    seq = sequential_step(pipe, lat, ctx, geo, cos, sin, "14b", card)
+    seq, extra = sequential_step(pipe, lat, ctx, geo, cos, sin, "14b", card)
+    log(f"[14b] F1: the sequential-CFG step's extra peak +{extra:.2f} GiB (before "
+        f"+{SEQ_EXTRA_14B[0]}, with the hidden held +{SEQ_EXTRA_14B[1]})")
     compare("14B sequential-CFG step vs batched", seq, base, corr_bar=corr_bar,
             err_bar=2 * floor)
     del seq
@@ -2117,6 +2158,190 @@ def quant_14b(pipe, step, bf16_pred, card):
     log(f"[14b-w8a8] {time.perf_counter() - t0:.1f} s")
 
 
+def render_inputs(h, w, n, seed):
+    """Phase 10's seeded scene (geometry/synthetic.py) and the arguments of
+    render_control_maps for it: the background carved by the dilated
+    object masks (no cv2 here: the port's own dilate), the OpenCV
+    world-to-camera trajectory, the Gaussians and their colours."""
+    from versecrafter_tpu_torch.geometry.coords import blender_c2w_to_opencv_w2c
+    from versecrafter_tpu_torch.geometry.pointcloud import build_background
+    from versecrafter_tpu_torch.geometry.splat import TAB20
+    from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
+    s = synthetic_scene(h, w, n, seed)
+    pts, cols = build_background(s["image"], s["depth"], s["K"],
+                                 s["masks"].any(0).astype(np.uint8))
+    return s, (pts, cols, s["K"], blender_c2w_to_opencv_w2c(s["c2w_blender"]), s["means"],
+               s["covs"], s["present"], TAB20[s["color_idx"]], (h, w))
+
+
+def maps_agree(tag, got, want):
+    """Holds two renders' uint8 streams to the CPU tests' bars (merged_mask
+    equal on MASK_AGREE of its pixels, every other stream within one code
+    on all but BEYOND_ONE_CODE of its values); logs the figures."""
+    for name in want:
+        d = np.abs(got[name].astype(np.int16) - want[name].astype(np.int16))
+        differ, beyond = float((d > 0).any(-1).mean()), float((d > 1).mean())
+        ok = (1 - differ >= MASK_AGREE) if name == "merged_mask" else beyond <= BEYOND_ONE_CODE
+        log(f"  {tag} {name}: {differ:.3e} of pixels differ, {beyond:.3e} of values by "
+            f"more than one code {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {name} outside its bar")
+
+
+def visible_objects(scene, w2c):
+    """[T] bool: frames where some Gaussian is present, in front of the
+    camera (depth > 0.5, the projection's own cut) and projects its centre
+    inside the image."""
+    h, w = scene["depth"].shape
+    K = scene["K"]
+    pc = np.einsum("tij,tkj->tki", w2c[:, :3, :3].astype(np.float64),
+                   scene["means"].astype(np.float64)) + w2c[:, None, :3, 3]
+    z = pc[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = K[0, 0] * pc[..., 0] / z + K[0, 2]
+        v = K[1, 1] * pc[..., 1] / z + K[1, 2]
+    return (scene["present"] & (z > 0.5) & (u >= 0) & (u < w) & (v >= 0) & (v < h)).any(1)
+
+
+def maps_to_request(maps, image):
+    """The six rendered streams as a generate request's inputs, the way
+    load_request_inputs makes them from decoded frames: the four control
+    clips [1, 3, T, H, W] in [0, 1], merged_mask's first channel with frame
+    0 zeroed, the input image over control 0's frame 0."""
+    from versecrafter_tpu_torch.serve.model_server import CONTROL_NAMES
+
+    def clip(name):
+        return np.ascontiguousarray(
+            (maps[name].astype(np.float32) / 255.0).transpose(3, 0, 1, 2)[None])
+    controls = [clip(name[:-len(".mp4")]) for name in CONTROL_NAMES]
+    mask = np.ascontiguousarray(clip("merged_mask")[:, :1])
+    mask[:, :, 0] = 0.0
+    controls[0][:, :, 0] = image.astype(np.float32).transpose(2, 0, 1) / 255.0
+    return controls, mask
+
+
+def copy_rates(stream, dev, card, reps=3):
+    """Whether a pinned copy would pay: logs the rate (GB/s, best of
+    `reps`) of one rendered uint8 stream copied from the card into pageable
+    numpy memory (as render_control_maps copies) and into page-locked
+    memory."""
+    x = torch.from_numpy(stream).to(dev)
+    pageable = np.empty(stream.shape, np.uint8)
+    pinned = torch.empty(stream.shape, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for label, dst in (("pageable", torch.from_numpy(pageable)), ("pinned", pinned)):
+        best = math.inf
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dst.copy_(x)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        rates[label] = x.numel() / best / 1e9
+    log(f"[render] device -> host copy of one {x.numel() / 1e6:.1f} MB stream: pageable "
+        f"{rates['pageable']:.2f} GB/s, pinned {rates['pinned']:.2f} GB/s on {card}")
+
+
+def workflow_phase(fa, fab, ms, dev, card):
+    """Phase 10: the render -> generate workflow of the Blender add-on's
+    postprocess. The renderer on the card against the same code on the CPU
+    at RENDER_SMALL; at 480x832x81 (frame_batch 27) its time split, stages,
+    peak and a bit-identical rerun, each stream's shape and the Gaussians
+    in every frame that shows one; one 27-frame batch under torch.profiler;
+    then the six streams as a 3-step request on phase 3's 1.3B pipeline
+    through run_loaded_request (45 launches a step per fused flavor).
+    Returns the request's launches."""
+    from versecrafter_tpu_torch.geometry import render as tr
+    from versecrafter_tpu_torch.serve.model_server import run_loaded_request
+    t0 = time.perf_counter()
+    log(f"[render] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase")
+    _, small = render_inputs(*RENDER_SMALL, RENDER_SEED)
+    t1 = time.perf_counter()
+    on_card = tr.render_control_maps(*small, frame_batch=4, device=dev)
+    t2 = time.perf_counter()
+    on_cpu = tr.render_control_maps(*small, frame_batch=4, device="cpu")
+    log(f"[render] {'x'.join(map(str, RENDER_SMALL))} on the card ({t2 - t1:.2f} s, the "
+        f"first call) against the CPU ({time.perf_counter() - t2:.2f} s):")
+    maps_agree("card vs CPU", on_card, on_cpu)
+
+    h, w, n = RENDER_SIZE
+    t1 = time.perf_counter()
+    scene, args = render_inputs(h, w, n, RENDER_SEED)
+    log(f"[render] scene {h}x{w}x{n}: {len(args[0])} background points of {h * w} pixels, "
+        f"{scene['means'].shape[1]} Gaussians, present in {int(scene['present'].sum())} of "
+        f"{scene['present'].size} slots; host set-up {time.perf_counter() - t1:.2f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    maps = tr.render_control_maps(*args, device=dev)
+    first = dict(tr.last_render_profile)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    again = tr.render_control_maps(*args, device=dev)
+    prof = dict(tr.last_render_profile)
+    same = all(np.array_equal(maps[k], again[k]) for k in maps)
+    del again
+    for label, p in (("first call", first), ("second call", prof)):
+        log(f"[render] {h}x{w}x{n}, frame_batch 27, {label}: device {p['device_s']:.4f} s "
+            f"({p['device_fps']:.2f} frames/s), download {p['download_s']:.4f} s, wall "
+            f"{p['wall_s']:.4f} s; by stage (CUDA events) "
+            f"{ {k: round(v, 5) for k, v in p['stages_s'].items()} } on {card}")
+    log(f"[render] peak {peak:.3f} GiB above the {base / 2**30:.2f} GiB allocated before it; "
+        f"depth range {prof['depth_range']}; the rerun's streams are bit-identical: {same}")
+    if not same:
+        raise AssertionError("a rerun of the render gave other streams")
+    for name, v in maps.items():
+        if v.shape != (n, h, w, 3) or v.dtype != np.uint8:
+            raise AssertionError(f"{name}: {v.shape} {v.dtype}")
+    shown = visible_objects(scene, args[3])
+    drawn = maps["3D_gaussian_RGB"].any(-1).any((1, 2))
+    log(f"[render] frames with a Gaussian present, in front and on screen: {int(shown.sum())} "
+        f"of {n}; of those with Gaussian pixels: {int((shown & drawn).sum())}")
+    if (shown & ~drawn).any() or shown.sum() == 0:
+        raise AssertionError(f"frames {np.nonzero(shown & ~drawn)[0].tolist()} lack their Gaussians")
+
+    # one batch of 27 frames: device time by kernel, idle share
+    batch = args[:3] + tuple(a[:27] for a in args[3:7]) + args[7:]
+    tr.render_control_maps(*batch, device=dev)
+    t1 = time.perf_counter()
+    tr.render_control_maps(*batch, device=dev)
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    log(f"[render] one 27-frame batch: {batch_ms:.2f} ms wall on {card}")
+    profile_step(lambda: tr.render_control_maps(*batch, device=dev), batch_ms, card, top=12)
+    copy_rates(maps["background_RGB"], dev, card)
+
+    # the workflow's generate: the rendered maps as phase 3's request
+    pipe = build_pipeline(dev)
+    controls, mask = maps_to_request(maps, scene["image"])
+    if any(c.shape != (1, 3, n, h, w) for c in controls) or mask.shape != (1, 1, n, h, w):
+        raise AssertionError(f"request inputs {[c.shape for c in controls]} {mask.shape}")
+    del maps
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    t1 = time.perf_counter()
+    video = run_loaded_request(pipe, {"prompt": "a red car drives left", "negative_prompt":
+                                      "blurry", "num_inference_steps": STEPS,
+                                      "guidance_scale": 5.0, "seed": 13, "height": h,
+                                      "width": w, "num_frames": n}, controls, mask)
+    dt = time.perf_counter() - t1
+    counts = dict(fa.LAUNCHES)
+    split = {k: round(v, 3) for k, v in pipe.last_wall_profile.items()}
+    log(f"[workflow] request {video.shape} {video.dtype} in {dt:.2f} s {split} launches "
+        f"{counts}; render {prof['wall_s']:.3f} s wall + request {dt:.2f} s = "
+        f"{prof['wall_s'] + dt:.2f} s render -> generate on {card}")
+    want = {"fused_rope_rms_attention": 45 * STEPS, "fused_rope_rms_attention_int8": 0,
+            "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
+    if counts != want or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values()):
+        raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    del pipe, controls, mask, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[workflow] phase 10 {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2304,7 +2529,7 @@ def main() -> int:
     floor = compare("step at latents x (1 + 2^-8) vs step (noise floor)",
                     pipe.denoise_step(lat_p, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True), pred)
     del lat_p
-    seq = sequential_step(pipe, lat, ctx, geo, cos, sin, "step", card)
+    seq, _ = sequential_step(pipe, lat, ctx, geo, cos, sin, "step", card)
     compare("sequential-CFG step vs batched", seq, pred, corr_bar=0.999, err_bar=2 * floor)
     del pipe, lat, geo, ctx, pred, seq
     gc.collect()
@@ -2335,6 +2560,10 @@ def main() -> int:
 
     # -- 9. quantization and LoRA (the 14B part ran inside phase 7) --------
     for k_, v in quant_phase(fa, fab, ms, dev, card, bf16_step).items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
+
+    # -- 10. the render -> generate workflow -----------------------------------
+    for k_, v in workflow_phase(fa, fab, ms, dev, card).items():
         launches_main[k_] = launches_main.get(k_, 0) + v
 
     if failures:

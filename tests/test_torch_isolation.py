@@ -71,7 +71,9 @@ def test_the_port_imports_without_cv2_safetensors_transformers():
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
     for name in ("core.convert", "core.checkpoint", "serve.api_server", "serve.http",
-                 "serve.tasks", "utils.video", "utils.profiling", "cli.inference"):
+                 "serve.tasks", "utils.video", "utils.profiling", "cli.inference",
+                 "geometry.pointcloud", "geometry.gaussians", "geometry.render",
+                 "cli.render_maps", "cli.fit_gaussian"):
         assert f"versecrafter_tpu_torch.{name}" in names
 
 

@@ -2,8 +2,8 @@
 port's ModelServer serving a request by the mp4 map contract against the
 JAX package's run_generate_request on the same weights; the ApiServer's
 uploads, downloads and path guard, its model-server, in-process and
-subprocess tiers; the generate CLI; and the tasks that wait for unported
-slices."""
+subprocess tiers; the render and workflow tasks; the generate CLI; and the
+tasks and flags that wait for unported slices."""
 
 import base64
 import dataclasses
@@ -22,7 +22,9 @@ import torch
 from test_torch_convert import _port, _randomized_dit, _init
 from test_torch_pipeline import DIT_CFG, T5_CFG, VAE_CFG
 from test_torch_video_io import _maps
+from test_torch_render import write_scene_files
 from versecrafter_tpu.sampling import pipeline as jpipe
+from versecrafter_tpu.serve import api_server as japi
 from versecrafter_tpu.serve import model_server as jserve
 from versecrafter_tpu.utils import video as jvideo
 from versecrafter_tpu_torch.cli import inference as tinf
@@ -34,6 +36,7 @@ from versecrafter_tpu_torch.models import wan_dit as twan
 from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.serve import api_server as tapi
 from versecrafter_tpu_torch.serve import model_server as tserve
+from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
 from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
 
@@ -360,17 +363,69 @@ def test_subprocess_tier_runs_the_cli(workdir):
     assert video.shape == (1, 3, 5, 16, 16)
 
 
-@pytest.mark.parametrize("kind,items", [("preprocess", "items 9 and 10"),
-                                        ("render", "item 9"), ("workflow", "item 9")])
+@pytest.mark.parametrize("kind,items", [("preprocess", "item 10")])
 def test_unported_stages_fail_naming_their_items(api, kind, items):
     _, url = api
     task = _call(f"{url}/api/{kind}", "POST", {"image": "input.png"})[1]["task_id"]
     st, _ = _wait(f"{url}/api/status/{task}")
     assert st["status"] == "FAILED"
     assert st["error"].startswith("NotImplementedError") and items in st["error"]
-    if kind == "preprocess":
-        status, body = _call(f"{url}/api/preprocess_sync", "POST", {"image": "input.png"})
-        assert status == 500 and items in body["error"]
+    status, body = _call(f"{url}/api/preprocess_sync", "POST", {"image": "input.png"})
+    assert status == 500 and items in body["error"]
+
+
+@pytest.fixture(scope="module")
+def render_request(workdir):
+    """A render request on a seeded 16x32 scene of N frames written into the
+    workdir (paths relative to it, as the Blender add-on uploads them)."""
+    scene = synthetic_scene(16, 32, N, seed=4)
+    paths = write_scene_files(scene, str(workdir / "scene"))
+    return {k: os.path.relpath(v, str(workdir)) for k, v in paths.items()}
+
+
+def test_api_render_then_workflow(api, workdir, render_request, monkeypatch):
+    """/api/render gives the JAX server's result keys and six N-frame mp4s;
+    /api/workflow renders, mirrors progress 50, then generates from the
+    rendered maps on the model-server tier; a path outside the workdir is
+    refused."""
+    server, url = api
+    req = {**render_request, "output_dir": "rendered"}
+    task = _call(f"{url}/api/render", "POST", req)[1]["task_id"]
+    st, _ = _wait(f"{url}/api/status/{task}")
+    assert st["status"] == "COMPLETED", st
+    want = japi.ApiServer(workdir=str(workdir))
+    jt = want.tasks.create("render")
+    want.run_render(jt.task_id, {**req, "output_dir": "rendered_jax"})
+    jres = want.tasks.get(jt.task_id)
+    assert jres["status"] == "COMPLETED", jres
+    res = st["result"]
+    assert set(res) == set(jres["result"]) and res["output_dir"] == "rendered"
+    assert sorted(res["videos"]) == sorted(jres["result"]["videos"])
+    for name, rel in res["videos"].items():
+        assert rel == os.path.join("rendered", f"{name}.mp4")
+        assert jvideo.load_video(str(workdir / rel)).shape == (1, 3, N, 16, 32)
+
+    updates = []  # every progress the workflow's task is given (polls can miss one)
+    update = server.tasks.update
+
+    def recording(task_id, **kw):
+        updates.append((task_id, kw.get("progress")))
+        return update(task_id, **kw)
+    monkeypatch.setattr(server.tasks, "update", recording)
+    task = _call(f"{url}/api/workflow", "POST", {
+        **render_request, **REQUEST, "output_dir": "workflow_maps",
+        "input_image_path": render_request["image"]})[1]["task_id"]
+    st, _ = _wait(f"{url}/api/status/{task}")
+    assert st["status"] == "COMPLETED", st
+    progress = [p for t, p in updates if t == task and p is not None]
+    assert progress[:3] == [5, 100, 50] and progress[-1] == 100  # render, then generate
+    assert jvideo.load_video(str(workdir / st["result"]["video_path"])).shape == (1, 3, N, H, W)
+    assert os.path.isfile(workdir / "workflow_maps" / "merged_mask.mp4")
+
+    task = _call(f"{url}/api/render_get?image=/etc/passwd&depth_npz=x&trajectory_npz=y"
+                 f"&ellipsoid_json=z")[1]["task_id"]
+    st, _ = _wait(f"{url}/api/status/{task}")
+    assert st["status"] == "FAILED" and "escapes workdir" in st["error"]
 
 
 def test_cli_in_process(workdir, capsys):
@@ -401,12 +456,26 @@ def test_cli_unported_flags_raise(flags, item):
 
 @pytest.mark.parametrize("flags,item", [(["--tp", "2"], "item 11"),
                                         (["--auto_mesh"], "item 11"),
-                                        (["--staged"], "item 6")])
+                                        (["--staged"], "item 6"),
+                                        (["--staged", "--staged_scale", "1.3b"], "item 6"),
+                                        (["--staged", "--quantize_bits", "8"], "item 6"),
+                                        (["--staged_scale", "tiny", "--quantize_bits", "8",
+                                          "--tp", "2"], "item 11")])
 def test_model_server_unported_flags_raise(flags, item):
+    """The JAX model server's flags parse; --staged_scale and
+    --quantize_bits act only under --staged, as there (the last case gets
+    past them to --tp)."""
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="item 6"):
         tserve.ModelServer(lambda: None, staged_factories=object())
+
+
+def test_api_server_auto_mesh_raises():
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tapi.main(["--device", "cpu", "--auto_mesh"])
+    with pytest.raises(SystemExit):  # choices as in the JAX parser
+        tserve.main(["--device", "cpu", "--quantize_bits", "2"])
 
 
 def test_entry_points_default_to_cuda():

@@ -322,6 +322,9 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
             calib["ffn_in/kernel"] = _amax(tmp)
             calib["ffn_out/kernel"] = _amax(h)
         y = _linear(p["ffn_out"], h)
+        # the [rows, ffn_dim] hidden (1.69 GiB at the 14B's 65,520 rows)
+        # must not stay alive through the fp32 residual below
+        del h
     return (x.float() + y.float() * e[:, 5][:, None]).to(dtype)
 
 

@@ -13,10 +13,12 @@ A generate request is dispatched by one of three tiers:
 
 Endpoints:
   POST/GET /api/generate[_get]    control maps -> video
-  POST/GET /api/preprocess[_get], /api/render[_get], POST /api/workflow,
-           POST /api/preprocess_sync: their tasks end FAILED until the
-           perception and renderer slices are ported (ROADMAP queue 1,
-           items 9 and 10)
+  POST/GET /api/render[_get]      trajectories -> the six control videos
+                                  (geometry/render.py, on `device`)
+  POST     /api/workflow          render, then generate from the rendered maps
+  POST/GET /api/preprocess[_get], POST /api/preprocess_sync: their tasks end
+           FAILED until the perception slice is ported (ROADMAP queue 1,
+           item 10)
   GET      /api/status/<task_id>, /api/tasks
   POST     /api/upload, /api/upload_base64, /api/upload_chunk,
            /api/upload_complete; GET /api/upload_base64[_get]
@@ -53,10 +55,8 @@ from versecrafter_tpu_torch.serve.tasks import (
     COMPLETED, FAILED, RUNNING, ChunkStore, TaskRegistry)
 
 PREPROCESS_NOT_PORTED = (
-    "preprocess (depth, segmentation and the Gaussian fit) needs the perception "
-    "and renderer slices, not ported yet (ROADMAP queue 1, items 9 and 10)")
-RENDER_NOT_PORTED = (
-    "render (the 4D control-map renderer) is not ported yet (ROADMAP queue 1, item 9)")
+    "preprocess (depth and segmentation before the Gaussian fit) needs the "
+    "perception slice, not ported yet (ROADMAP queue 1, item 10)")
 
 
 class ApiServer:
@@ -158,8 +158,29 @@ class ApiServer:
             self._fail(task_id, e)
 
     def run_render(self, task_id: str, params: dict):
+        """The control maps of a request's image, depth npz, masks and
+        trajectories (every path inside the workdir) as six mp4s under
+        `output_dir`; result {"output_dir", "videos"}, relative to the
+        workdir."""
         try:
-            raise NotImplementedError(RENDER_NOT_PORTED)
+            from versecrafter_tpu_torch.geometry.render import render_from_files
+
+            self.tasks.update(task_id, status=RUNNING, progress=5,
+                              message="rendering control maps")
+            out_dir = self.safe_path(params.get("output_dir", "rendering_4D_maps"))
+            paths = render_from_files(
+                png_path=self.safe_path(params["image"]),
+                npz_path=self.safe_path(params["depth_npz"]),
+                mask_dir=self.safe_path(params["mask_dir"]) if params.get("mask_dir") else None,
+                trajectory_npz=self.safe_path(params["trajectory_npz"]),
+                ellipsoid_json=self.safe_path(params["ellipsoid_json"]),
+                output_dir=out_dir,
+                point_size=float(params.get("point_size", 0.005)),
+                fps=int(params.get("fps", 16)),
+                device=self.device)
+            self.tasks.update(task_id, status=COMPLETED, progress=100, result={
+                "output_dir": os.path.relpath(out_dir, self.workdir),
+                "videos": {k: os.path.relpath(v, self.workdir) for k, v in paths.items()}})
         except Exception as e:  # noqa: BLE001 — task boundary
             self._fail(task_id, e)
 
@@ -526,6 +547,7 @@ def main(argv=None):
     p.add_argument("--model_path", default=None,
                    help="reference-layout model directory for the in-process tier")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--auto_mesh", action="store_true", help="not ported yet")
     p.add_argument("--preload_model", action="store_true",
                    help="load the in-process model in the background at start-up "
                         "(progress at /api/model_status)")
@@ -540,7 +562,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from versecrafter_tpu_torch import resolve_device
-    from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
+    from versecrafter_tpu_torch.serve.model_server import (
+        check_ported_serving_flags, default_pipeline_factory)
+    check_ported_serving_flags(args)
     resolve_device(args.device)
     server = ApiServer(workdir=args.workdir,
                        model_server_url=args.model_server_url,

@@ -371,13 +371,16 @@ def build_router(server: ModelServer) -> Router:
 
 
 def check_ported_serving_flags(args) -> None:
-    """The model server's and generate CLI's flags that are not ported
-    raise NotImplementedError naming their ROADMAP item."""
-    if max(args.ulysses_degree, args.ring_degree, args.tp) > 1 or getattr(
-            args, "auto_mesh", False) or getattr(args, "auto_parallel", False):
+    """The servers' and the generate CLI's flags that are not ported raise
+    NotImplementedError naming their ROADMAP item. --staged_scale and
+    --quantize_bits act only under --staged, as in the JAX model server, so
+    without it they are accepted and do nothing."""
+    degrees = [getattr(args, k, 1) for k in ("ulysses_degree", "ring_degree", "tp")]
+    if max(degrees) > 1 or getattr(args, "auto_mesh", False) or getattr(
+            args, "auto_parallel", False):
         raise NotImplementedError(
             f"sequence / tensor parallel serving is not ported yet {MESH}")
-    if args.staged:
+    if getattr(args, "staged", False):
         raise NotImplementedError(f"--staged is not ported yet {STAGED}")
 
 
@@ -396,6 +399,10 @@ def main(argv=None):
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--auto_mesh", action="store_true", help="not ported yet")
     p.add_argument("--staged", action="store_true", help="not ported yet")
+    p.add_argument("--staged_scale", default="14b", choices=["14b", "1.3b", "tiny"],
+                   help="with --staged (not ported yet)")
+    p.add_argument("--quantize_bits", type=int, default=4, choices=(8, 4),
+                   help="with --staged (not ported yet)")
     args = p.parse_args(argv)
     check_ported_serving_flags(args)
     resolve_device(args.device)
