@@ -23,8 +23,8 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      forward and the backward pair at shapes that straddle their tiles and
      CTAs; twenty back-to-back launches of each forward flavor, bit-identical;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
-     pipeline with umT5-xxl and the Wan VAE from random weights serves two
-     generate requests (480x832x81, 3 UniPC steps, CFG 5; the VAE streams
+     pipeline with umT5-xxl and the Wan VAE from random weights serves a
+     generate request (480x832x81, 3 UniPC steps, CFG 5; the VAE streams
      at that size) through the serving mapping; the launch counters must
      read 45 per step per fused flavor, and the DiT on the card must agree
      with the same DiT on the CPU at a small input; one 480x832x81 control
@@ -35,7 +35,7 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      request with TeaCache and cfg-skip (8 steps),
      whose skip schedule must equal the one recomputed here from the
      timesteps' e0 and whose launches must be 45 per evaluation that ran the
-     blocks; the two generate requests' uint8 frames and denoised latents are
+     blocks; the generate request's uint8 frames and denoised latents are
      kept as SHA-256 digests for phase 8;
   4. one timed batched-CFG denoise step at 480x832x81 (the two timed steps'
      predictions must be bit-identical), then the same step under
@@ -72,7 +72,21 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      step as sequential CFG held to it (twice the noise floor, in max error
      and in correlation), both steps' peaks printed beside the earlier
      measurements with and without the FFN hidden held through the
-     residual (fault F1);
+     residual (fault F1); then the Wan2.2 two-expert MoE at Wan2.2-T2V-A14B
+     width (each expert the 14B + GeoAdapter): phase 7's DiT dropped and an
+     expert_swap building the high expert from seed 1 and the low one from
+     seed 0 for one 480x832x81 request on two custom timesteps that
+     straddle the 0.875 boundary (CFG-2 batched; swap calls ["high",
+     "low"], 60 launches of rows 1-2 a step, each build's seconds and the
+     bytes allocated before it, the request's peak at most the single-
+     expert request's + 1 GiB), the same 2-step request at 1.3B width as a
+     resident pair and as an expert swap (latents bit-identical), and after
+     phase 9's W8A8 conversion (and phase 7's pipeline dropped) the resident
+     int8 pair through default_pipeline_factory(moe=True, quantize=(8,
+     True)), which quantizes each expert W8A8 (dynamic scales) before it
+     makes the next (build peak, resident bytes; a pair that does not fit
+     fails), serving the same 2-step request through __call__ (60 launches
+     of rows 1-2 a step, each step's time, the peak);
   8. the front door: phase 3's pipeline written by this script's own
      inverse mapping as a reference-layout model directory under a
      temporary directory (config.json, the DiT and the GeoAdapter as two
@@ -103,11 +117,10 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      back equal); then phase 3's pipeline (bf16 tree kept) in five modes in
      turn (int8, int4 with group scales, W8A8 dynamic, W8A8 static with
      scales from calibrate=True on one 480x832x81 forward, W4A8): resident
-     DiT bytes, a warm-up, two timed CFG-2 steps and a profiled one (idle
-     share), correlation and max error against phase 4's bf16 step (the
-     rebuilt pipeline's bf16 step must equal it bit for bit; reported, no
-     bar: random weights), and its first GeoAdapter superstep within
-     5e-2 * max of the CPU in the same mode at 192 tokens; one 3-step
+     DiT bytes and its first GeoAdapter superstep within 5e-2 * max of the
+     CPU in the same mode at 192 tokens, W4A8 also one timed 480x832x81
+     CFG-2 step against the bf16 step (the rebuilt pipeline's bf16 step
+     must equal phase 4's bit for bit); one 3-step
      480x832x81 request with {"int8_compute": true} through
      run_loaded_request (45 launches per step per fused flavor), after which
      {"quantize_bits": 4} must raise; the trained LoRA merged at 0.55 (two
@@ -135,6 +148,25 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      3's 1.3B pipeline through run_loaded_request at 480x832x81, 3 steps,
      CFG 5: 45 launches a step per fused flavor, its stage split beside the
      render's wall time.
+ 11. the conditioning extras: a 2-step video= masked-init request on phase
+     3's pipeline (the rendered background clip masked by merged_mask as
+     the single control, a geoada_patch_embedding for its 80 channels);
+     row 4b, the plain forward's exp2 flavor, at the i2v cross shapes
+     ([2, 12, 32,760, 128] against 512 and 257 keys) against its plain
+     version with a rerun and twenty back-to-back launches bit-identical,
+     timed beside SDPA and its bound; then the widths of Wan2.1-Fun-1.3B-InP
+     (i2v, in_dim 36) + the GeoAdapter + the SimpleAdapter + the CLIP
+     ViT-H/14 tower from random weights: the DiT on the card against the
+     CPU at 192 tokens with y, clip_fea and y_camera (5e-2 * max),
+     encode_image of a 480x832 uint8 frame against the CPU (2 * 2^-8 *
+     max, timed), one 480x832x81 request (3 UniPC steps, CFG 5, batched)
+     with clip_image, y as Wan i2v builds it [1, 20, 21, 60, 104], 24-channel
+     camera maps [1, 24, 21, 480, 832] and phase 10's four rendered controls
+     (launches a step: row 1 45, row 2 15, row 4b 60; stage split, peak),
+     a 2-step request with one subject reference frame (noise drawn at 22
+     latent frames, 81 frames out), one timed CFG-2 step under
+     torch.profiler, and the plain cross path's parts beside the fused
+     cross kernel by CUDA events.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -167,6 +199,7 @@ TPU_KERNELS = {
     "fused_rope_rms_attention": "versecrafter_tpu/kernels/flash_attention.py:800",
     "fused_rms_cross_attention": "versecrafter_tpu/kernels/flash_attention.py:800",
     "flash_attention": "versecrafter_tpu/kernels/flash_attention.py:363",
+    "flash_attention_inference": "versecrafter_tpu/kernels/flash_attention.py:363",
     "fa_backward_dq": "versecrafter_tpu/kernels/flash_attention_bwd.py:100",
     "fa_backward_dkv": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
     "fused_rope_rms_attention_int8": "versecrafter_tpu/kernels/flash_attention.py:800",
@@ -178,6 +211,7 @@ SOURCES = {
     "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
     "fused_rms_cross_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
     "flash_attention": "versecrafter_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_inference": "versecrafter_tpu_torch/csrc/flash_attention.cu",
     "fa_backward_dq": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
     "fa_backward_dkv": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_rope_rms_attention_int8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
@@ -205,10 +239,9 @@ TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
 STEPS = 3
 FRAMES_E2E = 81
 E2E_SIZE = (480, 832, FRAMES_E2E)  # height, width, frames of the served requests
-# phase 3's two generate requests (prompt, seed); phase 8 serves the first
-# again through the HTTP tiers
-E2E_REQUESTS = (("a red car drives left along a coast road", 11),
-                ("a dog runs across a snowy field", 12))
+# phase 3's generate request (prompt, seed); phase 8 serves it again through
+# the HTTP tiers
+E2E_REQUESTS = (("a red car drives left along a coast road", 11),)
 # phase 9: (label, bits, int8_compute, calibrated static scales) of each
 # quantize mode; the W8A8 product at the 14B FFN in-projection's shape at
 # 480x832x81 CFG-2 (rows, dim, ffn_dim), its rows checked against the CPU;
@@ -230,6 +263,15 @@ BEYOND_ONE_CODE = 1e-3  # other streams: share of values more than one code apar
 # sequential step's extra peak, the same two ways
 PEAK_14B = (62.49, 63.57, 62.6)
 SEQ_EXTRA_14B = (5.04, 5.57)
+# phase 7's Wan2.2 MoE: two custom timesteps straddling the boundary (sigma
+# 0.95 on the high-noise expert, 0.5 on the low one), and the size of the
+# 1.3B pair-vs-swap check
+MOE_BOUNDARY = 0.875
+MOE_TIMESTEPS = (950.0, 500.0)
+MOE_SMALL = (240, 416, 33)
+# phase 11: the i2v + camera point's factory scale and its request's steps
+I2V_SCALE = "i2v-1.3b"
+I2V_STEPS = 3
 PRODUCT_CHECK_ROWS = 1024
 LORA_RANK = 16
 LORA_WEIGHT = 0.55
@@ -1371,6 +1413,7 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     pipe = default_pipeline_factory(scale="14b", device=dev, seed=0)()
     randomize_zero_inits(pipe.dit_params, dev)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
     cfg = pipe.dit_cfg
     n_dit = sum(t.numel() for t in tree_leaves(pipe.dit_params))
     log(f"[14b] pipeline built (umT5-xxl + Wan2.1-T2V-14B + GeoAdapter, {cfg.num_layers} + "
@@ -1383,6 +1426,7 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     del sub
     pipe.cfg_parallel = CFG_PARALLEL_14B
     counts = tea_request(fa, fab, ms, pipe, "14b", TEA_14B, 60, 21, card)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30  # the request's
 
     f, th, tw = TRAIN_GRID
     g7 = torch.Generator(device=dev).manual_seed(81)
@@ -1415,10 +1459,14 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     compare("14B sequential-CFG step vs batched", seq, base, corr_bar=corr_bar,
             err_bar=2 * floor)
     del seq
+    # the Wan2.2 two-expert MoE: an expert swap at 14B, pair vs swap at 1.3B
+    moe_counts = moe_swap_14b(fa, fab, ms, pipe, card, single_peak, build_s)
+    moe_pair_vs_swap_13b(pipe, card)
     quant_14b(pipe, step, base, card)  # phase 9's 14B part, while it is resident
-    del pipe, lat, geo, ctx, base
-    gc.collect()
-    torch.cuda.empty_cache()
+    del pipe, step, lat, geo, ctx, base
+    for more in (moe_counts, moe_pair_14b(fa, fab, ms, dev, card)):  # the resident int8 pair
+        for k_, v in more.items():
+            counts[k_] = counts.get(k_, 0) + v
     log(f"[14b] {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -1977,7 +2025,7 @@ def lora_train(fa, fab, ms, dev, card, out_dir):
 def quant_phase(fa, fab, ms, dev, card, bf16_step):
     """Phase 9: quantization and LoRA (see the module docstring). bf16_step:
     phase 4's step on the same pipeline and inputs ({"pred", "ms",
-    "idle"}), which each mode's step is held beside. Returns the main
+    "idle"}), which the rebuilt pipeline's step must equal. Returns the main
     path's launches: the LoRA steps' and the W8A8 request's."""
     import tempfile
 
@@ -2011,8 +2059,7 @@ def quant_phase(fa, fab, ms, dev, card, bf16_step):
     ref = step()
     if not torch.equal(ref, bf16_step["pred"]):
         raise AssertionError("the rebuilt pipeline's bf16 step differs from phase 4's")
-    rows = [("bf16 (phase 4)", qz.tree_bytes(base), bf16_step["ms"], bf16_step["idle"], 1.0,
-             0.0)]
+    rows = [("bf16 (phase 4)", qz.tree_bytes(base))]
     t1 = time.perf_counter()
     _, stats = wan_dit_forward(base, cfg, torch.cat([lat, lat]), torch.full((2,), 999.0,
                                device=dev), ctx, cos, sin,
@@ -2030,19 +2077,21 @@ def quant_phase(fa, fab, ms, dev, card, bf16_step):
         nbytes = qz.tree_bytes(pipe.dit_params)
         log(f"[quant] {label}: quantized in {time.perf_counter() - t1:.2f} s, resident DiT "
             f"{nbytes / 2**30:.3f} GiB (bf16 {qz.tree_bytes(base) / 2**30:.3f} GiB)")
-        pred, times, idle = timed_step(step, label, card, reps=1, tag="quant", top=6)
-        err = (pred.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
-        rows.append((label, nbytes, min(times), idle, correlation(pred, ref), err))
+        rows.append((label, nbytes))
+        if label == QUANT_MODES[-1][0]:  # the deepest mode also takes a full-width step
+            pred, _, _ = timed_step(step, label, card, reps=1, tag="quant", profile=False)
+            err = (pred.float() - ref.float()).abs().max() / ref.float().abs().max()
+            log(f"[quant] {label} 480x832x81 CFG-2 step (finite) against the bf16 step: "
+                f"correlation {correlation(pred, ref):.6f}, max|diff| {err.item():.4g} of max")
+            del pred
         sub, sub_cfg = dit_subtree(pipe.dit_params, cfg, 2, 1)
         dit_card_vs_cpu(pipe, sub, sub_cfg, "quant", f"{label}: first GeoAdapter superstep "
                         "(2 base + 1 GeoAdapter blocks)")
-        del pred, sub
+        del sub
     pipe.dit_params = base
-    log(f"[quant] 1.3B, 480x832x81 CFG-2 step by mode on {card} (mode: resident DiT GiB, "
-        f"best step ms, idle share, correlation and max|diff|/max against the bf16 step):")
-    for label, nbytes, ms_, idle, corr, err in rows:
-        log(f"  {label:13s} {nbytes / 2**30:8.3f} GiB {ms_:9.1f} ms idle {idle:.4f} "
-            f"corr {corr:.6f} err {err:.4g}")
+    log(f"[quant] 1.3B resident DiT by mode on {card}:")
+    for label, nbytes in rows:
+        log(f"  {label:13s} {nbytes / 2**30:8.3f} GiB")
 
     # a 3-step W8A8 request through the serving mapping, then another mode
     h, w, n = E2E_SIZE
@@ -2158,6 +2207,216 @@ def quant_14b(pipe, step, bf16_pred, card):
     log(f"[14b-w8a8] {time.perf_counter() - t0:.1f} s")
 
 
+def build_expert(cfg, seed, dev):
+    """An expert as the MoE checks build it: the DiT of `cfg` from `seed`
+    with its zero-init leaves made random from seed + 7 (expert seed 0 is
+    phase 7's DiT bit for bit)."""
+    from versecrafter_tpu_torch.serve.model_server import build_dit
+    params = build_dit(cfg, seed, dev)
+    randomize_zero_inits(params, dev, seed=7 + seed)
+    return params
+
+
+def moe_swap_14b(fa, fab, ms, pipe, card, single_peak, build_s):
+    """Phase 7's Wan2.2 timestep-MoE as an expert swap at Wan2.2-T2V-A14B
+    width (each expert the Wan2.1-14B architecture + GeoAdapter): phase 7's
+    DiT dropped (a staged shell), expert_swap building the high expert from
+    seed 1 and the low one from seed 0, one 480x832x81 request with two
+    custom timesteps that straddle the boundary (sigma 0.95 and 0.5),
+    TeaCache off, CFG-2 batched. The swap calls must be ["high", "low"], 60
+    launches of rows 1-2 per step, and the request's peak at most phase 7's
+    single-expert request peak + 1 GiB. Leaves the low expert (phase 7's DiT)
+    resident. Returns the launches."""
+    dev, cfg = pipe.device, pipe.dit_cfg
+    t0 = time.perf_counter()
+    pipe.dit_params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] shell: phase 7's DiT dropped, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated (umT5-xxl + VAE + the step inputs)")
+    builds = []
+
+    def swap(which):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        params = build_expert(cfg, 1 if which == "high" else 0, dev)
+        torch.cuda.synchronize()
+        builds.append((which, time.perf_counter() - t1, before))
+        return params
+
+    pipe.expert_swap, pipe.moe_boundary = swap, MOE_BOUNDARY
+    h, w, n = E2E_SIZE
+    controls, mask = synth_request(n, h, w, 31)
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    try:
+        video = pipe("a harbour at dawn", negative_prompt="blurry", control_videos=controls,
+                     mask_video=mask, height=h, width=w, num_frames=n,
+                     timesteps=list(MOE_TIMESTEPS), guidance_scale=5.0, seed=31,
+                     output_type="uint8")
+    finally:
+        pipe.expert_swap = None
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    for which, s_, before in builds:
+        log(f"[moe] expert_swap('{which}'): built in {s_:.1f} s with {before / 2**30:.2f} GiB "
+            f"allocated just before (phase 7's whole pipeline built in {build_s:.1f} s)")
+    log(f"[moe] expert-swap request at {h}x{w}x{n}, timesteps {MOE_TIMESTEPS} (boundary "
+        f"{MOE_BOUNDARY}), CFG-2 batched: {video.shape} {video.dtype} in {dt:.1f} s "
+        f"{ {k: round(v, 2) for k, v in pipe.last_wall_profile.items()} } launches {counts}; "
+        f"peak {peak:.2f} GiB (phase 7's single-expert request {single_peak:.2f} GiB) on {card}")
+    if [b[0] for b in builds] != ["high", "low"]:
+        raise AssertionError(f"swap calls {[b[0] for b in builds]} != ['high', 'low']")
+    blocks = cfg.num_layers + len(cfg.resolved_geoada_layers)
+    want = {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * 2,
+            "fused_rms_cross_attention": blocks * 2}
+    if counts != want:
+        raise AssertionError(f"expert-swap request launches {counts} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    if peak > single_peak + 1.0:
+        raise AssertionError(f"the expert-swap request peaked at {peak:.2f} GiB, above "
+                             f"phase 7's {single_peak:.2f} + 1 GiB")
+    log(f"[moe] {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def moe_pair_vs_swap_13b(pipe, card):
+    """At Wan2.1-1.3B + GeoAdapter width, beside the 14B pipeline's umT5 and
+    VAE: two experts (seeds 10 and 11) as a resident pair and as an expert
+    swap serve the same 2-step MOE_SMALL request; the latents must be
+    bit-identical and the swap calls ["high", "low"]."""
+    from versecrafter_tpu_torch.sampling.pipeline import VerseCrafterPipeline
+    from versecrafter_tpu_torch.serve.model_server import pipeline_configs
+
+    t0 = time.perf_counter()
+    dev, cfg = pipe.device, pipeline_configs("1.3b")[0]
+    h, w, n = MOE_SMALL
+    controls, mask = synth_request(n, h, w, 33)
+    kw = dict(negative_prompt="blurry", control_videos=controls, mask_video=mask, height=h,
+              width=w, num_frames=n, timesteps=list(MOE_TIMESTEPS), guidance_scale=5.0,
+              seed=33, output_type="latent")
+
+    def small(**fields):
+        return VerseCrafterPipeline(
+            dit_cfg=cfg, vae_params=pipe.vae_params, vae_cfg=pipe.vae_cfg,
+            t5_params=pipe.t5_params, t5_cfg=pipe.t5_cfg, tokenizer=pipe.tokenizer,
+            moe_boundary=MOE_BOUNDARY, device=dev, **fields)
+
+    pair = small(dit_params=build_expert(cfg, 10, dev), dit_params_high=build_expert(cfg, 11, dev))
+    resident = pair("a ferry crosses a bay", **kw)
+    del pair
+    calls = []
+
+    def swap(which):
+        calls.append(which)
+        return build_expert(cfg, 11 if which == "high" else 10, dev)
+
+    staged = small(dit_params=None, expert_swap=swap)("a ferry crosses a bay", **kw)
+    same = torch.equal(staged, resident)
+    log(f"[moe] 1.3B pair vs swap at {h}x{w}x{n}, timesteps {MOE_TIMESTEPS}: latents "
+        f"{tuple(staged.shape)} bit-identical: {same}; swap calls {calls}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same or calls != ["high", "low"]:
+        raise AssertionError("the 1.3B expert swap differs from the resident pair")
+
+
+def moe_pair_14b(fa, fab, ms, dev, card):
+    """The resident int8 pair at 14B, through the entry point a server
+    calls: default_pipeline_factory(scale="14b", moe=True, quantize=(8,
+    True)) builds the low expert from seed 0 and quantizes it W8A8 (dynamic
+    scales) before it builds the high one from seed 1, then umT5-xxl and the
+    VAE (the experts' zero-init leaves made random as build_expert does).
+    Prints the build's seconds and peak and the resident bytes, then serves
+    one 480x832x81 request through __call__ on the two custom timesteps
+    that straddle the boundary (CFG-2 batched; 60 launches of rows 1-2 a
+    step), each step's time, the request's peak. A pair that does not fit
+    fails, with the shortfall printed. Returns the request's launches."""
+    from versecrafter_tpu_torch.serve import model_server
+    from versecrafter_tpu_torch.utils import quantize as qz
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build = model_server.build_dit
+
+    def randomized(cfg, seed, device=None, dtype=torch.bfloat16):
+        params = build(cfg, seed, device, dtype)
+        randomize_zero_inits(params, dev, seed=7 + seed)
+        return params
+
+    model_server.build_dit = randomized
+    try:
+        pipe = model_server.default_pipeline_factory(scale="14b", device=dev, seed=0, moe=True,
+                                                     quantize=(8, True))()
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        free, total = torch.cuda.mem_get_info()
+        log(f"[moe-pair] OUT OF MEMORY building the pair over {before / 2**30:.2f} GiB: peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of {total / 2**30:.2f} GiB "
+            f"({e})")
+        raise AssertionError("the 14B int8 pair does not fit one card") from e
+    finally:
+        model_server.build_dit = build
+    build_s, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    low_b, high_b = qz.tree_bytes(pipe.dit_params), qz.tree_bytes(pipe.dit_params_high)
+    log(f"[moe-pair] default_pipeline_factory(scale='14b', moe=True, quantize=(8, True)) built "
+        f"in {build_s:.1f} s (each expert W8A8 with dynamic scales before the next is made); "
+        f"build peak {peak:.2f} GiB over {before / 2**30:.2f} GiB before it; resident DiTs low "
+        f"{low_b / 2**30:.2f} + high {high_b / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated in all "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved; PYTORCH_CUDA_ALLOC_CONF "
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')}) on {card}")
+    pipe.moe_boundary, pipe.cfg_parallel = MOE_BOUNDARY, True
+    h, w, n = E2E_SIZE
+    controls, mask = synth_request(n, h, w, 31)
+    stamps = []
+
+    def progress(i, total):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    video = pipe("a harbour at dawn", negative_prompt="blurry", control_videos=controls,
+                 mask_video=mask, height=h, width=w, num_frames=n,
+                 timesteps=list(MOE_TIMESTEPS), guidance_scale=5.0, seed=31,
+                 output_type="uint8", progress=progress)
+    dt = time.perf_counter() - t1
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    wall = pipe.last_wall_profile
+    step2 = (stamps[1] - stamps[0]) * 1e3
+    log(f"[moe-pair] request at {h}x{w}x{n}, timesteps {MOE_TIMESTEPS} (boundary "
+        f"{MOE_BOUNDARY}; high expert, then low), CFG-2 batched, both experts W8A8: "
+        f"{video.shape} {video.dtype} in {dt:.1f} s { {k: round(v, 2) for k, v in wall.items()} } "
+        f"launches {counts}; high-expert step {wall['denoise'] * 1e3 - step2:.1f} ms (the "
+        f"denoise stage less the second step), low-expert step {step2:.1f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved on {card}")
+    blocks = pipe.dit_cfg.num_layers + len(pipe.dit_cfg.resolved_geoada_layers)
+    want = {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * 2,
+            "fused_rms_cross_attention": blocks * 2}
+    if counts != want:
+        raise AssertionError(f"int8-pair request launches {counts} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    del pipe, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe-pair] {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def render_inputs(h, w, n, seed):
     """Phase 10's seeded scene (geometry/synthetic.py) and the arguments of
     render_control_maps for it: the background carved by the dilated
@@ -2250,7 +2509,9 @@ def workflow_phase(fa, fab, ms, dev, card):
     in every frame that shows one; one 27-frame batch under torch.profiler;
     then the six streams as a 3-step request on phase 3's 1.3B pipeline
     through run_loaded_request (45 launches a step per fused flavor).
-    Returns the request's launches."""
+    Returns the request's launches and {"pipe", "controls", "mask",
+    "image"}: the pipeline and the request's inputs, which phase 11 takes
+    over."""
     from versecrafter_tpu_torch.geometry import render as tr
     from versecrafter_tpu_torch.serve.model_server import run_loaded_request
     t0 = time.perf_counter()
@@ -2335,11 +2596,320 @@ def workflow_phase(fa, fab, ms, dev, card):
         raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} != {want}")
     if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
         raise AssertionError(f"bad output {video.shape} {video.dtype}")
-    del pipe, controls, mask, video
+    del video
+    log(f"[workflow] phase 10 {time.perf_counter() - t0:.1f} s")
+    return counts, {"pipe": pipe, "controls": controls, "mask": mask, "image": scene["image"]}
+
+
+def check_flash_cross(fa, dev, skv, card, seed=0):
+    """Row 4b (the plain forward's exp2 inference flavor) at an i2v cross
+    shape, [2, 12, 32,760, 128] queries against `skv` keys, no k_lens, as
+    models/wan_dit.py calls it: against its plain version, a rerun and
+    twenty back-to-back launches bit-identical; kernel, plain, SDPA and
+    bound times. Returns the record."""
+    B, N, Sq, D = 2, 12, 32760, fa.HEAD_DIM
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (2.0 * torch.randn(B, N, Sq, D, generator=g, device=dev)).to(torch.bfloat16)
+    k, v = (torch.randn(B, N, skv, D, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    log(f"  flash (inference flavor) B={B} N={N} Sq={Sq} Skv={skv}")
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": agree("forward (inference)", out, fa.flash_attention_plain(q, k, v))}
+    outs = [fa.flash_attention(q, k, v) for _ in range(21)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, out) for o in outs)
+    log(f"    a rerun and twenty back-to-back launches bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"flash attention at {skv} keys: a rerun differs")
+    del outs
+    rec["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
+    rec["plain_ms"] = host_ms(lambda: fa.flash_attention_plain(q, k, v))
+    rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v), 10)
+    rec["bound_ms"], rec["bound_by"] = bound(4 * B * N * Sq * skv * D,
+                                             (2 * q.numel() + k.numel() + v.numel()) * 2)
+    log(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.1f} ms, SDPA {rec['library_ms']:.4f} "
+        f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
+        f"{rec['ms'] / rec['bound_ms']:.2f}x the bound, {rec['ms'] / rec['library_ms']:.2f}x "
+        f"SDPA on {card}")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def masked_init_request(fa, fab, ms, pipe, controls, mask, card):
+    """A 2-step video= request on phase 3's 1.3B pipeline: the rendered
+    background clip masked by merged_mask (v * keep + 0.5 * (1 - keep))
+    becomes the single control video. One control's 16 latent channels plus
+    the 64 mask channels are 80, where the t2v GeoAdapter takes four
+    controls' 128, so for this request the pipeline carries geoada_in_dim
+    80 and a fresh geoada_patch_embedding (as a checkpoint loaded with
+    another geoada_in_dim gets one); restored afterwards."""
+    from versecrafter_tpu_torch.models.wan_dit import _init_linear
+
+    t0 = time.perf_counter()
+    dev, cfg0 = pipe.device, pipe.dit_cfg
+    pe0 = pipe.dit_params["geoada_patch_embedding"]
+    n_in = pipe.vae_cfg.z_dim + pipe.vae_cfg.spatial_compression_ratio ** 2
+    pipe.dit_cfg = dataclasses.replace(cfg0, geoada_in_dim=n_in)
+    g = torch.Generator(device=dev).manual_seed(23)
+    pipe.dit_params["geoada_patch_embedding"] = _init_linear(
+        g, n_in * math.prod(cfg0.patch_size), cfg0.dim, pe0["kernel"].dtype, dev)
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    n, h, w = mask.shape[2:]
+    try:
+        video = pipe("a red car drives left", negative_prompt="blurry", video=controls[0],
+                     mask_video=mask, height=h, width=w, num_frames=n,
+                     num_inference_steps=2, guidance_scale=5.0, seed=23, output_type="uint8")
+    finally:
+        pipe.dit_cfg = cfg0
+        pipe.dit_params["geoada_patch_embedding"] = pe0
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    log(f"[extras] video= masked-init request (2 steps, {h}x{w}x{n}): {video.shape} "
+        f"{video.dtype} in {time.perf_counter() - t0:.1f} s "
+        f"{ {k: round(v, 2) for k, v in pipe.last_wall_profile.items()} } launches {counts} "
+        f"on {card}")
+    blocks = cfg0.num_layers + len(cfg0.resolved_geoada_layers)
+    want = {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * 2,
+            "fused_rms_cross_attention": blocks * 2}
+    if counts != want:
+        raise AssertionError(f"masked-init request launches {counts} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    return counts
+
+
+def i2v_y(pipe, image, n, h, w):
+    """y as Wan i2v builds it: 4 mask channels keeping the first frame (the
+    first frame's mask repeated 4 times, then one per frame, grouped by the
+    VAE's 4-frame stride), then the VAE latents of the first frame followed
+    by zero frames: [1, 20, T', H/8, W/8]."""
+    dev = pipe.device
+    ts, ss = pipe.vae_cfg.temporal_compression_ratio, pipe.vae_cfg.spatial_compression_ratio
+    msk = torch.ones(1, n, h // ss, w // ss, device=dev)
+    msk[:, 1:] = 0
+    msk = torch.cat([msk[:, :1].repeat_interleave(ts, dim=1), msk[:, 1:]], dim=1)
+    msk = msk.view(1, msk.shape[1] // ts, ts, h // ss, w // ss).transpose(1, 2)
+    x = torch.zeros(1, 3, n, h, w, dtype=torch.bfloat16, device=dev)
+    x[:, :, 0] = torch.as_tensor(image, device=dev).permute(2, 0, 1).float() / 127.5 - 1.0
+    lat = pipe._vae_encode(x)
+    return torch.cat([msk.to(lat.dtype), lat], dim=1).to(torch.bfloat16)
+
+
+def i2v_dit_card_vs_cpu(pipe):
+    """The i2v + camera DiT on the card against the same weights on the CPU
+    at 192 tokens with y, clip_fea and y_camera (bf16, CFG-2 batch), bar
+    5e-2 * max."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.models.wan_dit import wan_dit_forward
+    from versecrafter_tpu_torch.sampling.pipeline import _to_device
+    dev, cfg = pipe.device, pipe.dit_cfg
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    lat, y, geo = rnd(2, 16, 3, 16, 16), rnd(2, 20, 3, 16, 16), rnd(2, 128, 3, 16, 16)
+    clip, cam = rnd(2, 257, cfg.img_emb_dim), rnd(2, 24, 3, 128, 128)
+    ctx = pipe.encode_prompt("a small check", "").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, 3, 8, 8, device=dev)
+    tvec = torch.full((2,), 700.0, device=dev)
+    args = (lat, tvec, ctx, cos, sin)
+    kw = dict(geoada_context=geo, y=y, clip_fea=clip, y_camera=cam)
+    out_gpu = wan_dit_forward(pipe.dit_params, cfg, *args, **kw).float().cpu()
+    cpu = _to_device(pipe.dit_params, "cpu")
+    out_cpu = wan_dit_forward(cpu, cfg, *(a.cpu() for a in args),
+                              **{k: v.cpu() for k, v in kw.items()}).float()
+    del cpu
+    rel = ((out_gpu - out_cpu).abs().max() / out_cpu.abs().max()).item()
+    log(f"[extras] i2v + camera DiT ({len(pipe.dit_params['blocks'])} blocks + "
+        f"{len(pipe.dit_params['geoada_blocks'])} GeoAdapter) card vs CPU at 192 tokens "
+        f"with y, clip_fea, y_camera (bf16): rel err {rel:.4g} (bar 5e-2), "
+        f"finite={bool(torch.isfinite(out_gpu).all())}")
+    if not (rel <= 5e-2 and torch.isfinite(out_gpu).all()):
+        raise AssertionError("the i2v DiT on the card disagrees with the CPU reference")
+
+
+def cross_path_times(fa, pipe, card, rows=32760):
+    """The i2v base block's plain cross path against the t2v block's fused
+    cross at 480x832x81 CFG-2 ([2, 32,760, 1536] queries, 512 text keys, 257
+    image keys), device ms by CUDA events: the whole cross-attention
+    function (projections included) each way, and the plain path's parts
+    (q RMSNorm, the relayouts to and from head-major, the two row-4b
+    launches) beside the fused kernel alone."""
+    from versecrafter_tpu_torch.kernels.flash_attention import _heads
+    from versecrafter_tpu_torch.kernels.norms import rms_norm
+    from versecrafter_tpu_torch.models import wan_dit as tw
+    dev, cfg = pipe.device, pipe.dit_cfg
+    p = pipe.dit_params["blocks"][0]["cross_attn"]
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    x, ctx, img = rnd(2, rows, cfg.dim), rnd(2, 512, cfg.dim), rnd(2, 257, cfg.dim)
+    n = cfg.num_heads
+    t = {"i2v cross (plain path)": cuda_ms(lambda: tw._cross_attention(p, x, ctx, cfg, None, img), 5),
+         "t2v cross (fused kernel)": cuda_ms(lambda: tw._cross_attention(p, x, ctx, cfg), 5)}
+    q = tw._linear(p["q"], x)
+    k, v = tw._linear(p["k"], ctx), tw._linear(p["v"], ctx)
+    ki, vi = tw._linear(p["k_img"], img), tw._linear(p["v_img"], img)
+    qh = _heads(rms_norm(q, p["norm_q"]["scale"], cfg.eps), n)
+    kh, vh, kih, vih = (_heads(a, n) for a in (k, v, ki, vi))
+    out = fa.flash_attention(qh, kh, vh)
+    t["q RMSNorm"] = cuda_ms(lambda: rms_norm(q, p["norm_q"]["scale"], cfg.eps), 5)
+    t["q relayout to head-major"] = cuda_ms(lambda: _heads(q, n), 5)
+    t["row 4b, 512 text keys"] = cuda_ms(lambda: fa.flash_attention(qh, kh, vh), 5)
+    t["row 4b, 257 image keys"] = cuda_ms(lambda: fa.flash_attention(qh, kih, vih), 5)
+    t["add + relayout back"] = cuda_ms(
+        lambda: (out + out).transpose(1, 2).reshape(2, rows, cfg.dim), 5)
+    t["fused cross kernel alone"] = cuda_ms(lambda: fa.fused_rms_cross_attention(
+        q, k, v, p["norm_q"]["scale"], p["norm_k"]["scale"], num_heads=n, eps=cfg.eps), 5)
+    log(f"[extras] cross-attention of one block at 480x832x81 CFG-2, device ms on {card}:")
+    for name, ms_ in t.items():
+        log(f"  {name:28s} {ms_:8.3f}")
+    plain = sum(t[k] for k in ("q RMSNorm", "q relayout to head-major", "row 4b, 512 text keys",
+                               "row 4b, 257 image keys", "add + relayout back"))
+    n_base = len(pipe.dit_params["blocks"])
+    log(f"  plain path's parts {plain:.3f} ms vs the fused kernel "
+        f"{t['fused cross kernel alone']:.3f} ms: x{n_base} base blocks, "
+        f"{n_base * (plain - t['fused cross kernel alone']):.1f} ms a step")
+    del x, ctx, img, q, k, v, ki, vi, qh, kh, vh, kih, vih, out
+    torch.cuda.empty_cache()
+    return t
+
+
+def extras_phase(fa, fab, ms, dev, card, records, image, controls, mask):
+    """Phase 11: the conditioning extras at the widths of Wan2.1-Fun-1.3B-InP
+    (i2v, in_dim 36) + the GeoAdapter + the SimpleAdapter + the CLIP
+    ViT-H/14 tower ('i2v-1.3b', random weights from seed 0). See the module
+    docstring. Returns the requests' launches."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.models.clip import encode_image
+    from versecrafter_tpu_torch.sampling import pipeline as tpipe
+    from versecrafter_tpu_torch.sampling.pipeline import _to_device
+    from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
+
+    t0 = time.perf_counter()
+    log(f"[extras] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase")
+    records["flash_attention_inference"] = check_flash_cross(fa, dev, 512, card)
+    r257 = check_flash_cross(fa, dev, 257, card, seed=1)
+    records["flash_attention_inference"].update(
+        {f"cross257_{k}": v for k, v in r257.items()})
+    t1 = time.perf_counter()
+    pipe = default_pipeline_factory(scale=I2V_SCALE, device=dev, seed=0)()
+    randomize_zero_inits(pipe.dit_params, dev)
+    torch.cuda.synchronize()
+    cfg = pipe.dit_cfg
+    log(f"[extras] i2v pipeline built (umT5-xxl + i2v Wan2.1-1.3B in_dim {cfg.in_dim} + "
+        f"GeoAdapter {len(pipe.dit_params['geoada_blocks'])} blocks + SimpleAdapter + CLIP "
+        f"ViT-H/14 depth {pipe.clip_cfg['depth']} + Wan VAE) in {time.perf_counter() - t1:.1f} "
+        f"s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    i2v_dit_card_vs_cpu(pipe)
+
+    # the CLIP encode of a 480x832 uint8 frame: the card against the CPU
+    tok = encode_image(pipe.clip_params, pipe.clip_cfg, image)
+    enc_s = host_ms(lambda: encode_image(pipe.clip_params, pipe.clip_cfg, image)) / 1e3
+    cpu_tok = encode_image(_to_device(pipe.clip_params, "cpu"), pipe.clip_cfg, image)
+    err = (tok.cpu() - cpu_tok).abs().max().item()
+    mx = cpu_tok.abs().max().item()
+    log(f"[extras] encode_image 480x832 uint8 -> {tuple(tok.shape)} {tok.dtype}: {enc_s:.4f} s "
+        f"on the card; against the CPU max|diff| {err:.4g}, bar {BF16_BAR * mx:.4g}")
+    n_tok = (pipe.clip_cfg["img_size"] // pipe.clip_cfg["patch"]) ** 2 + 1
+    if tuple(tok.shape) != (1, n_tok, pipe.clip_cfg["dim"]) or not err <= BF16_BAR * mx:
+        raise AssertionError("encode_image on the card disagrees with the CPU")
+    del cpu_tok
+
+    h, w, n = E2E_SIZE
+    n_base, n_geo = len(pipe.dit_params["blocks"]), len(pipe.dit_params["geoada_blocks"])
+    y = i2v_y(pipe, image, n, h, w)
+    gc_ = torch.Generator(device=dev).manual_seed(43)
+    cam = torch.randn(1, 24, y.shape[2], h, w, generator=gc_, device=dev).to(torch.bfloat16)
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    video = pipe("a red car drives left", negative_prompt="blurry", control_videos=controls,
+                 mask_video=mask, clip_image=image, y=y, camera_video=cam, height=h, width=w,
+                 num_frames=n, num_inference_steps=I2V_STEPS, guidance_scale=5.0, seed=43,
+                 output_type="uint8")
+    dt = time.perf_counter() - t1
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    log(f"[extras] i2v + camera request (clip_image, y {tuple(y.shape)}, camera_video "
+        f"{tuple(cam.shape)}, the four rendered controls; {I2V_STEPS} UniPC steps, CFG 5, "
+        f"batched): {video.shape} {video.dtype} in {dt:.1f} s "
+        f"{ {k: round(v, 3) for k, v in pipe.last_wall_profile.items()} } launches {counts}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    want = {**dict.fromkeys(counts, 0),
+            "fused_rope_rms_attention": (n_base + n_geo) * I2V_STEPS,
+            "fused_rms_cross_attention": n_geo * I2V_STEPS,
+            "flash_attention": 2 * n_base * I2V_STEPS}
+    if counts != want:
+        raise AssertionError(f"i2v request launches {counts} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    launches = dict(counts)
+
+    # one subject reference frame: T' + 1 = 22 latent frames (y carries a
+    # zero slot for it: the i2v DiT takes 36 channels), no camera maps
+    drawn = []
+    normal = tpipe.prng.normal
+
+    def spy(key, shape, dtype):
+        drawn.append(tuple(shape))
+        return normal(key, shape, dtype)
+
+    ref_img = [controls[0][:, :, :1].copy()]
+    y22 = torch.cat([torch.zeros_like(y[:, :, :1]), y], dim=2)
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    tpipe.prng.normal = spy
+    t1 = time.perf_counter()
+    try:
+        video = pipe("a red car drives left", negative_prompt="blurry", control_videos=controls,
+                     mask_video=mask, subject_ref_images=ref_img, clip_image=image, y=y22,
+                     height=h, width=w, num_frames=n, num_inference_steps=2,
+                     guidance_scale=5.0, seed=44, output_type="uint8")
+    finally:
+        tpipe.prng.normal = normal
+    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+    log(f"[extras] subject-reference request (2 steps): noise drawn at {drawn}, output "
+        f"{video.shape} {video.dtype} in {time.perf_counter() - t1:.1f} s "
+        f"{ {k: round(v, 3) for k, v in pipe.last_wall_profile.items()} } "
+        f"launches {counts}")
+    if drawn != [(1, pipe.vae_cfg.z_dim, y.shape[2] + 1, *y.shape[3:])] \
+            or video.shape != (1, n, h, w, 3):
+        raise AssertionError(f"reference request: noise {drawn}, output {video.shape}")
+    want = {k_: v // I2V_STEPS * 2 for k_, v in want.items()}  # the same a step, 2 steps
+    if counts != want:
+        raise AssertionError(f"reference request launches {counts} != {want}")
+    for k_, v in counts.items():
+        launches[k_] += v
+    del video, y22
+
+    # one timed CFG-2 step under the profiler, then the cross path's parts
+    g4 = torch.Generator(device=dev).manual_seed(81)
+    grid = y.shape[2:]
+    lat = torch.randn(1, pipe.vae_cfg.z_dim, *grid, generator=g4, device=dev).to(torch.bfloat16)
+    geo = torch.randn(1, cfg.resolved_geoada_in_dim, *grid, generator=g4,
+                      device=dev).to(torch.bfloat16)
+    ctx = pipe.encode_prompt("a red car drives left", "blurry").to(torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, grid[0], grid[1] // 2, grid[2] // 2, device=dev)
+    extras = {"y": y, "clip_fea": tok.to(torch.bfloat16), "y_camera": cam}
+    timed_step(lambda: pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True,
+                                         extras=extras),
+               "i2v + camera (1.3B)", card, reps=1, tag="extras", top=12)
+    cross_path_times(fa, pipe, card, rows=lat.numel() // lat.shape[1] // 4)
+    del pipe, lat, geo, ctx, extras, y, cam, tok
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[workflow] phase 10 {time.perf_counter() - t0:.1f} s")
-    return counts
+    log(f"[extras] phase 11 {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2520,8 +3090,8 @@ def main() -> int:
         f"(45 x each flavor); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase {time.perf_counter() - t0:.1f} s")
     idle = profile_step(step, min(times), card)
-    # phase 9 quantizes this pipeline's tree (built again from the same
-    # seeds) and holds each mode's step to this one
+    # phase 9 rebuilds this pipeline from the same seeds and holds its step
+    # to this one
     bf16_step = {"pred": pred, "ms": min(times), "idle": idle}
     digest = step_digest(pipe, lat, geo, ctx, pred)
     # sequential CFG against the batched step, held to twice the noise floor
@@ -2563,7 +3133,22 @@ def main() -> int:
         launches_main[k_] = launches_main.get(k_, 0) + v
 
     # -- 10. the render -> generate workflow -----------------------------------
-    for k_, v in workflow_phase(fa, fab, ms, dev, card).items():
+    counts, carry = workflow_phase(fa, fab, ms, dev, card)
+    for k_, v in counts.items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
+
+    # -- 11. the conditioning extras: video=, then the i2v + camera point --
+    pipe = carry.pop("pipe")
+    for k_, v in masked_init_request(fa, fab, ms, pipe, carry["controls"], carry["mask"],
+                                     card).items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = extras_phase(fa, fab, ms, dev, card, records, **carry)
+    del carry
+    launches_main["flash_attention_inference"] = counts.pop("flash_attention")
+    for k_, v in counts.items():
         launches_main[k_] = launches_main.get(k_, 0) + v
 
     if failures:
@@ -2577,8 +3162,9 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{k_: v for k_, v in rec.items()
-               if k_.startswith("cross_") or k_ in ("inference_ms", "inference_plain_ms",
-                                                    "library_note", "library_gemm_ms")}})
+               if k_.startswith(("cross_", "cross257_"))
+               or k_ in ("inference_ms", "inference_plain_ms", "library_note",
+                         "library_gemm_ms")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_convert import CFG, VCFG, _dit_to_torch_layout, _vae_to_torch_layout
+from test_torch_extras import _assert_trees_equal
 from test_torch_pipeline import DIT_CFG, T5_CFG, VAE_CFG, _rel_err
 from versecrafter_tpu.core import config as jconfig
 from versecrafter_tpu.core import convert as jconvert
@@ -357,27 +358,165 @@ def _copy_dir(src, dst):
     return str(dst)
 
 
+# the i2v + SimpleAdapter config of the extra-contents directories: 4 noise +
+# 4 conditioning channels, 20-wide CLIP tokens, camera maps of 3 channels (a
+# loaded config keeps the adapter's default downscale 8; the widths come
+# from the weights)
+I2V_DIR_CFG = dataclasses.replace(
+    DIR_CFG, model_type="i2v", in_dim=8, add_img_emb=True, img_emb_dim=20,
+    add_control_adapter=True, in_dim_control_adapter=3,
+    control_adapter_residual_blocks=2)
+
+
+def _extras_to_torch_layout(params, cfg):
+    """The i2v keys (k_img / v_img / norm_k_img of each base block, img_emb)
+    and the SimpleAdapter's (OIHW convs) of a numpy JAX-layout tree."""
+    sd = {}
+    for i in range(cfg.num_layers):
+        ca = jax.tree.map(lambda a: a[i], params["blocks"])["cross_attn"]
+        for n in ("k_img", "v_img"):
+            sd[f"blocks.{i}.cross_attn.{n}.weight"] = np.asarray(ca[n]["kernel"]).T
+            sd[f"blocks.{i}.cross_attn.{n}.bias"] = np.asarray(ca[n]["bias"])
+        sd[f"blocks.{i}.cross_attn.norm_k_img.weight"] = np.asarray(ca["norm_k_img"]["scale"])
+    ie = params["img_emb"]
+    for idx, name in ((0, "norm_in"), (4, "norm_out")):
+        sd[f"img_emb.proj.{idx}.weight"] = np.asarray(ie[name]["scale"])
+        sd[f"img_emb.proj.{idx}.bias"] = np.asarray(ie[name]["bias"])
+    for idx, name in ((1, "fc1"), (3, "fc2")):
+        sd[f"img_emb.proj.{idx}.weight"] = np.asarray(ie[name]["kernel"]).T
+        sd[f"img_emb.proj.{idx}.bias"] = np.asarray(ie[name]["bias"])
+    ca = params["control_adapter"]
+    ph, pw = cfg.patch_size[1:]
+    sd["control_adapter.conv.weight"] = np.asarray(ca["conv"]["kernel"]).T.reshape(
+        cfg.dim, -1, ph, pw)
+    sd["control_adapter.conv.bias"] = np.asarray(ca["conv"]["bias"])
+    for i, blk in enumerate(ca["res"]):
+        for j, name in ((1, "conv1"), (3, "conv2")):
+            pre = f"control_adapter.residual_blocks.{i}.block.{j}"
+            sd[f"{pre}.weight"] = np.asarray(blk[name]["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{pre}.bias"] = np.asarray(blk[name]["bias"])
+    return sd
+
+
+def _write_dit(d, cfg, seed, extra=False):
+    """config.json and the DiT (+ the i2v / SimpleAdapter keys) as one
+    safetensors shard in directory d."""
+    from safetensors.torch import save_file
+    os.makedirs(d, exist_ok=True)
+    params = _randomized_dit(cfg, seed)
+    sd = _dit_to_torch_layout(params, cfg)
+    if extra:
+        sd.update(_extras_to_torch_layout(params, cfg))
+    save_file(_as_torch(sd, torch.bfloat16),
+              os.path.join(d, "diffusion_pytorch_model.safetensors"))
+    keys = ("model_type", "patch_size", "in_dim", "dim", "ffn_dim", "freq_dim",
+            "text_dim", "out_dim", "num_heads", "num_layers", "geoada_in_dim")
+    c = dataclasses.asdict(cfg)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({k: c[k] for k in keys}, f)
+
+
 @pytest.mark.parametrize("case", ["wan22_pair", "control_adapter", "i2v_config",
                                   "img_emb", "clip"])
-def test_unsupported_contents_raise(model_dir, tiny_text_and_vae, tmp_path, case):
+def test_extra_contents_load_as_jax(model_dir, tiny_text_and_vae, tmp_path, case):
+    """A reference-layout directory with the extras loads through both
+    packages' load_versecrafter into the same trees, bit for bit: a Wan2.2
+    low_noise_model/ + high_noise_model/ pair (a resident pair), SimpleAdapter
+    keys, an i2v config with its img_emb / k_img / v_img keys (then a
+    request with y, clip_fea and camera maps, held to JAX's), img_emb keys
+    under a t2v config (left unused by both), a models_clip_*.pth tower."""
+    from test_torch_clip import _state_dict as clip_state_dict
+
     from safetensors.torch import save_file
 
-    d = _copy_dir(model_dir, tmp_path / "m")
+    d = tmp_path / "m"
+    for name in ("Wan2.1_VAE.pth", "models_t5_umt5-xxl-enc-bf16.pth"):
+        os.makedirs(d, exist_ok=True)
+        os.link(os.path.join(model_dir, name), d / name)
+    cfg = I2V_DIR_CFG if case == "i2v_config" else DIR_CFG
     if case == "wan22_pair":
-        for sub in ("low_noise_model", "high_noise_model"):
-            _copy_dir(model_dir, tmp_path / "m" / sub)
-    elif case in ("control_adapter", "img_emb"):
-        name = ("control_adapter.conv.weight" if case == "control_adapter"
-                else "img_emb.proj.1.weight")
-        save_file({name: torch.zeros(2, 2)}, os.path.join(d, "extra.safetensors"))
-    elif case == "i2v_config":
-        cfg = json.loads(open(os.path.join(d, "config.json")).read())
-        open(os.path.join(d, "config.json"), "w").write(
-            json.dumps({**cfg, "model_type": "i2v"}))
+        _write_dit(str(d / "low_noise_model"), cfg, 5)
+        _write_dit(str(d / "high_noise_model"), cfg, 6)
     else:
-        torch.save({}, os.path.join(d, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tconvert.load_versecrafter(d, geoada_in_dim=20, device="cpu")
+        _write_dit(str(d), cfg, 5, extra=case == "i2v_config")
+    if case in ("control_adapter", "img_emb"):
+        extra = _extras_to_torch_layout(_randomized_dit(I2V_DIR_CFG, 7), I2V_DIR_CFG)
+        keep = "control_adapter." if case == "control_adapter" else "img_emb."
+        save_file(_as_torch({k: v for k, v in extra.items() if k.startswith(keep)},
+                            torch.bfloat16), str(d / "extra.safetensors"))
+    if case == "clip":
+        torch.save(clip_state_dict("open_clip"),
+                   str(d / "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"))
+    tp = tconvert.load_versecrafter(str(d), geoada_in_dim=20, dtype=torch.float32,
+                                    device="cpu", moe_boundary=0.6)
+    jp = jconvert.load_versecrafter(str(d), geoada_in_dim=20, dtype=jnp.float32,
+                                    moe_boundary=0.6)
+    assert tp.dit_cfg == _port(jp.dit_cfg, tconfig.WanDiTConfig)
+    assert tp.moe_boundary == jp.moe_boundary == 0.6
+    _assert_same_tree(tp.dit_params, _jax_tree(jp.dit_params))
+    assert ("control_adapter" in tp.dit_params) == (case in ("control_adapter",
+                                                             "i2v_config"))
+    assert ("img_emb" in tp.dit_params) == (case == "i2v_config")
+    assert (tp.dit_params_high is None) == (jp.dit_params_high is None) == \
+        (case != "wan22_pair")
+    if case == "wan22_pair":
+        _assert_same_tree(tp.dit_params_high, _jax_tree(jp.dit_params_high))
+    assert (tp.clip_cfg is None) == (jp.clip_cfg is None) == (case != "clip")
+    if case == "clip":
+        assert tp.clip_cfg == jp.clip_cfg
+        _assert_same_tree(tp.clip_params, _jax_tree(jp.clip_params))
+    if case == "i2v_config":
+        jp.attn_impl = "pallas"
+        jp.tokenizer = tp.tokenizer
+        rng = np.random.default_rng(3)
+        kw = dict(
+            y=rng.standard_normal((1, 4, 2, 4, 4)).astype(np.float32),
+            clip_fea=rng.standard_normal((1, 5, 20)).astype(np.float32),
+            camera_video=rng.standard_normal((1, 3, 2, 32, 32)).astype(np.float32),
+            geoada_context=rng.standard_normal((1, 20, 2, 4, 4)).astype(np.float32),
+            height=8, width=8, num_inference_steps=2, guidance_scale=2.0, shift=3.0,
+            seed=2, output_type="latent")
+        ref = jp("a car", dtype=jnp.float32, **kw)
+        assert _rel_err(tp("a car", dtype=torch.float32, **kw), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", [(8, False), (8, True)], ids=["int8", "w8a8"])
+def test_expert_pair_quantizes_as_it_loads(model_dir, tiny_text_and_vae, tmp_path, mode,
+                                           monkeypatch):
+    """load_versecrafter(quantize=(bits, int8_compute)) on a Wan2.2
+    low_noise_model/ + high_noise_model/ directory quantizes each expert as
+    it is read: both trees equal the jitted JAX quantize_tree (+
+    tag_int8_compute with dynamic scales) of the JAX package's loaded
+    experts, bit for bit. The model server's factory loads the directory
+    quantized too, and then serves that mode only."""
+    from versecrafter_tpu.utils import quantize as jq
+    from versecrafter_tpu_torch.serve import model_server as tserver
+    from versecrafter_tpu_torch.utils import quantize as tq
+
+    monkeypatch.setattr(jq, "MIN_SIZE", 1 << 10)
+    monkeypatch.setattr(tq, "MIN_SIZE", 1 << 10)
+    d = tmp_path / "m"
+    os.makedirs(d)
+    for name in ("Wan2.1_VAE.pth", "models_t5_umt5-xxl-enc-bf16.pth"):
+        os.link(os.path.join(model_dir, name), d / name)
+    _write_dit(str(d / "low_noise_model"), DIR_CFG, 5)
+    _write_dit(str(d / "high_noise_model"), DIR_CFG, 6)
+    tp = tconvert.load_versecrafter(str(d), geoada_in_dim=20, dtype=torch.float32,
+                                    device="cpu", quantize=mode)
+    jp = jconvert.load_versecrafter(str(d), geoada_in_dim=20, dtype=jnp.float32)
+    quant = jax.jit(lambda p: jq.tag_int8_compute(jq.quantize_tree(p)) if mode[1]
+                    else jq.quantize_tree(p))
+    for name in ("dit_params", "dit_params_high"):
+        got = getattr(tp, name)
+        assert tq.has_quantized(got)
+        _assert_trees_equal(got, _jax_tree(quant(getattr(jp, name))), name)
+    served = tserver.default_pipeline_factory(str(d), dtype_name="float32", device="cpu",
+                                              quantize=mode)()
+    assert tq.has_quantized(served.dit_params) and tq.has_quantized(served.dit_params_high)
+    with pytest.raises(ValueError, match="already quantized"):
+        tserver.run_loaded_request(served, {"quantize_bits": 4, "int8_compute": mode[1]},
+                                   None, None)
+    assert served._quantized == mode
 
 
 def test_checkpoint_round_trip_and_template(tmp_path):

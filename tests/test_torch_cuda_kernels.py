@@ -290,6 +290,26 @@ def test_back_to_back_launches_agree(dev, flavor):
     assert err <= BF16_BAR * mx, (err, mx)
 
 
+@pytest.mark.parametrize("skv", [257, 512])
+def test_flash_exp2_at_the_i2v_cross_shapes(dev, skv):
+    """Row 4b where the i2v branch launches it: [2, 12, 32,760, 128]
+    queries against the CLIP tokens' 257 keys (two full 128-key tiles and
+    one live key) and the text's 512, no k_lens, through flash_attention as
+    models/wan_dit.py calls it: within the bar of the plain version, a rerun
+    bit-identical, twenty back-to-back launches bit-identical."""
+    q, k, v, _ = _head_major(dev, 2, 12, 32760, skv)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    ref = fa.flash_attention_plain(q, k, v)
+    err, mx = _err(got, ref)
+    assert err <= BF16_BAR * mx, (err, mx)
+    outs = [fa.flash_attention(q, k, v) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, got) for o in outs)
+
+
 @pytest.mark.parametrize("case", FA_CASES)
 def test_backward_kernels_match_plain(dev, case):
     from versecrafter_tpu_torch.kernels import flash_attention_bwd as fab

@@ -73,7 +73,7 @@ def test_the_port_imports_without_cv2_safetensors_transformers():
     for name in ("core.convert", "core.checkpoint", "serve.api_server", "serve.http",
                  "serve.tasks", "utils.video", "utils.profiling", "cli.inference",
                  "geometry.pointcloud", "geometry.gaussians", "geometry.render",
-                 "cli.render_maps", "cli.fit_gaussian"):
+                 "cli.render_maps", "cli.fit_gaussian", "models.clip"):
         assert f"versecrafter_tpu_torch.{name}" in names
 
 
@@ -106,3 +106,20 @@ def test_named_configs_match_jax():
     cfg = tconfig.versecrafter_14b()
     assert cfg.resolved_geoada_layers == jconfig.versecrafter_14b().resolved_geoada_layers
     assert cfg.head_dim == 128
+
+
+@pytest.mark.parametrize("preset", [None, "expandable_segments:False"])
+def test_import_sets_the_allocator_default(preset):
+    """Importing the port turns on the CUDA caching allocator's expandable
+    segments (a quantized expert pair fits one card only with them,
+    PERF.md); a caller's own setting stands."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF", "PYTHONSTARTUP")}
+    if preset is not None:
+        env["PYTORCH_CUDA_ALLOC_CONF"] = preset
+    proc = subprocess.run(
+        [sys.executable, "-c", "import os, versecrafter_tpu_torch; "
+                               "print(os.environ['PYTORCH_CUDA_ALLOC_CONF'])"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == (preset or "expandable_segments:True")

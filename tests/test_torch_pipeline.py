@@ -132,8 +132,9 @@ def test_stages_match_jax(pipes):
     ref = jp.encode_prompt("a car", "static")
     got = tp.encode_prompt("a car", "static")
     assert _rel_err(got, ref) <= 1e-4
-    ref = jp.encode_controls(controls, mask, jnp.float32)[0]
-    got = tp.encode_controls(controls, mask, torch.float32)
+    ref, n_ref = jp.encode_controls(controls, mask, jnp.float32)
+    got, n_got = tp.encode_controls(controls, mask, torch.float32)
+    assert n_got == n_ref == 0
     assert _rel_err(got, ref) <= 1e-4
 
 
@@ -172,10 +173,12 @@ def test_uint8_request_through_call_pipe(pipes):
     assert out.dtype == np.uint8 and out.shape == (1, 5, 8, 8, 3)
 
 
-def test_not_ported_features_raise(pipes):
-    """clip_fea still raises; TeaCache and cfg-skip (ported) now apply: the
-    toggles set the pipeline's fields and a request runs with them."""
-    _, tp = pipes
+def test_runtime_features_apply(pipes):
+    """TeaCache and cfg-skip: the toggles set the pipeline's fields and a
+    request runs with them. clip_fea reaches a DiT without img_emb as the
+    JAX package passes it: ignored, the latents those of the request
+    without it."""
+    jp, tp = pipes
     try:
         tp.enable_teacache(0.1, skip_start=1)
         tp.enable_cfg_skip(0.5)
@@ -191,11 +194,13 @@ def test_not_ported_features_raise(pipes):
         tp.enable_cfg_skip(0.0)
         tp.teacache_debug = False
     assert tp.teacache_threshold == 0.0 and tp.cfg_skip_ratio == 0.0
-    with pytest.raises(NotImplementedError):
-        _run_kw = dict(clip_fea=np.zeros((1, 257, 1280), np.float32))
-        controls, mask, noise = _inputs()
-        tp("x", control_videos=controls, mask_video=mask, height=8, width=8,
-           num_frames=5, num_inference_steps=1, **_run_kw)
+    clip = np.random.default_rng(1).standard_normal((1, 257, 1280)).astype(np.float32)
+    controls, mask, noise = _inputs()
+    kw = dict(control_videos=controls, mask_video=mask, latents=noise, height=8, width=8,
+              num_frames=5, num_inference_steps=2, output_type="latent")
+    got = tp("x", dtype=torch.float32, clip_fea=clip, **kw)
+    assert torch.equal(got, tp("x", dtype=torch.float32, **kw))
+    assert _rel_err(got, jp("x", dtype=jnp.float32, clip_fea=clip, **kw)) <= 1e-4
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, pipes):

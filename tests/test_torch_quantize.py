@@ -414,9 +414,16 @@ def test_quantize_weights_options(pipes, small_min_size):
     _, tp = pipes
     saved = tp.dit_params
     try:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tp.quantize_weights(act_scales_high={})
-        tp.quantize_weights(int8_compute=True, bits=4, int8_sites=("ffn",))
+        # a resident high-noise expert takes its own act_scales_high, the low
+        # one dynamic scales (tests/test_torch_extras.py holds the pair to the
+        # JAX package)
+        tp.dit_params_high = saved
+        tp.quantize_weights(int8_compute=True, bits=4, int8_sites=("ffn",),
+                            act_scales_high={"blocks/ffn_in/kernel":
+                                             torch.full((len(saved["blocks"]),), 0.05)})
+        hi = tp.dit_params_high["blocks"][3]["ffn_in"]["kernel"]
+        assert "a_scale" in hi and float(hi["a_scale"]) == np.float32(0.05)
+        assert "a_dyn" in tp.dit_params["blocks"][3]["ffn_in"]["kernel"]
         b = tp.dit_params["blocks"][3]
         assert "q4values" in b["ffn_out"]["kernel"] and tq.is_compute_tagged(b["ffn_out"]["kernel"])
         assert b["ffn_out"]["kernel"]["qscales"].ndim == 2  # per channel under W4A8
@@ -425,6 +432,7 @@ def test_quantize_weights_options(pipes, small_min_size):
         assert tq.tree_bytes(tp.dit_params) < tq.tree_bytes(saved)
     finally:
         tp.dit_params = saved
+        tp.dit_params_high = None
 
 
 def test_params_from_jax_carries_a_quantized_tree(small_min_size):

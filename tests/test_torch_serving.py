@@ -443,9 +443,75 @@ def test_cli_in_process(workdir, capsys):
     assert lines[-1] == out and os.path.isfile(out)
 
 
+def test_cli_quantizes_as_it_loads(workdir, monkeypatch, tmp_path):
+    """Without --lora_path the quantize flags reach the pipeline's build
+    (each expert quantized as it is made) instead of quantize_weights
+    afterwards."""
+    from versecrafter_tpu_torch.sampling import pipeline as tpipe
+
+    seen = []
+    orig = tserve.default_pipeline_factory
+    monkeypatch.setattr(tserve, "default_pipeline_factory", lambda *a, **k: (
+        seen.append(k.get("quantize")), orig(*a, **k))[1])
+    monkeypatch.setattr(tpipe.VerseCrafterPipeline, "quantize_weights",
+                        lambda self, **kw: seen.append("quantize_weights"))
+    out = tinf.main(["--offline_smoke", "--smoke_scale", "tiny", "--device", "cpu",
+                     "--rendering_maps_path", str(workdir / "maps"), "--prompt", "x",
+                     "--input_image_path", "", "--sample_size", "16,16",
+                     "--video_length", "5", "--num_inference_steps", "2",
+                     "--int8_compute", "--save_path", str(tmp_path / "cli")])
+    assert os.path.isfile(out) and seen == [(8, True)]
+
+
+@pytest.mark.parametrize("source", ["fresh", "transformer_high_path"])
+def test_cli_moe(workdir, capsys, monkeypatch, tmp_path, source):
+    """--moe: a shell pipeline whose experts the swap builds where the
+    schedule crosses --moe_boundary, high first, each build printed as
+    {"expert_build": which, "s": ...}: from seeds 1 and 0 without
+    --model_name, else the low expert from the model directory and the high
+    one from --transformer_high_path."""
+    built = []
+    if source == "fresh":
+        orig = tserve.build_dit
+        monkeypatch.setattr(tserve, "build_dit", lambda cfg, seed, *a, **k: (
+            built.append(seed), orig(cfg, seed, *a, **k))[1])
+        flags = ["--offline_smoke", "--smoke_scale", "tiny"]
+    else:
+        from test_torch_convert import (DIR_CFG, _as_torch, _t5_to_torch_layout,
+                                        _vae_to_torch_layout, _write_dit)
+        from versecrafter_tpu_torch.core import convert as tconvert
+        model = tmp_path / "model"
+        _write_dit(str(model), DIR_CFG, 5)
+        _write_dit(str(tmp_path / "high"), DIR_CFG, 6)
+        vae = _init(tvae.init_vae, VAE_CFG, 6, tconfig.VAEConfig)
+        torch.save(_as_torch(_vae_to_torch_layout(vae, VAE_CFG), torch.float32),
+                   str(model / "Wan2.1_VAE.pth"))
+        t5 = _init(tt5.init_t5, T5_CFG, 7, tconfig.T5Config)
+        torch.save(_as_torch(_t5_to_torch_layout(t5, T5_CFG), torch.bfloat16),
+                   str(model / "models_t5_umt5-xxl-enc-bf16.pth"))
+        monkeypatch.setattr(tconvert, "T5Config", lambda: _port(T5_CFG, tconfig.T5Config))
+        monkeypatch.setattr(tconvert, "VAEConfig", lambda: _port(VAE_CFG, tconfig.VAEConfig))
+        orig = tconvert.load_dit
+        monkeypatch.setattr(tconvert, "load_dit", lambda d, *a, **k: (
+            built.append(os.path.basename(d)), orig(d, *a, **k))[1])
+        flags = ["--model_name", str(model), "--transformer_high_path",
+                 str(tmp_path / "high"), "--geoada_in_dim", "20"]
+    out = tinf.main([*flags, "--moe", "--moe_boundary", "0.9", "--device", "cpu",
+                     "--rendering_maps_path", str(workdir / "maps"), "--prompt", "x",
+                     "--input_image_path", str(workdir / "input.png"),
+                     "--sample_size", "16,16", "--video_length", "5",
+                     "--num_inference_steps", "3", "--cfg_parallel", "off",
+                     "--teacache_threshold", "0", "--save_path", str(tmp_path / "cli")])
+    lines = capsys.readouterr().out.strip().splitlines()
+    builds = [json.loads(x)["expert_build"] for x in lines if x.startswith('{"expert_build"')]
+    assert builds == ["high", "low"]
+    assert built == ([1, 0] if source == "fresh" else ["high", "model"])
+    assert lines[-1] == out and os.path.isfile(out)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--staged"], "item 6"), (["--fit_teacache"], "item 6"), (["--moe"], "item 8"),
-    (["--transformer_high_path", "x"], "item 8"), (["--ring_degree", "2"], "item 11"),
+    (["--staged"], "item 6"), (["--fit_teacache"], "item 6"),
+    (["--ring_degree", "2"], "item 11"),
     (["--ulysses_degree", "2"], "item 11"), (["--auto_parallel"], "item 11"),
 ])
 def test_cli_unported_flags_raise(flags, item):
@@ -469,6 +535,24 @@ def test_model_server_unported_flags_raise(flags, item):
         tserve.main(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="item 6"):
         tserve.ModelServer(lambda: None, staged_factories=object())
+
+
+@pytest.mark.parametrize("weights,mode", [("bf16", None), ("int8", (8, False)),
+                                          ("w8a8", (8, True)), ("w4a8", (4, True))])
+def test_model_server_resident_weights(weights, mode, monkeypatch):
+    """--resident_weights reaches default_pipeline_factory as its quantize
+    (bits, int8_compute), so a model directory loads quantized."""
+    seen = {}
+
+    class Stub:
+        def serve_forever(self):
+            seen["served"] = True
+
+    monkeypatch.setattr(tserve, "default_pipeline_factory",
+                        lambda path, **kw: seen.update(path=path, **kw) or (lambda: None))
+    monkeypatch.setattr(tserve, "make_server", lambda *a: Stub())
+    tserve.main(["--device", "cpu", "--model_path", "m", "--resident_weights", weights])
+    assert seen == {"path": "m", "device": "cpu", "quantize": mode, "served": True}
 
 
 def test_api_server_auto_mesh_raises():

@@ -185,7 +185,7 @@ def test_streamed_controls_match_jax(pipes, stream_everything):
     jp, tp = pipes
     controls, mask = _controls()
     ref = jp.encode_controls(controls, mask, jnp.float32)[0]
-    got = tp.encode_controls(controls, mask, torch.float32)
+    got = tp.encode_controls(controls, mask, torch.float32)[0]
     assert stream_everything["encode"] == 2
     assert _rel_err(got, ref) <= BAR
 

@@ -118,6 +118,16 @@ def test_patchify_unpatchify_sinusoid():
 
 
 def test_not_ported_options_raise():
-    cfg = _port_cfg(dataclasses.replace(GEO_CFG, add_control_adapter=True))
-    with pytest.raises(NotImplementedError):
-        twan.init_wan_dit(cfg, torch.Generator().manual_seed(0))
+    """Non-uniform geoada_layers raise in both packages, with the same
+    message (the i2v and SimpleAdapter branches it used to cover are
+    ported: tests/test_torch_extras.py)."""
+    cfg = dataclasses.replace(GEO_CFG, geoada_layers=(0, 1))
+    params, (x, t, ctx, cos, sin, g) = _geo_setup()
+    with pytest.raises(NotImplementedError, match="non-uniform geoada_layers") as ej:
+        wan_dit_forward(params, cfg, x, t, ctx, cos, sin, geoada_context=g)
+    tp = params_from_jax(jax.tree.map(np.asarray, params))
+    with pytest.raises(NotImplementedError, match="non-uniform geoada_layers") as et:
+        twan.wan_dit_forward(tp, _port_cfg(cfg), *(torch.from_numpy(a) for a in
+                                                   (x, t, ctx, cos, sin)),
+                             geoada_context=torch.from_numpy(g))
+    assert str(et.value) == str(ej.value)

@@ -5,7 +5,20 @@ package imports torch and numpy only, and nothing of the JAX package. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-import torch
+import os
+
+# The CUDA caching allocator with expandable segments. A DiT quantized
+# block by block as it is built or loaded (utils/quantize.quantize_dit)
+# leaves its int8 leaves in segments split by the bf16 blocks and the
+# temporaries it freed; with a resident Wan2.2-A14B W8A8 pair on one 80 GB
+# card the 480x832x81 request then ran out of memory at 64.0 GiB allocated
+# beside 11.4 GiB reserved but unused (PERF.md). Read at the first CUDA
+# allocation, so it holds when the port is imported before one; a setting
+# of the caller's stands.
+if "PYTORCH_ALLOC_CONF" not in os.environ:
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 
 def resolve_device(device=None) -> torch.device:

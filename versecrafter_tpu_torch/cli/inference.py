@@ -16,11 +16,22 @@ subprocess tier reads both). Reading the maps and writing the mp4 need
 OpenCV (utils/video.py). As in the JAX CLI, --lora_path (any state dict
 core.convert.load_torch_state_dict reads) is merged at --lora_weight first,
 then --quantize_int8 / --int8_compute store the DiT in --quantize_bits
-(W8A8 / W4A8 with --int8_compute), then --int8_attention applies.
+(W8A8 / W4A8 with --int8_compute), then --int8_attention applies. Without
+a LoRA the DiT is quantized as it loads, each expert of a
+low_noise_model/ + high_noise_model/ directory before the next is read, so
+a Wan2.2-A14B pair fits one 80 GB card resident in int8.
+
+--moe runs the Wan2.2 two-expert timestep-MoE as an expert swap: the
+high-noise expert (from --transformer_high_path, a high_noise_model/ beside
+low_noise_model/ under the transformer directory, or the low expert's
+checkpoint; a fresh init from seed 1 without --model_name) takes the steps
+with sigma >= --moe_boundary, the low one the rest, and only one is ever
+resident: each is built where the schedule crosses to it, printing
+{"expert_build": which, "s": seconds}; each expert takes the LoRA and
+quantize flags as it is built.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
---staged and --fit_teacache (staged residency), --moe and
---transformer_high_path (Wan2.2 experts), mesh degrees > 1 and
+--staged and --fit_teacache (staged residency), mesh degrees > 1 and
 --auto_parallel.
 """
 
@@ -94,10 +105,13 @@ def parse_args(argv=None):
                    help="random-weight model size without --model_name (tiny: "
                         "head_dim 16, the CPU only)")
     p.add_argument("--staged", action="store_true", help="not ported yet")
-    p.add_argument("--moe", action="store_true", help="not ported yet")
-    p.add_argument("--moe_boundary", type=float, default=0.875)
+    p.add_argument("--moe", action="store_true",
+                   help="Wan2.2 two-expert timestep MoE, one expert resident at a "
+                        "time (swapped where sigma crosses --moe_boundary)")
+    p.add_argument("--moe_boundary", type=float, default=0.875,
+                   help="sigma >= boundary selects the high-noise expert")
     p.add_argument("--transformer_high_path", type=str, default=None,
-                   help="not ported yet")
+                   help="high-noise expert checkpoint dir (Wan2.2)")
     p.add_argument("--cfg_parallel", type=str, default="auto", choices=("auto", "on", "off"),
                    help="off: the CFG pair as two batch-1 forwards; auto and on: "
                         "one batch-2 forward")
@@ -114,9 +128,48 @@ def _check_ported(args):
     check_ported_serving_flags(args)
     if args.fit_teacache is not None:
         raise NotImplementedError(f"--fit_teacache (with --staged) is not ported yet {STAGED}")
-    if args.moe or args.transformer_high_path:
-        raise NotImplementedError("the Wan2.2 two-expert MoE is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+
+
+def expert_swap(args, pipe, dev):
+    """The --moe expert swap: which -> that expert's DiT, built on `dev`
+    (from its checkpoint directory, or from seed 0 / 1 for the low / high
+    expert), printing its build seconds."""
+    import torch
+
+    from versecrafter_tpu_torch.serve.model_server import build_dit
+
+    if args.model_name:
+        from versecrafter_tpu_torch.core.convert import expert_dirs, load_dit
+        low_dir, high_dir = expert_dirs(args.model_name, args.transformer_path,
+                                        args.transformer_high_path)
+        dirs = {"low": low_dir, "high": high_dir or low_dir}
+
+        def build(which):
+            return load_dit(dirs[which], pipe.dit_cfg, torch.bfloat16, dev,
+                            "" if which == "low" else " (high-noise)")
+    else:
+        def build(which):
+            return build_dit(pipe.dit_cfg, 1 if which == "high" else 0, dev)
+
+    def swap(which):
+        t0 = time.perf_counter()
+        pipe.dit_params = build(which)
+        apply_weight_flags(args, pipe)
+        print(json.dumps({"expert_build": which,
+                          "s": round(time.perf_counter() - t0, 1)}), flush=True)
+        return pipe.dit_params
+    return swap
+
+
+def apply_weight_flags(args, pipe, quantize=True):
+    """--lora_path merged at --lora_weight, then (unless quantize=False: the
+    DiT was quantized as it loaded) --quantize_int8 / --int8_compute in
+    --quantize_bits, on the pipeline's resident DiT."""
+    if args.lora_path:
+        from versecrafter_tpu_torch.core.convert import load_torch_state_dict
+        pipe.merge_lora(load_torch_state_dict(args.lora_path), args.lora_weight)
+    if quantize and (args.quantize_int8 or args.int8_compute):
+        pipe.quantize_weights(int8_compute=args.int8_compute, bits=args.quantize_bits)
 
 
 def main(argv=None):
@@ -137,15 +190,24 @@ def main(argv=None):
     if args.num_inference_steps is None:
         args.num_inference_steps = defaults[3]
 
+    # without a LoRA to merge into the bf16 weights first, quantized as it loads
+    load_quant = ((args.quantize_bits, args.int8_compute)
+                  if (args.quantize_int8 or args.int8_compute)
+                  and not (args.lora_path or args.moe) else None)
     t_build = time.perf_counter()
     if args.model_name:
         from versecrafter_tpu_torch.core.convert import load_versecrafter
         pipe = load_versecrafter(args.model_name, transformer_path=args.transformer_path,
                                  geoada_in_dim=args.geoada_in_dim,
-                                 scheduler=SAMPLERS[args.sampler], device=dev)
+                                 scheduler=SAMPLERS[args.sampler], device=dev,
+                                 load_dit_params=not args.moe, quantize=load_quant)
     else:
-        pipe = default_pipeline_factory(scale=args.smoke_scale, device=dev)()
+        pipe = default_pipeline_factory(scale=args.smoke_scale, device=dev,
+                                        with_dit=not args.moe, quantize=load_quant)()
         pipe.scheduler_name = SAMPLERS[args.sampler]
+    if args.moe:  # a shell: the experts are built by the swap
+        pipe.expert_swap = expert_swap(args, pipe, dev)
+        pipe.moe_boundary = args.moe_boundary
     t_build = time.perf_counter() - t_build
 
     if args.teacache_coeffs:
@@ -162,11 +224,8 @@ def main(argv=None):
     if args.enable_riflex:
         lat_frames = (args.video_length - 1) // pipe.vae_cfg.temporal_compression_ratio + 1
         pipe.enable_riflex(k=args.riflex_k, L_test=lat_frames)
-    if args.lora_path:
-        from versecrafter_tpu_torch.core.convert import load_torch_state_dict
-        pipe.merge_lora(load_torch_state_dict(args.lora_path), args.lora_weight)
-    if args.quantize_int8 or args.int8_compute:
-        pipe.quantize_weights(int8_compute=args.int8_compute, bits=args.quantize_bits)
+    if not args.moe:
+        apply_weight_flags(args, pipe, quantize=load_quant is None)
     if args.int8_attention:
         pipe.enable_int8_attention()
 

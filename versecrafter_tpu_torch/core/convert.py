@@ -12,8 +12,11 @@ scalar a_dyn / a_scale, and the leaf's zero-size qdtype token unsliced.
 
 `convert_wan_dit`, `convert_wan_vae` and `convert_wan_t5` map the
 reference's torch state dicts (the DiT + GeoAdapter from sharded
-safetensors, `Wan2.1_VAE.pth`, `models_t5_umt5-xxl-enc-bf16.pth`) into the
-same trees, as the JAX package's converters of the same names do:
+safetensors, with the i2v `img_emb` / `k_img` / `v_img` keys and the
+SimpleAdapter's `control_adapter.*` when present, `Wan2.1_VAE.pth`,
+`models_t5_umt5-xxl-enc-bf16.pth`) into the same trees, as the JAX
+package's converters of the same names do (`maybe_load_clip` reads a
+`models_clip_*.pth` CLIP tower through models/clip.py):
 
 - torch Linear [out, in] -> kernel [in, out];
 - conv3d patch embedding [D, C, pt, ph, pw] -> matmul kernel
@@ -45,11 +48,9 @@ import numpy as np
 import torch
 
 from versecrafter_tpu_torch.core.config import T5Config, VAEConfig, WanDiTConfig
+from versecrafter_tpu_torch.utils import quantize as qz
 
 _STACKED = ("blocks", "geoada_blocks")
-
-# ROADMAP queue 1 item 8: the DiT and pipeline extras the port lacks
-_EXTRAS = "(ROADMAP queue 1, item 8)"
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -287,7 +288,7 @@ def _linear(sd: _SD, prefix: str, dtype, bias=True) -> dict:
     return out
 
 
-def _attn(sd: _SD, prefix: str, dtype) -> dict:
+def _attn(sd: _SD, prefix: str, dtype, img_kv=False) -> dict:
     p = {n: _linear(sd, f"{prefix}.{n}", dtype) for n in ("q", "k", "v", "o")}
     nq = sd.get(f"{prefix}.norm_q.weight", torch.float32)
     nk = sd.get(f"{prefix}.norm_k.weight", torch.float32)
@@ -295,13 +296,22 @@ def _attn(sd: _SD, prefix: str, dtype) -> dict:
         p["norm_q"] = {"scale": nq}
     if nk is not None:
         p["norm_k"] = {"scale": nk}
+    if img_kv:  # the i2v image-token keys and values
+        ki = _linear(sd, f"{prefix}.k_img", dtype)
+        if ki:
+            p["k_img"] = ki
+            p["v_img"] = _linear(sd, f"{prefix}.v_img", dtype)
+            nki = sd.get(f"{prefix}.norm_k_img.weight", torch.float32)
+            if nki is not None:
+                p["norm_k_img"] = {"scale": nki}
     return p
 
 
 def _block(sd: _SD, prefix: str, cfg: WanDiTConfig, dtype, geoada=False) -> dict:
     p = {
         "self_attn": _attn(sd, f"{prefix}.self_attn", dtype),
-        "cross_attn": _attn(sd, f"{prefix}.cross_attn", dtype),
+        "cross_attn": _attn(sd, f"{prefix}.cross_attn", dtype,
+                            img_kv=cfg.model_type == "i2v" and not geoada),
         "ffn_in": _linear(sd, f"{prefix}.ffn.0", dtype),
         "ffn_out": _linear(sd, f"{prefix}.ffn.2", dtype),
         "modulation": sd.get(f"{prefix}.modulation", torch.float32,
@@ -329,19 +339,34 @@ def _init_linear_key0(d_in: int, d_out: int, dtype, device) -> dict:
     return {"kernel": kernel, "bias": torch.zeros((d_out,), dtype=dtype, device=device)}
 
 
-def _check_dit_supported(sd: Mapping, cfg: WanDiTConfig):
-    if cfg.model_type == "i2v" or cfg.add_img_emb:
-        raise NotImplementedError(
-            f"the i2v img_emb / k_img branch is not ported yet {_EXTRAS}")
-    for name in sd:
-        if name.startswith("control_adapter."):
-            raise NotImplementedError(
-                f"checkpoint key {name}: the SimpleAdapter camera branch is not "
-                f"ported yet {_EXTRAS}")
-        if name.startswith("img_emb.") or "k_img" in name:
-            raise NotImplementedError(
-                f"checkpoint key {name}: the i2v img_emb / k_img branch is not "
-                f"ported yet {_EXTRAS}")
+def _convert_simple_adapter(sd: _SD, cfg: WanDiTConfig, dtype) -> dict:
+    """The SimpleAdapter's keys: PixelUnshuffle + Conv2d(kernel = stride =
+    patch_size[1:]) as `control_adapter.conv`, whose [D, C*ds*ds, kh, kw]
+    weight flattens in simple_adapter's (c', kh, kw) patch order, then
+    residual blocks of Sequential(ReLU, Conv3x3, ReLU, Conv3x3) at
+    `residual_blocks.{i}.block.1` / `.block.3`, their OIHW weights -> HWIO."""
+    ca: dict = {"conv": {
+        "kernel": _t(sd.get("control_adapter.conv.weight", dtype, reshape=(cfg.dim, -1))),
+        "bias": sd.get("control_adapter.conv.bias", dtype)}, "res": []}
+
+    def conv3x3(name):
+        return {"kernel": sd.get(f"{name}.weight", dtype).permute(2, 3, 1, 0).contiguous(),
+                "bias": sd.get(f"{name}.bias", dtype)}
+
+    i = 0
+    while f"control_adapter.residual_blocks.{i}.block.1.weight" in sd.sd:
+        pre = f"control_adapter.residual_blocks.{i}.block"
+        ca["res"].append({"conv1": conv3x3(f"{pre}.1"), "conv2": conv3x3(f"{pre}.3")})
+        i += 1
+    return ca
+
+
+def convert_simple_adapter(state_dict: Mapping, cfg: WanDiTConfig, dtype=torch.bfloat16,
+                           device=None) -> dict:
+    """A bare SimpleAdapter state dict (keys prefixed 'control_adapter.')
+    -> the adapter's tree."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return _convert_simple_adapter(_SD(state_dict, device), cfg, dtype)
 
 
 def convert_wan_dit(state_dict: Mapping, cfg: WanDiTConfig, dtype=torch.bfloat16,
@@ -351,8 +376,8 @@ def convert_wan_dit(state_dict: Mapping, cfg: WanDiTConfig, dtype=torch.bfloat16
     the time embedding and projection, modulations and norm scales in fp32.
     A checkpoint whose geoada_patch_embedding does not fit
     cfg.geoada_in_dim gets a fresh one, drawn as the JAX converter draws it.
-    The i2v branch and the SimpleAdapter raise NotImplementedError."""
-    _check_dit_supported(state_dict, cfg)
+    `control_adapter.*` keys give the SimpleAdapter, and an i2v config's
+    `img_emb.proj.*` keys its image embedding (norms in fp32)."""
     device = torch.device("cpu") if device is None else torch.device(device)
     sd = _SD(state_dict, device)
     pt, ph, pw = cfg.patch_size
@@ -396,6 +421,17 @@ def convert_wan_dit(state_dict: Mapping, cfg: WanDiTConfig, dtype=torch.bfloat16
         else:  # geoada_in_dim differs from the checkpoint's: a fresh init
             params["geoada_patch_embedding"] = _init_linear_key0(d_in, cfg.dim, dtype,
                                                                  device)
+    if "control_adapter.conv.weight" in state_dict:
+        params["control_adapter"] = _convert_simple_adapter(sd, cfg, dtype)
+    if cfg.model_type == "i2v" and "img_emb.proj.0.weight" in state_dict:
+        params["img_emb"] = {
+            "norm_in": {"scale": sd.get("img_emb.proj.0.weight", torch.float32),
+                        "bias": sd.get("img_emb.proj.0.bias", torch.float32)},
+            "fc1": _linear(sd, "img_emb.proj.1", dtype),
+            "fc2": _linear(sd, "img_emb.proj.3", dtype),
+            "norm_out": {"scale": sd.get("img_emb.proj.4.weight", torch.float32),
+                         "bias": sd.get("img_emb.proj.4.bias", torch.float32)},
+        }
     return params, {"skipped": sd.skipped, "unused": sd.unused()}
 
 
@@ -548,36 +584,21 @@ def convert_wan_t5(state_dict: Mapping, cfg: T5Config, dtype=torch.bfloat16,
 # a whole pipeline from a reference-layout model directory
 # ---------------------------------------------------------------------------
 
-def load_versecrafter(model_dir: str, transformer_path: Optional[str] = None,
-                      geoada_in_dim: int = 128, dtype=torch.bfloat16,
-                      scheduler: str = "unipc", tokenizer_path: Optional[str] = None,
-                      device=None):
-    """The pipeline of a reference-layout model directory: config.json and
-    the DiT + GeoAdapter as *.safetensors shards (in `transformer_path` if
-    given), Wan2.1_VAE.pth (fp32) and models_t5_umt5-xxl-enc-bf16.pth (the
-    full umT5-xxl), and the tokenizer of google/umt5-xxl (the hash tokenizer
-    where `transformers` is missing). Every leaf is placed on `device`
-    (default cuda) as it is read. A Wan2.2 low/high-noise expert pair, the
-    i2v branch (config model_type 'i2v', img_emb / k_img keys, a
-    models_clip_*.pth) and SimpleAdapter keys raise NotImplementedError."""
-    from versecrafter_tpu_torch import resolve_device
-    from versecrafter_tpu_torch.sampling.pipeline import VerseCrafterPipeline
-    from versecrafter_tpu_torch.utils.tokenizer import load_tokenizer
+def maybe_load_clip(model_dir: str, dtype=torch.bfloat16, device=None):
+    """(params, cfg) of the CLIP vision tower a model directory ships as
+    models_clip_*.pth (the first by name), converted by
+    models/clip.convert_clip_vision; (None, None) without one."""
+    ckpts = sorted(glob.glob(os.path.join(model_dir, "models_clip_*.pth")))
+    if not ckpts:
+        return None, None
+    from versecrafter_tpu_torch.models.clip import convert_clip_vision
+    return convert_clip_vision(load_torch_state_dict(ckpts[0]), dtype=dtype, device=device)
 
-    dev = resolve_device(device)
-    tdir = transformer_path or model_dir
-    if all(os.path.isdir(os.path.join(tdir, d))
-           for d in ("low_noise_model", "high_noise_model")):
-        raise NotImplementedError(
-            f"{tdir} holds a Wan2.2 low/high-noise expert pair; the MoE experts "
-            f"are not ported yet {_EXTRAS}")
-    clip = sorted(glob.glob(os.path.join(model_dir, "models_clip_*.pth")))
-    if clip:
-        raise NotImplementedError(
-            f"{clip[0]}: the i2v CLIP image encoder is not ported yet {_EXTRAS}")
+
+def _dit_config(tdir: str, geoada_in_dim) -> WanDiTConfig:
     with open(os.path.join(tdir, "config.json")) as f:
         tc = json.load(f)
-    cfg = WanDiTConfig(  # the JAX package's key fallbacks and defaults
+    return WanDiTConfig(  # the JAX package's key fallbacks and defaults
         model_type=tc.get("model_type", "t2v"),
         patch_size=tuple(tc.get("patch_size", (1, 2, 2))),
         in_dim=tc.get("in_dim", tc.get("in_channels", 16)),
@@ -593,12 +614,73 @@ def load_versecrafter(model_dir: str, transformer_path: Optional[str] = None,
         geoada_in_dim=geoada_in_dim or tc.get("geoada_in_dim"),
     )
 
-    dit_params, report = convert_wan_dit(load_torch_state_dict(tdir), cfg, dtype, dev)
+
+def load_dit(tdir: str, cfg: WanDiTConfig, dtype=torch.bfloat16, device=None,
+             tag: str = "") -> dict:
+    """The DiT tree of a directory of *.safetensors shards, leaf by leaf on
+    `device`; skipped and unused keys are printed."""
+    params, report = convert_wan_dit(load_torch_state_dict(tdir), cfg, dtype, device)
     if report["skipped"]:
-        print(f"convert_wan_dit skipped: {report['skipped'][:8]}", flush=True)
+        print(f"convert_wan_dit{tag} skipped: {report['skipped'][:8]}", flush=True)
     if report["unused"]:
-        print(f"convert_wan_dit left {len(report['unused'])} keys unused: "
+        print(f"convert_wan_dit{tag} left {len(report['unused'])} keys unused: "
               f"{report['unused'][:8]}", flush=True)
+    return params
+
+
+def expert_dirs(model_dir: str, transformer_path: Optional[str] = None,
+                high_noise_path: Optional[str] = None):
+    """(low / single expert's dir, high-noise expert's dir or None): a
+    Wan2.2 low_noise_model/ + high_noise_model/ pair under the transformer
+    directory is found by itself; `high_noise_path` names the high expert
+    elsewhere."""
+    tdir = transformer_path or model_dir
+    low_dir = os.path.join(tdir, "low_noise_model")
+    high_dir = high_noise_path or os.path.join(tdir, "high_noise_model")
+    if os.path.isdir(low_dir) and os.path.isdir(high_dir):
+        tdir = low_dir
+    elif not (high_noise_path and os.path.isdir(high_dir)):
+        high_dir = None
+    return tdir, high_dir
+
+
+def load_versecrafter(model_dir: str, transformer_path: Optional[str] = None,
+                      geoada_in_dim: int = 128, dtype=torch.bfloat16,
+                      scheduler: str = "unipc", tokenizer_path: Optional[str] = None,
+                      device=None, high_noise_path: Optional[str] = None,
+                      moe_boundary: float = 0.875, load_dit_params: bool = True,
+                      quantize: Optional[Tuple[int, bool]] = None):
+    """The pipeline of a reference-layout model directory: config.json and
+    the DiT + GeoAdapter as *.safetensors shards (in `transformer_path` if
+    given), Wan2.1_VAE.pth (fp32) and models_t5_umt5-xxl-enc-bf16.pth (the
+    full umT5-xxl), the tokenizer of google/umt5-xxl (the hash tokenizer
+    where `transformers` is missing), and a models_clip_*.pth CLIP tower
+    when present. A Wan2.2 low_noise_model/ + high_noise_model/ pair (or
+    `high_noise_path`) gives a resident expert pair, the high-noise one
+    taking the steps with sigma >= moe_boundary. Every leaf is placed on
+    `device` (default cuda) as it is read. quantize=(bits, int8_compute)
+    quantizes each expert in place (utils/quantize.quantize_dit, dynamic
+    activation scales) before the next one is read, so a pair loads whose
+    bf16 experts would not fit together (Wan2.2-A14B on one 80 GB card).
+    load_dit_params=False reads the DiT's config only and leaves dit_params
+    None (the shell an expert_swap fills)."""
+    from versecrafter_tpu_torch import resolve_device
+    from versecrafter_tpu_torch.sampling.pipeline import VerseCrafterPipeline
+    from versecrafter_tpu_torch.utils.tokenizer import load_tokenizer
+
+    dev = resolve_device(device)
+    tdir, high_dir = expert_dirs(model_dir, transformer_path, high_noise_path)
+    cfg = _dit_config(tdir, geoada_in_dim)
+
+    def expert(d, tag=""):
+        params = load_dit(d, cfg, dtype, dev, tag)
+        return params if quantize is None else qz.quantize_dit(params, *quantize)
+
+    dit_params = dit_params_high = None
+    if load_dit_params:
+        dit_params = expert(tdir)
+        if high_dir:
+            dit_params_high = expert(high_dir, " (high-noise)")
 
     vae_cfg = VAEConfig()
     vae_params, _ = convert_wan_vae(
@@ -609,6 +691,7 @@ def load_versecrafter(model_dir: str, transformer_path: Optional[str] = None,
     t5_params, _ = convert_wan_t5(
         load_torch_state_dict(os.path.join(model_dir, "models_t5_umt5-xxl-enc-bf16.pth")),
         t5_cfg, dtype, dev)
+    clip_params, clip_cfg = maybe_load_clip(model_dir, dtype, dev)
 
     return VerseCrafterPipeline(
         dit_params=dit_params, dit_cfg=cfg,
@@ -617,4 +700,6 @@ def load_versecrafter(model_dir: str, transformer_path: Optional[str] = None,
         tokenizer=load_tokenizer(tokenizer_path
                                  or os.path.join(model_dir, "google/umt5-xxl"),
                                  vocab_size=t5_cfg.vocab),
+        clip_params=clip_params, clip_cfg=clip_cfg,
+        dit_params_high=dit_params_high, moe_boundary=moe_boundary,
         scheduler_name=scheduler, device=dev)

@@ -10,8 +10,19 @@ input needs a gradient, the unfused math over the differentiable flash
 attention. Two opt-in module flags, read at call time, change that path:
 INT8_QK_SCORE and PROJ_STAT_FUSION (below). GeoAdapter hints are computed
 interleaved: geoada block i runs right before base block stride*i, and its
-hint after_proj(c)*scale is added right after that base block. Training calls wan_dit_embed, wan_dit_blocks
-(remat=True) and wan_dit_head directly; wan_dit_forward is inference only.
+hint after_proj(c)*scale is added right after that base block (the same
+result as the reference's all-hints-first order, with one hint alive at a
+time). Training calls wan_dit_embed, wan_dit_blocks (remat=True) and
+wan_dit_head directly; wan_dit_forward is inference only.
+
+The base-Wan conditioning: an i2v model (model_type "i2v") concatenates
+its `y` latents on channels, embeds CLIP image tokens through `img_emb`
+(LayerNorm -> fc1 -> exact GELU -> fc2 -> LayerNorm) and gives its base
+blocks a second cross-attention over them (k_img / v_img), which runs the
+plain path: q and k RMS-normed, relaid head-major, the plain flash-attention
+kernel over the text keys and again over the image keys, the two added.
+The SimpleAdapter (`control_adapter`) turns camera-pose maps `y_camera`
+into tokens added to the patch embeddings.
 
 A linear kernel may be a quantized leaf (utils/quantize.py): a
 compute-tagged one runs the W8A8 product, a storage-only one is dequantized
@@ -32,10 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 from versecrafter_tpu_torch.core.config import WanDiTConfig
 from versecrafter_tpu_torch.kernels.flash_attention import (
-    fused_rms_cross_attention, fused_rope_rms_attention,
-    prepare_fused_rope_tables)
+    _heads, _merge_heads, flash_attention, fused_rms_cross_attention,
+    fused_rope_rms_attention, prepare_fused_rope_tables)
 from versecrafter_tpu_torch.kernels.matmul_stat import linear_rstat
-from versecrafter_tpu_torch.kernels.norms import layer_norm
+from versecrafter_tpu_torch.kernels.norms import layer_norm, rms_norm
 from versecrafter_tpu_torch.utils import quantize as qz
 from versecrafter_tpu_torch.utils.lora import block_factors, lora_block
 
@@ -52,7 +63,6 @@ INT8_QK_SCORE = False
 # projection outputs again. Opt-in; read at call time. Applies to plain
 # tensor kernels only.
 PROJ_STAT_FUSION = False
-
 
 # Run the block FFN over row chunks of an eighth of this above it (rows are
 # independent through linear -> gelu -> linear: the same result up to the
@@ -177,24 +187,41 @@ def _init_block(gen, cfg: WanDiTConfig, dtype, device, geoada=False):
         p["norm3"] = {"scale": _ones(cfg.dim, device),
                       "bias": torch.zeros((cfg.dim,), dtype=torch.float32,
                                           device=device)}
+    if cfg.model_type == "i2v" and not geoada:
+        ca = p["cross_attn"]
+        ca["k_img"] = _init_linear(gen, cfg.dim, cfg.dim, dtype, device)
+        ca["v_img"] = _init_linear(gen, cfg.dim, cfg.dim, dtype, device)
+        ca["norm_k_img"] = {"scale": _ones(cfg.dim, device)}
     if geoada:
         p["after_proj"] = _init_linear(gen, cfg.dim, cfg.dim, dtype, device, zero=True)
     return p
 
 
-def check_supported(cfg: WanDiTConfig):
-    """Raise for the config branches the port does not have yet."""
-    if cfg.model_type == "i2v" or cfg.add_img_emb:
-        raise NotImplementedError("the i2v img_emb branch is not ported yet")
-    if cfg.add_control_adapter:
-        raise NotImplementedError("simple_adapter is not ported yet")
+def init_simple_adapter(gen, cfg: WanDiTConfig, dtype, device) -> Params:
+    """The SimpleAdapter's tree: the strided patch conv as a matmul kernel
+    [C*ds*ds*ph*pw, D], and residual blocks of two 3x3 convs with HWIO
+    kernels [3, 3, D, D] (the JAX package's layout)."""
+    d = cfg.downscale_factor_control_adapter
+    ph, pw = cfg.patch_size[1:]
+    p: Params = {"conv": _init_linear(gen, cfg.in_dim_control_adapter * d * d * ph * pw,
+                                      cfg.dim, dtype, device)}
+    lim = math.sqrt(6.0 / (2 * 9 * cfg.dim))
+
+    def conv3():
+        k = torch.empty((3, 3, cfg.dim, cfg.dim), dtype=dtype, device=device)
+        return {"kernel": k.uniform_(-lim, lim, generator=gen),
+                "bias": torch.zeros((cfg.dim,), dtype=dtype, device=device)}
+
+    p["res"] = [{"conv1": conv3(), "conv2": conv3()}
+                for _ in range(cfg.control_adapter_residual_blocks)]
+    return p
 
 
 def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
                  dtype=torch.bfloat16) -> Params:
     """Random init from `generator`, on the generator's device; the head
-    projection is zero, as in the reference."""
-    check_supported(cfg)
+    projection is zero, as in the reference. The tree is the JAX init's,
+    the i2v and SimpleAdapter parts included, drawn in its order."""
     device = generator.device
     pt, ph, pw = cfg.patch_size
     g = generator
@@ -230,6 +257,19 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
                                                     device, zero=True)
         params["geoada_patch_embedding"] = _init_linear(
             g, cfg.resolved_geoada_in_dim * pt * ph * pw, cfg.dim, dtype, device)
+    if cfg.add_control_adapter:
+        params["control_adapter"] = init_simple_adapter(g, cfg, dtype, device)
+    if cfg.model_type == "i2v" and cfg.add_img_emb:
+        e_in = cfg.img_emb_dim
+        params["img_emb"] = {
+            "norm_in": {"scale": _ones(e_in, device),
+                        "bias": torch.zeros((e_in,), dtype=torch.float32, device=device)},
+            "fc1": _init_linear(g, e_in, e_in, dtype, device),
+            "fc2": _init_linear(g, e_in, cfg.dim, dtype, device),
+            "norm_out": {"scale": _ones(cfg.dim, device),
+                         "bias": torch.zeros((cfg.dim,), dtype=torch.float32,
+                                             device=device)},
+        }
     return params
 
 
@@ -267,12 +307,14 @@ def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=Non
     return _linear(p["o"], out)
 
 
-def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None):
+def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
+                     context_img=None):
     if calib is not None:
         calib["cross_attn/q/kernel"] = _amax(x)
         calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
     rq = None
-    if cfg.qk_norm and PROJ_STAT_FUSION and _plain_kernel(p["q"]):
+    if (context_img is None and cfg.qk_norm and PROJ_STAT_FUSION
+            and _plain_kernel(p["q"])):
         # the q statistic comes from the projection; the k statistic spans
         # only the context tokens
         q, rq = linear_rstat(p["q"], x, cfg.eps)
@@ -280,25 +322,46 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None):
         q = _linear(p["q"], x)
     k = _linear(p["k"], context)
     v = _linear(p["v"], context)
-    out = fused_rms_cross_attention(
-        q, k, v,
-        p["norm_q"]["scale"] if cfg.qk_norm else None,
-        p["norm_k"]["scale"] if cfg.qk_norm else None,
-        num_heads=cfg.num_heads, eps=cfg.eps, rq=rq)
+    if context_img is None:
+        out = fused_rms_cross_attention(
+            q, k, v,
+            p["norm_q"]["scale"] if cfg.qk_norm else None,
+            p["norm_k"]["scale"] if cfg.qk_norm else None,
+            num_heads=cfg.num_heads, eps=cfg.eps, rq=rq)
+    else:
+        # i2v: the plain path, as the JAX package runs it (its fused cross
+        # kernel takes one key set): separate norm passes, head-major
+        # relayouts, the plain kernel over the text keys and again over the
+        # image keys, the two outputs added
+        n = cfg.num_heads
+        if cfg.qk_norm:
+            q = rms_norm(q, p["norm_q"]["scale"], cfg.eps)
+            k = rms_norm(k, p["norm_k"]["scale"], cfg.eps)
+        qh = _heads(q, n)
+        out = flash_attention(qh, _heads(k, n), _heads(v, n))
+        if calib is not None:
+            calib["cross_attn/k_img/kernel"] = calib["cross_attn/v_img/kernel"] = \
+                _amax(context_img)
+        k_img = _linear(p["k_img"], context_img)
+        if cfg.qk_norm:
+            k_img = rms_norm(k_img, p["norm_k_img"]["scale"], cfg.eps)
+        v_img = _linear(p["v_img"], context_img)
+        out = _merge_heads(out + flash_attention(qh, _heads(k_img, n), _heads(v_img, n)))
     if calib is not None:
         calib["cross_attn/o/kernel"] = _amax(out)
     return _linear(p["o"], out)
 
 
 def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-                      rope_i=None, calib=None, lora=None):
+                      rope_i=None, calib=None, lora=None, context_img=None):
     """One Wan attention block. x [B, S, D]; e0 [B, 6, D] fp32 modulation;
     cos/sin the half-width RoPE tables (the differentiable attention path
     uses them) and rope_i the interleaved tables from
     prepare_fused_rope_tables (the fused inference kernel uses them).
     calib: a dict that receives the absmax at each W8A8 site (keys as in
     utils/quantize.COMPUTE_SITES). lora: (this block's factors, scale), whose
-    effective kernels are formed here, inside any rematerialisation."""
+    effective kernels are formed here, inside any rematerialisation.
+    context_img: the i2v image tokens [B, N_img, D] of a base block."""
     if lora is not None:
         p = lora_block(p, *lora)
     dtype = x.dtype
@@ -310,7 +373,7 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
 
     xn = (layer_norm(x, p["norm3"]["scale"], p["norm3"]["bias"], eps=cfg.eps)
           if cfg.cross_attn_norm else x)
-    x = x + _cross_attention(p["cross_attn"], xn, context, cfg, calib)
+    x = x + _cross_attention(p["cross_attn"], xn, context, cfg, calib, context_img)
 
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 4][:, None]) + e[:, 3][:, None]).to(dtype)
@@ -338,16 +401,84 @@ def wan_dit_e0(params: Params, cfg: WanDiTConfig, t: torch.Tensor):
     return e, e0.reshape(t.shape[0], 6, cfg.dim).float()
 
 
-def wan_dit_embed(params: Params, cfg: WanDiTConfig, x, t, context):
+class _NoTF32Conv:
+    """cuDNN convolutions without TF32 inside the block (fp32 inputs keep
+    their full precision, as the JAX package's convolutions do)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def simple_adapter(p: Params, y_camera: torch.Tensor, patch_size=(2, 2),
+                   downscale: int = 8) -> torch.Tensor:
+    """The camera-pose SimpleAdapter: per-frame pixel-unshuffle by
+    `downscale` into channels, the strided patch conv as a matmul, then
+    ReLU-conv3x3 residual blocks on the per-frame token grid (NCHW, the HWIO
+    kernels permuted to OIHW). y_camera [B, C, F, H, W] -> tokens [B, S, D]
+    in patchify's (f, h, w) order."""
+    b, c, f, h, w = y_camera.shape
+    d = downscale
+    ph, pw = patch_size
+    x = y_camera.reshape(b, c, f, h // d, d, w // d, d)
+    x = x.permute(0, 1, 4, 6, 2, 3, 5).reshape(b, c * d * d, f, h // d, w // d)
+    tok = _linear(p["conv"], patchify(x, (1, ph, pw)))
+    gh, gw = h // d // ph, w // d // pw
+    if p.get("res"):
+        dim = tok.shape[-1]
+        z = tok.reshape(b * f, gh, gw, dim).permute(0, 3, 1, 2)
+        with _NoTF32Conv():
+            for blk in p["res"]:
+                y = z
+                for cv in (blk["conv1"], blk["conv2"]):
+                    y = F.conv2d(F.relu(y), cv["kernel"].permute(3, 2, 0, 1).to(y.dtype),
+                                 padding=1)
+                    y = y + cv["bias"].to(y.dtype)[:, None, None]
+                z = z + y
+        tok = z.permute(0, 2, 3, 1).reshape(b, f * gh * gw, dim)
+    return tok
+
+
+def img_embedding(params: Params, clip_fea: torch.Tensor, dtype) -> torch.Tensor:
+    """CLIP image tokens [B, N_img, img_emb_dim] -> [B, N_img, D] in
+    `dtype`: LayerNorm -> fc1 -> exact (erf) GELU -> fc2 -> LayerNorm."""
+    ie = params["img_emb"]
+    h = layer_norm(clip_fea, ie["norm_in"]["scale"], ie["norm_in"]["bias"])
+    h = _linear(ie["fc2"], F.gelu(_linear(ie["fc1"], h.to(dtype)), approximate="none"))
+    return layer_norm(h, ie["norm_out"]["scale"], ie["norm_out"]["bias"]).to(dtype)
+
+
+def wan_dit_embed(params: Params, cfg: WanDiTConfig, x, t, context,
+                  clip_fea=None, y_camera=None):
     """Patch-embed latents + time / text embeddings -> (tokens [B, S, D],
-    e [B, D], e0 [B, 6, D], ctx [B, text_len, D], grid)."""
+    e [B, D], e0 [B, 6, D], ctx [B, text_len, D], ctx_img [B, N_img, D] or
+    None, grid). y_camera [B, C_cam, F*pt, H_lat*ds, W_lat*ds]: camera maps
+    through the SimpleAdapter, added to the patch embeddings; clip_fea
+    [B, N_img, img_emb_dim]: CLIP tokens through img_emb (when the tree has
+    one)."""
     pt, ph, pw = cfg.patch_size
     grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
     tokens = _linear(params["patch_embedding"], patchify(x, cfg.patch_size))
+    if y_camera is not None:
+        if "control_adapter" not in params:
+            raise ValueError(
+                "y_camera conditioning passed but params have no "
+                "'control_adapter' entry — the checkpoint was built without "
+                "a SimpleAdapter (add_control_adapter=False), so the maps "
+                "would be silently ignored")
+        tokens = tokens + simple_adapter(
+            params["control_adapter"], y_camera, cfg.patch_size[1:],
+            cfg.downscale_factor_control_adapter).to(tokens.dtype)
     e, e0 = wan_dit_e0(params, cfg, t)
     tee = params["text_embedding"]
     ctx = _linear(tee["fc2"], _gelu_tanh(_linear(tee["fc1"], context.to(tokens.dtype))))
-    return tokens, e, e0, ctx, grid
+    ctx_img = None
+    if clip_fea is not None and "img_emb" in params:
+        ctx_img = img_embedding(params, clip_fea, tokens.dtype)
+    return tokens, e, e0, ctx, ctx_img, grid
 
 
 def geoada_patch_embedding(params: Params, cfg: WanDiTConfig, geoada_context):
@@ -356,13 +487,14 @@ def geoada_patch_embedding(params: Params, cfg: WanDiTConfig, geoada_context):
 
 
 def _block(remat: bool, p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-           rope_i, calib=None, lora=None):
+           rope_i, calib=None, lora=None, context_img=None):
     """wan_block_forward, rematerialised in the backward pass when `remat`
     and grad is enabled (the counterpart of jax.checkpoint on the block)."""
     if remat and torch.is_grad_enabled():
         return checkpoint(wan_block_forward, p, cfg, x, e0, cos, sin, context,
-                          rope_i, None, lora, use_reentrant=False)
-    return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i, calib, lora)
+                          rope_i, None, lora, context_img, use_reentrant=False)
+    return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i, calib, lora,
+                             context_img)
 
 
 def _stack_stats(cals):
@@ -372,38 +504,45 @@ def _stack_stats(cals):
 def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
                    geoada_tokens: Optional[torch.Tensor] = None,
                    geoada_scale: float = 1.0, remat: bool = False,
-                   calibrate: bool = False, lora=None):
+                   calibrate: bool = False, lora=None, context_img=None):
     """All transformer blocks, with the GeoAdapter superstep when present.
     cos/sin: half-width RoPE tables [S, head_dim/2]. remat: recompute each
     block (and each GeoAdapter block) in the backward pass instead of
     keeping its activations, so only the block inputs stay alive.
     calibrate: also return the activation absmax stats
     {"blocks": {site: [L]}, "geoada_blocks": {site: [G]}} (inference only).
-    lora: (factors of utils/lora.init_lora, scale), applied block by block."""
+    lora: (factors of utils/lora.init_lora, scale), applied block by block.
+    context_img: the i2v image tokens, which only the base blocks attend
+    to."""
     if calibrate and remat:
         raise ValueError("calibrate is inference-only (stats escape remat)")
     rope_i = prepare_fused_rope_tables(cos, sin)
     blocks = params["blocks"]
     bcals = [{} if calibrate else None for _ in blocks]
+
+    def base(b, x):
+        return _block(remat, blocks[b], cfg, x, e0, cos, sin, context, rope_i, bcals[b],
+                      block_factors(lora, "blocks", b), context_img)
+
     if not cfg.has_geoadapter or geoada_tokens is None:
-        for i, bp in enumerate(blocks):
-            x = _block(remat, bp, cfg, x, e0, cos, sin, context, rope_i, bcals[i],
-                       block_factors(lora, "blocks", i))
+        for i in range(len(blocks)):
+            x = base(i, x)
         return (x, {"blocks": _stack_stats(bcals)}) if calibrate else x
     L = cfg.num_layers
     glayers = cfg.resolved_geoada_layers
     stride = glayers[1] - glayers[0] if len(glayers) > 1 else L
-    if not (glayers == tuple(range(0, L, stride)) and L % stride == 0):
-        raise NotImplementedError(f"non-uniform geoada_layers {glayers}")
+    if not (glayers == tuple(range(0, L, stride)) and L % stride == 0
+            and len(glayers) == L // stride):
+        raise NotImplementedError(
+            f"non-uniform geoada_layers {glayers} (reference default is every "
+            f"2nd layer; add a python-loop path if ever needed)")
     c = _linear(params["geoada_before_proj"], geoada_tokens) + x
     gcals = [{} if calibrate else None for _ in params["geoada_blocks"]]
     for i, gp in enumerate(params["geoada_blocks"]):
         c = _block(remat, gp, cfg, c, e0, cos, sin, context, rope_i, gcals[i],
                    block_factors(lora, "geoada_blocks", i))
         for j in range(stride):
-            b = stride * i + j
-            x = _block(remat, blocks[b], cfg, x, e0, cos, sin, context, rope_i, bcals[b],
-                       block_factors(lora, "blocks", b))
+            x = base(stride * i + j, x)
             if j == 0:
                 hint = _linear(gp["after_proj"], c)
                 x = x + (hint * geoada_scale).to(x.dtype)
@@ -427,21 +566,21 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
                     clip_fea=None, y_camera=None, calibrate: bool = False):
     """Full denoiser forward: x [B, C_in, F, H, W] latents, t [B] timesteps,
     context [B, text_len, text_dim], cos/sin [S, head_dim/2] RoPE tables,
-    geoada_context [B, geoada_in_dim, F, H, W] -> velocity [B, C_out, F, H, W];
-    with calibrate, (velocity, the activation absmax stats of
-    wan_dit_blocks)."""
-    check_supported(cfg)
-    if y is not None or clip_fea is not None or y_camera is not None:
-        raise NotImplementedError(
-            "i2v y / clip_fea and y_camera conditioning are not ported yet")
-    tokens, e, e0, ctx, grid = wan_dit_embed(params, cfg, x, t, context)
+    geoada_context [B, geoada_in_dim, F, H, W]; y [B, C_y, F, H, W] i2v
+    latents concatenated on channels, clip_fea and y_camera as in
+    wan_dit_embed -> velocity [B, C_out, F, H, W]; with calibrate,
+    (velocity, the activation absmax stats of wan_dit_blocks)."""
+    if y is not None:
+        x = torch.cat([x, y.to(x.dtype)], dim=1)
+    tokens, e, e0, ctx, ctx_img, grid = wan_dit_embed(params, cfg, x, t, context,
+                                                      clip_fea, y_camera)
     gtokens = None
     if geoada_context is not None and cfg.has_geoadapter:
         gtokens = geoada_patch_embedding(params, cfg, geoada_context)
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos.to(x.device),
                             sin.to(x.device), ctx,
                             geoada_tokens=gtokens, geoada_scale=geoada_scale,
-                            calibrate=calibrate)
+                            calibrate=calibrate, context_img=ctx_img)
     if calibrate:
         tokens, stats = tokens
         return wan_dit_head(params, cfg, tokens, e, grid), stats

@@ -47,7 +47,7 @@ def flow_matching_loss(params: Params, cfg: WanDiTConfig, x0, context, cos, sin,
     sb = sig[:, None, None, None, None].to(x0.dtype)
     x_sig = (1.0 - sb) * x0 + sb * noise
     target = noise - x0
-    tokens, e, e0, ctx, grid = wan_dit_embed(params, cfg, x_sig, sig * 1000.0, context)
+    tokens, e, e0, ctx, _, grid = wan_dit_embed(params, cfg, x_sig, sig * 1000.0, context)
     gtok = None
     if geoada_context is not None and cfg.has_geoadapter:
         gtok = geoada_patch_embedding(params, cfg, geoada_context)

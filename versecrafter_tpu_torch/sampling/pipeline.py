@@ -11,14 +11,21 @@ the DiT in int8 or int4 (optionally W8A8 / W4A8 compute,
 utils/quantize.py), one block at a time; merge_lora / unmerge_lora fold a
 LoRA state dict in or out (utils/lora.py).
 
-Not ported yet (each raises NotImplementedError when asked for): MoE
-experts (and their act_scales_high), the device mesh, and the i2v / CLIP /
-camera / masked-init-video / reference-image extras.
+The Wan2.2 timestep-MoE picks its expert per step by sigma = t / T against
+moe_boundary: a resident pair (dit_params_high), or expert_swap, which
+drops the resident expert before it builds the other, so only one is ever
+held. The base-Wan conditioning: i2v `y` latents, CLIP image tokens
+(`clip_fea`, or `clip_image` through the pipeline's CLIP tower), SimpleAdapter
+camera maps (`camera_video`), subject reference frames prepended on the
+time axis, and a masked init video (`video=`).
+
+Not ported yet: the device mesh (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import queue
 import threading
@@ -36,8 +43,7 @@ from versecrafter_tpu_torch.models.t5 import t5_encode
 from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
 from versecrafter_tpu_torch.models.vae_stream import vae_decode_stream, vae_encode_chunked
 from versecrafter_tpu_torch.models.wan_dit import (
-    check_supported, geoada_patch_embedding, wan_dit_blocks, wan_dit_e0, wan_dit_embed,
-    wan_dit_head)
+    geoada_patch_embedding, wan_dit_blocks, wan_dit_e0, wan_dit_embed, wan_dit_head)
 from versecrafter_tpu_torch.sampling import teacache as tc
 from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
 from versecrafter_tpu_torch.utils import lora as lora_utils
@@ -71,16 +77,15 @@ def cfg_combine(uncond: torch.Tensor, cond: torch.Tensor,
 
 
 def _to_device(tree, device):
-    """A copy of a tensor tree on `device`, detached from autograd."""
+    """A copy of a tensor tree on `device`, detached from autograd (None
+    stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return tree.detach().to(device)
-
-
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported to versecrafter_tpu_torch yet")
 
 
 @dataclasses.dataclass
@@ -94,9 +99,21 @@ class VerseCrafterPipeline:
     t5_params: Any
     t5_cfg: T5Config
     tokenizer: Any = None
+    # optional CLIP vision tower (models/clip.py) for `clip_image=`
+    clip_params: Any = None
+    clip_cfg: Any = None
     scheduler_name: str = "unipc"
     scheduler_cfg: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     device: Any = None
+    # Wan2.2 timestep-MoE: the high-noise expert runs the steps with
+    # sigma = t / num_train_timesteps >= moe_boundary. Either resident
+    # (dit_params_high, the same config as dit_params), or expert_swap:
+    # which -> that expert's params, called where the step's expert changes
+    # after the resident one was dropped, so the two never coexist. The two
+    # are mutually exclusive.
+    dit_params_high: Any = None
+    moe_boundary: float = 0.875
+    expert_swap: Optional[Callable[[str], Any]] = None
     # TeaCache (off at threshold 0) and cfg-skip: the last cfg_skip_ratio of
     # the steps run the cond branch only
     teacache_threshold: float = 0.0
@@ -117,14 +134,13 @@ class VerseCrafterPipeline:
     VAE_STREAM_THRESHOLD = 1 << 24
 
     def __post_init__(self):
-        check_supported(self.dit_cfg)
         self.device = resolve_device(self.device)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(vocab_size=self.t5_cfg.vocab)
-        self.dit_params = _to_device(self.dit_params, self.device)
-        self.vae_params = _to_device(self.vae_params, self.device)
-        if self.t5_params is not None:
-            self.t5_params = _to_device(self.t5_params, self.device)
+        for name in ("dit_params", "dit_params_high", "vae_params", "t5_params",
+                     "clip_params"):
+            setattr(self, name, _to_device(getattr(self, name), self.device))
+        self._resident_expert = None
         self._angles = rope_3d_angles(self.dit_cfg.head_dim,
                                       self.dit_cfg.rope_max_pos,
                                       self.dit_cfg.rope_theta)
@@ -163,32 +179,23 @@ class VerseCrafterPipeline:
         COMPUTE_SITES, filtered by the substrings of `int8_sites`) as
         s8 x s8 -> s32 products: W8A8, or W4A8 with bits 4, whose scales
         are then per channel. Activation scales are dynamic per row, or the
-        calibrated per-tensor `act_scales` of fit_act_scales.
+        calibrated per-tensor `act_scales` of fit_act_scales. A resident
+        high-noise expert (dit_params_high) is quantized too, with its own
+        `act_scales_high` or dynamic scales: the experts see disjoint sigma
+        ranges, so one's calibration would clip the other's activations.
 
-        The tree is rebuilt one block at a time, so a bf16 block is dropped
-        as soon as its quantized copy exists (unless the caller still holds
-        the old tree)."""
-        if act_scales_high is not None:
-            raise NotImplementedError(
-                "act_scales_high belongs to the Wan2.2 high-noise expert, which is "
-                "not ported yet (ROADMAP queue 1, item 8)")
-        gs = 0 if (bits == 4 and int8_compute) else None
-        old = self.dit_params
-        p = qz.quantize_tree({k: v for k, v in old.items() if not isinstance(v, list)},
-                             bits=bits, group_size=gs)
-        if int8_compute:
-            p = qz.tag_int8_compute(p, act_scales, sites=int8_sites)
-        lists = {k: list(v) for k, v in old.items() if isinstance(v, list)}
-        # from here on the pipeline holds the new lists only, each block
-        # replaced in turn (a partly quantized tree still runs)
-        self.dit_params = {**p, **lists}
-        del old
-        for key, blocks in lists.items():
-            for i in range(len(blocks)):
-                blk = qz.quantize_block(blocks[i], key, len(blocks), bits, gs)
-                if int8_compute:
-                    blk = qz.tag_block(blk, key, i, len(blocks), act_scales, int8_sites)
-                blocks[i] = blk
+        Each tree is rebuilt one block at a time (utils/quantize.quantize_dit)
+        in lists of the pipeline's own, so a bf16 block is dropped as soon as
+        its quantized copy exists unless the caller still holds the old
+        tree."""
+        for attr, scales in (("dit_params", act_scales), ("dit_params_high", act_scales_high)):
+            old = getattr(self, attr)
+            if old is None:
+                continue
+            tree = {k: (list(v) if isinstance(v, list) else v) for k, v in old.items()}
+            del old
+            setattr(self, attr, tree)
+            qz.quantize_dit(tree, bits, int8_compute, scales, int8_sites)
 
     def merge_lora(self, lora_sd, weight: float = 1.0):
         """Folds weight * (up @ down)^T of each LoRA pair into the DiT."""
@@ -197,12 +204,34 @@ class VerseCrafterPipeline:
     def unmerge_lora(self, lora_sd, weight: float = 1.0):
         self.dit_params = lora_utils.unmerge_lora(self.dit_params, lora_sd, weight)
 
-    def dit_params_for_step(self):
-        """The DiT tree a step runs: the non-block parts of a quantized tree
-        dequantized to their recorded dtype (the blocks' kernels are
-        dequantized, or run W8A8, block by block)."""
+    def dit_params_for_step(self, params=None):
+        """The DiT tree a step runs (`params`, default dit_params): the
+        non-block parts of a quantized tree dequantized to their recorded
+        dtype (the blocks' kernels are dequantized, or run W8A8, block by
+        block)."""
+        params = self.dit_params if params is None else params
         return {k: (v if isinstance(v, list) else qz.dequantize_tree(v))
-                for k, v in self.dit_params.items()}
+                for k, v in params.items()}
+
+    def expert_for(self, t: float):
+        """The DiT params of the step at timestep t: the high-noise expert
+        when sigma = t / num_train_timesteps >= moe_boundary. Under
+        expert_swap the resident expert is dropped first (and the card's
+        cache emptied) when the step needs the other one."""
+        sigma = float(t) / self.scheduler_cfg.num_train_timesteps
+        if self.expert_swap is not None:
+            want = "high" if sigma >= self.moe_boundary else "low"
+            if self._resident_expert != want:
+                self.dit_params = None
+                self._resident_expert = None
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                self.dit_params = _to_device(self.expert_swap(want), self.device)
+                self._resident_expert = want
+        if self.dit_params_high is not None and sigma >= self.moe_boundary:
+            return self.dit_params_high
+        return self.dit_params
 
     def enable_riflex(self, k: int, L_test: int, L_test_scale: Optional[float] = None):
         """RIFLEx: the temporal RoPE table's frequency k-1 set for
@@ -257,20 +286,28 @@ class VerseCrafterPipeline:
         mask = torch.as_tensor(toks["attention_mask"], device=self.device)
         return t5_encode(self.t5_params, self.t5_cfg, ids, mask)
 
+    def _vae_encode(self, x):
+        """A [B, 3, T, H, W] video in [-1, 1] -> latents; above
+        VAE_STREAM_THRESHOLD voxels (T > 1) through the streaming encoder."""
+        if x.shape[2] > 1 and math.prod(x.shape[2:]) > self.VAE_STREAM_THRESHOLD:
+            return vae_encode_chunked(self.vae_params, self.vae_cfg, x)
+        return vae_encode(self.vae_params, self.vae_cfg, x)
+
     @torch.no_grad()
     def encode_controls(self, control_videos: Sequence[np.ndarray],
-                        mask_video: np.ndarray, dtype=torch.bfloat16) -> torch.Tensor:
+                        mask_video: np.ndarray, dtype=torch.bfloat16,
+                        subject_ref_images: Optional[Sequence[np.ndarray]] = None
+                        ) -> Tuple[torch.Tensor, int]:
         """control_videos: list of [B, 3, T, H, W] in [0, 1]; mask_video
-        [B, 1, T, H, W] -> geoada context [B, n*z + s*s, T', H/s, W/s].
-        A video of more than VAE_STREAM_THRESHOLD voxels (T*H*W, T > 1)
-        goes through the streaming encoder."""
+        [B, 1, T, H, W] -> (geoada context [B, n*z + s*s, R + T', H/s, W/s],
+        R). Each subject reference frame ([B, 3, 1, H, W]) is VAE-encoded
+        and prepended on the time axis in the first control's channel block,
+        zeros elsewhere and in the mask channels; R counts those latent
+        frames."""
         lat = []
         for cv in control_videos:
             x = torch.as_tensor(np.asarray(cv), device=self.device).to(dtype) * 2.0 - 1.0
-            if x.shape[2] > 1 and math.prod(x.shape[2:]) > self.VAE_STREAM_THRESHOLD:
-                z = vae_encode_chunked(self.vae_params, self.vae_cfg, x)
-            else:
-                z = vae_encode(self.vae_params, self.vae_cfg, x)
+            z = self._vae_encode(x)
             del x
             lat.append(z.to(dtype))
         zs = torch.cat(lat, dim=1)
@@ -279,34 +316,56 @@ class VerseCrafterPipeline:
                   self.vae_cfg.spatial_compression_ratio)
         m = torch.as_tensor(np.asarray(mask_video), device=self.device).to(dtype)
         m = encode_mask_pixelshuffle(m, zs.shape[2], vae_stride=stride).to(dtype)
-        return torch.cat([zs, m], dim=1)
+        n_ref = 0
+        if subject_ref_images:
+            refs = []
+            for r in subject_ref_images:
+                x = torch.as_tensor(np.asarray(r), device=self.device).to(dtype) * 2.0 - 1.0
+                rl = self._vae_encode(x).to(dtype)
+                pad = rl.new_zeros((rl.shape[0], zs.shape[1] - rl.shape[1], *rl.shape[2:]))
+                refs.append(torch.cat([rl, pad], dim=1))
+            ref_lat = torch.cat(refs, dim=2)
+            n_ref = ref_lat.shape[2]
+            zs = torch.cat([ref_lat, zs], dim=2)
+            m = torch.cat([m.new_zeros((m.shape[0], m.shape[1], n_ref, *m.shape[3:])), m],
+                          dim=2)
+        return torch.cat([zs, m], dim=1), n_ref
 
     @torch.no_grad()
     def denoise_step(self, latents, t: float, context, geoada_context, cos, sin,
                      guidance_scale: float, geoada_scale: float, use_cfg: bool,
-                     blocks: Optional[Callable] = None):
+                     blocks: Optional[Callable] = None, extras=None, params=None):
         """One model evaluation: the batched-CFG forward (cond + uncond as one
         batch, uncond + g*(cond - uncond)) or the cond-only forward over the
         second half of `context`. blocks: None runs the whole DiT; otherwise
         a function (run_blocks, tokens, e0) -> tokens that wraps the blocks
         section (TeaCache's gate or its record pass) between the embeddings
-        and the head."""
+        and the head. extras: the step-invariant conditioning {"y",
+        "clip_fea", "y_camera"} of the batch (duplicated over both CFG
+        halves: CFG applies to the text only). params: the expert to run
+        (default dit_params)."""
+        extras = extras or {}
         if use_cfg:
             x = torch.cat([latents, latents], dim=0)
             g = torch.cat([geoada_context, geoada_context], dim=0)
             ctx = context
+            extras = {k: torch.cat([v, v], dim=0) for k, v in extras.items()}
         else:
             x, g, ctx = latents, geoada_context, context[context.shape[0] // 2:]
+        if "y" in extras:
+            x = torch.cat([x, extras["y"]], dim=1)
         tvec = torch.full((x.shape[0],), float(t), dtype=torch.float32,
                           device=self.device)
-        p, cfg = self.dit_params_for_step(), self.dit_cfg
-        tokens, e, e0, ctx_e, grid = wan_dit_embed(p, cfg, x, tvec, ctx)
+        p, cfg = self.dit_params_for_step(params), self.dit_cfg
+        tokens, e, e0, ctx_e, ctx_img, grid = wan_dit_embed(
+            p, cfg, x, tvec, ctx, extras.get("clip_fea"), extras.get("y_camera"))
         gtok = geoada_patch_embedding(p, cfg, g) if cfg.has_geoadapter else None
         cos, sin = cos.to(x.device), sin.to(x.device)
 
         def run(tk):
             return wan_dit_blocks(p, cfg, tk, e0, cos, sin, ctx_e,
-                                  geoada_tokens=gtok, geoada_scale=geoada_scale)
+                                  geoada_tokens=gtok, geoada_scale=geoada_scale,
+                                  context_img=ctx_img)
 
         tokens = run(tokens) if blocks is None else blocks(run, tokens, e0)
         pred = wan_dit_head(p, cfg, tokens, e, grid)
@@ -344,14 +403,24 @@ class VerseCrafterPipeline:
         """Returns the video as numpy [B, T, H, W, 3] in [0, 1]
         (output_type 'numpy'), uint8 0..255 ('uint8', quantized on the
         device), or the latents as a tensor ('latent'). The wall time of each
-        stage (text_encode, encode_controls, denoise, vae_decode, download)
-        goes to last_wall_profile."""
-        for name, val in (("video= masked init-video conditioning", video),
-                          ("subject_ref_images", subject_ref_images),
-                          ("i2v y", y), ("clip_fea", clip_fea),
-                          ("clip_image", clip_image), ("camera_video", camera_video)):
-            if val is not None:
-                _not_ported(name)
+        stage (text_encode, clip_encode when a clip_image is encoded,
+        encode_controls, denoise, vae_decode, download) goes to
+        last_wall_profile.
+
+        The base-Wan conditioning: `y` [B, C_y, T', H/8, W/8] i2v latents
+        concatenated on channels; `clip_fea` [B, 257, 1280] CLIP image
+        tokens, or `clip_image` [H, W, 3] encoded by the pipeline's CLIP
+        tower and broadcast to the batch; `camera_video` [B, C, F*pt,
+        H_lat*ds, W_lat*ds] camera-pose maps for the SimpleAdapter.
+        `subject_ref_images` (list of [B, 3, 1, H, W]) are prepended to the
+        control latents and their latent frames stripped before the decode;
+        the noise is drawn at the longer latent length. `video` [B, 3, T, H,
+        W] in [0, 1] without control_videos becomes the single control
+        video, masked to v * keep + 0.5 * (1 - keep), keep = mask_video <
+        0.5 (mask_video required)."""
+        if self.expert_swap is not None and self.dit_params_high is not None:
+            raise ValueError("expert_swap and a resident dit_params_high are "
+                             "mutually exclusive")
         if output_type not in ("numpy", "uint8", "latent"):
             raise ValueError(f"unknown output_type {output_type!r}")
         wall: Dict[str, float] = {}
@@ -380,12 +449,43 @@ class VerseCrafterPipeline:
             context = self.encode_prompt(prompt, negative_prompt).to(dtype)
         mark("text_encode")
 
+        if clip_fea is None and clip_image is not None:
+            if self.clip_params is None:
+                raise ValueError("clip_image given but pipeline has no "
+                                 "clip_params (CLIP vision tower)")
+            from versecrafter_tpu_torch.models.clip import encode_image
+            clip_fea = encode_image(self.clip_params, self.clip_cfg, clip_image)
+            clip_fea = clip_fea.expand(batch, *clip_fea.shape[1:])
+            mark("clip_encode")
+        extras = {}
+        if y is not None:
+            extras["y"] = torch.as_tensor(y, device=self.device).to(dtype)
+        if clip_fea is not None:
+            extras["clip_fea"] = torch.as_tensor(clip_fea, device=self.device).to(dtype)
+        if camera_video is not None:
+            if self.dit_params is not None and "control_adapter" not in self.dit_params:
+                raise ValueError(
+                    "camera_video given but the DiT has no control_adapter "
+                    "(checkpoint lacks SimpleAdapter weights / "
+                    "cfg.add_control_adapter is off)")
+            extras["y_camera"] = torch.as_tensor(camera_video, device=self.device).to(dtype)
+
+        n_ref = 0
         if geoada_context is None:
+            if control_videos is None and video is not None:
+                # masked init video: the region to generate becomes 0.5
+                # (0 after encode_controls' v * 2 - 1)
+                if mask_video is None:
+                    raise ValueError("video= conditioning needs mask_video")
+                keep = (np.asarray(mask_video, np.float32) < 0.5).astype(np.float32)
+                v = np.asarray(video, np.float32)
+                control_videos = [v * keep + 0.5 * (1.0 - keep)]
             if control_videos is None:
-                raise ValueError("need control_videos or geoada_context")
+                raise ValueError("need control_videos, video or geoada_context")
             if mask_video is None:
                 mask_video = np.ones((batch, 1, num_frames, height, width), np.float32)
-            geoada_context = self.encode_controls(control_videos, mask_video, dtype)
+            geoada_context, n_ref = self.encode_controls(
+                control_videos, mask_video, dtype, subject_ref_images=subject_ref_images)
         else:
             geoada_context = torch.as_tensor(geoada_context, device=self.device).to(dtype)
         mark("encode_controls")
@@ -419,8 +519,11 @@ class VerseCrafterPipeline:
         if self.teacache_debug:
             self.teacache_accum_history = []
         for i, t in enumerate(timesteps):
+            params = self.expert_for(t)
             noise_pred = denoise.step(i, float(np.float32(t)), latents, context,
-                                      geoada_context, cos, sin, geoada_context_scale)
+                                      geoada_context, cos, sin, geoada_context_scale,
+                                      params=params, extras=extras)
+            del params
             latents = sched.step(noise_pred, i, latents)
             if callback_on_step_end is not None:
                 out = callback_on_step_end(self, i, float(t), {"latents": latents})
@@ -429,6 +532,8 @@ class VerseCrafterPipeline:
             if progress is not None:
                 progress(i + 1, num_inference_steps)
         mark("denoise")
+        if n_ref:  # strip the prepended reference-frame slots
+            latents = latents[:, :, n_ref:]
         if output_type == "latent":
             self.last_wall_profile = wall
             return latents
@@ -550,7 +655,11 @@ class Denoiser:
         self.hosts = ({"c": tc.HostTeaState(batch, dim), "u": tc.HostTeaState(batch, dim)}
                       if self.host_gated else None)
 
-    def step(self, i: int, t: float, latents, context, geo, cos, sin, gscale):
+    def step(self, i: int, t: float, latents, context, geo, cos, sin, gscale,
+             params=None, extras=None):
+        """The step's prediction; params: the step's expert (default the
+        pipeline's dit_params), extras: the batch's conditioning (see
+        denoise_step)."""
         pipe, batch = self.pipe, self.batch
         use_cfg = self.do_cfg and not (pipe.cfg_skip_ratio > 0.0 and i >= self.skip_from)
         if (self.tea and not self.seq_cfg
@@ -560,14 +669,15 @@ class Denoiser:
         e0_host = None
         if self.host_gated:
             tvec = torch.full((batch,), t, dtype=torch.float32, device=pipe.device)
-            e0_host = wan_dit_e0(pipe.dit_params_for_step(), pipe.dit_cfg,
+            e0_host = wan_dit_e0(pipe.dit_params_for_step(params), pipe.dit_cfg,
                                  tvec)[1].cpu().numpy()
 
         def evaluate(name, ctx, batched):
             blocks = (None if not self.tea else
                       lambda run, tokens, e0: self._blocks(name, i, e0_host, run, tokens, e0))
             return pipe.denoise_step(latents, t, ctx, geo, cos, sin, self.guidance,
-                                     gscale, batched, blocks=blocks)
+                                     gscale, batched, blocks=blocks, extras=extras,
+                                     params=params)
 
         if self.seq_cfg:
             pred = evaluate("c", context, False)

@@ -29,7 +29,7 @@ import os
 import queue
 import threading
 import traceback
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,10 @@ CONTROL_NAMES = ["background_RGB.mp4", "background_depth.mp4",
                  "3D_gaussian_RGB.mp4", "3D_gaussian_depth.mp4"]
 STAGED = "(ROADMAP queue 1, item 6: staged residency)"
 MESH = "(ROADMAP queue 1, item 11: parallelism)"
+# the model server's --resident_weights -> default_pipeline_factory's
+# quantize (bits, int8_compute)
+RESIDENT_WEIGHTS = {"bf16": None, "int8": (8, False), "int4": (4, False),
+                    "w8a8": (8, True), "w4a8": (4, True)}
 
 
 def pipeline_configs(scale: str):
@@ -51,14 +55,23 @@ def pipeline_configs(scale: str):
     Wan2.1-T2V-14B + GeoAdapter (40 layers, dim 5120, 40 heads, the
     GeoAdapter every 2nd layer with 128 control channels), '1.3b'
     Wan2.1-1.3B + GeoAdapter (15 blocks), both with the full umT5-xxl and
-    the Wan VAE; 'tiny' the wiring-smoke widths (head_dim 16, so it runs on
-    the CPU only, where attention takes the kernel's plain version)."""
+    the Wan VAE; 'i2v-1.3b' the widths of Wan2.1-Fun-1.3B-InP (i2v: in_dim
+    36 = 16 noise + 4 mask + 16 image latents, img_emb from 1280-wide CLIP
+    tokens) with the same GeoAdapter and the SimpleAdapter at its config
+    defaults (24 camera channels, downscale 8, one residual block), whose
+    factory adds the CLIP ViT-H/14 tower; 'tiny' the wiring-smoke widths
+    (head_dim 16, so it runs on the CPU only, where attention takes the
+    kernel's plain version)."""
     if scale == "14b":
         return versecrafter_14b(), VAEConfig(), T5Config()
-    if scale == "1.3b":
+    if scale in ("1.3b", "i2v-1.3b"):
         t5_cfg = T5Config()
-        return (dataclasses.replace(WAN21_1_3B, geoada_layers=(), geoada_in_dim=128,
-                                    text_dim=t5_cfg.dim), VAEConfig(), t5_cfg)
+        cfg = dataclasses.replace(WAN21_1_3B, geoada_layers=(), geoada_in_dim=128,
+                                  text_dim=t5_cfg.dim)
+        if scale == "i2v-1.3b":
+            cfg = dataclasses.replace(cfg, model_type="i2v", in_dim=36, add_img_emb=True,
+                                      add_control_adapter=True)
+        return cfg, VAEConfig(), t5_cfg
     if scale == "tiny":
         t5_cfg = T5Config(num_layers=2, dim=512, dim_attn=512, dim_ffn=1024,
                           num_heads=8, vocab=1024)
@@ -68,28 +81,50 @@ def pipeline_configs(scale: str):
     raise ValueError(f"unknown scale {scale!r}")
 
 
+def build_dit(cfg: WanDiTConfig, seed: int, device=None, dtype=torch.bfloat16):
+    """A random-weight DiT of `cfg` from `seed`, on the device (the
+    factory's DiT at seed offset 0)."""
+    from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
+    dev = resolve_device(device)
+    return init_wan_dit(cfg, torch.Generator(device=dev).manual_seed(seed), dtype)
+
+
 def default_pipeline_factory(model_path: Optional[str] = None,
                              dtype_name: str = "bfloat16",
-                             scale: str = "1.3b", device=None, seed: int = 0):
+                             scale: str = "1.3b", device=None, seed: int = 0,
+                             with_dit: bool = True, moe: bool = False,
+                             quantize: Optional[Tuple[int, bool]] = None):
     """A factory of the pipeline, built on the device when called: from the
     reference-layout checkpoint directory `model_path`
-    (core.convert.load_versecrafter, weights in `dtype_name`), else the
-    pipeline of `scale` (pipeline_configs) from random weights made from
-    `seed`: the DiT from seed, the VAE (fp32) from seed + 1, umT5 from
-    seed + 2."""
+    (core.convert.load_versecrafter, weights in `dtype_name`; an expert
+    pair where the directory holds one), else the pipeline of `scale`
+    (pipeline_configs) from random weights made from `seed`: the DiT from
+    seed (with moe, a resident Wan2.2 expert pair: the low-noise expert from
+    seed, the high-noise one from seed + 1, as the generate CLI's --moe
+    builds them), the VAE (fp32) from seed + 1, umT5 from seed + 2, an i2v
+    scale's CLIP tower (ViT-H/14) from seed + 3. quantize=(bits,
+    int8_compute) quantizes each expert as soon as it exists, before the
+    next one is made (utils/quantize.quantize_dit, dynamic activation
+    scales): the pipeline then serves that mode for its life, as after a
+    request that asked for it (run_loaded_request). with_dit=False leaves
+    the DiT out (dit_params None: the shell an expert_swap fills)."""
     if model_path:
         def load():
             from versecrafter_tpu_torch.core.convert import load_versecrafter
-            return load_versecrafter(model_path, dtype=getattr(torch, dtype_name),
-                                     device=device)
+            pipe = load_versecrafter(model_path, dtype=getattr(torch, dtype_name),
+                                     device=device, load_dit_params=with_dit,
+                                     quantize=quantize)
+            pipe._quantized = quantize
+            return pipe
         return load
     cfg, vae_cfg, t5_cfg = pipeline_configs(scale)
 
     def factory():
+        from versecrafter_tpu_torch.models.clip import VIT_HUGE_14, init_clip_vision
         from versecrafter_tpu_torch.models.t5 import init_t5
         from versecrafter_tpu_torch.models.vae import init_vae
-        from versecrafter_tpu_torch.models.wan_dit import init_wan_dit
         from versecrafter_tpu_torch.sampling.pipeline import VerseCrafterPipeline
+        from versecrafter_tpu_torch.utils import quantize as qz
 
         dev = resolve_device(device)
         dtype = getattr(torch, dtype_name)
@@ -97,15 +132,25 @@ def default_pipeline_factory(model_path: Optional[str] = None,
         def gen(offset):
             return torch.Generator(device=dev).manual_seed(seed + offset)
 
-        return VerseCrafterPipeline(
-            dit_params=init_wan_dit(cfg, gen(0), dtype),
+        def expert(offset):
+            params = build_dit(cfg, seed + offset, dev, dtype)
+            return params if quantize is None else qz.quantize_dit(params, *quantize)
+
+        clip = (init_clip_vision(VIT_HUGE_14, gen(3), dtype) if cfg.model_type == "i2v"
+                else None)
+        pipe = VerseCrafterPipeline(
+            dit_params=expert(0) if with_dit else None,
+            dit_params_high=expert(1) if with_dit and moe else None,
             dit_cfg=cfg,
             vae_params=init_vae(vae_cfg, gen(1), torch.float32),
             vae_cfg=vae_cfg,
             t5_params=init_t5(t5_cfg, gen(2), dtype),
             t5_cfg=t5_cfg,
+            clip_params=clip, clip_cfg=VIT_HUGE_14 if clip is not None else None,
             device=dev,
         )
+        pipe._quantized = quantize
+        return pipe
     return factory
 
 
@@ -403,12 +448,17 @@ def main(argv=None):
                    help="with --staged (not ported yet)")
     p.add_argument("--quantize_bits", type=int, default=4, choices=(8, 4),
                    help="with --staged (not ported yet)")
+    p.add_argument("--resident_weights", default="bf16", choices=sorted(RESIDENT_WEIGHTS),
+                   help="the DiT quantized as it loads, each expert of a pair before "
+                        "the next is read (a Wan2.2-A14B pair fits one 80 GB card as "
+                        "int8 or w8a8, not as bf16)")
     args = p.parse_args(argv)
     check_ported_serving_flags(args)
     resolve_device(args.device)
 
-    server = ModelServer(default_pipeline_factory(args.model_path, device=args.device),
-                         output_dir=args.output_dir)
+    server = ModelServer(default_pipeline_factory(
+        args.model_path, device=args.device,
+        quantize=RESIDENT_WEIGHTS[args.resident_weights]), output_dir=args.output_dir)
     httpd = make_server(build_router(server), args.host, args.port)
     print(f"model server on {args.host}:{args.port} ({args.device})", flush=True)
     httpd.serve_forever()

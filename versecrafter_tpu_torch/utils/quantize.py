@@ -153,6 +153,28 @@ def quantize_tree(params: Dict[str, Any], bits: int = 8,
     return _quantize(params, bits, group_size, "", None)
 
 
+def quantize_dit(params: Dict[str, Any], bits: int = 8, int8_compute: bool = False,
+                 act_scales: Optional[Dict[str, Any]] = None,
+                 sites: Optional[tuple] = None) -> Dict[str, Any]:
+    """The DiT tree `params` quantized in place and returned: quantize_tree
+    (bits 4 with per-channel scales under int8_compute, W4A8), then with
+    int8_compute tag_int8_compute (`act_scales`, `sites`). The non-block
+    leaves are replaced at once, then each entry of the block lists in turn,
+    so a block's original is dropped as soon as its quantized copy exists
+    unless something else still holds it."""
+    gs = 0 if (bits == 4 and int8_compute) else None
+    lists = {k: v for k, v in params.items() if isinstance(v, list)}
+    top = quantize_tree({k: v for k, v in params.items() if k not in lists}, bits, gs)
+    params.update(tag_int8_compute(top, act_scales, sites) if int8_compute else top)
+    for key, blocks in lists.items():
+        for i in range(len(blocks)):
+            blk = quantize_block(blocks[i], key, len(blocks), bits, gs)
+            if int8_compute:
+                blk = tag_block(blk, key, i, len(blocks), act_scales, sites)
+            blocks[i] = blk
+    return params
+
+
 def _nibbles(packed: torch.Tensor):
     lo = (packed & 0xF).to(torch.int8)
     hi = ((packed >> 4) & 0xF).to(torch.int8)
