@@ -167,6 +167,27 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      latent frames, 81 frames out), one timed CFG-2 step under
      torch.profiler, and the plain cross path's parts beside the fused
      cross kernel by CUDA events.
+ 12. preprocessing and the whole chain (run on phase 10's pipeline, between
+     phase 11's video= request and its i2v part): MoGe-v2 (ViT-L +
+     HEAD_L, seed 0) on the scene's first frame edge-padded to 490x840
+     (2,100 tokens), points and mask logits card vs CPU (1e-3 * max), the
+     focal and shift recovered from each side's point map, a rerun
+     bit-identical, seconds and peak; the neural segmenter at the full
+     widths but a reduced depth (Swin-T stages 2,2,2,2, BERT-base and the
+     encoder / decoder at 2 layers; Hiera-L stages 2,2,4,2) card vs CPU:
+     the encoder's proposal scores, then, both sides decoding the CPU's
+     top-900 selection (the devices rank near-equal proposal scores
+     differently), the detector's logits and boxes and the masks / IoU of
+     the same boxes (1e-3 * max), and, with every query's score and every
+     kept detection's token probabilities 0.002 from their thresholds, the
+     detection lists of that selection; the segmenter at full depth (Grounding DINO Swin-T
+     896 + BERT-base, SAM 2.1 Hiera-L 1024, init_gdino / init_sam2 from
+     seed 0): each model's seconds, the peak, the detections; then the
+     chain: the card's depth and eroded masks -> fit_objects_from_depth ->
+     each Gaussian moved sideways over 81 frames under the scene's camera
+     -> render_control_maps -> a 3-step 480x832x81 request (45 launches a
+     step per fused flavor), each stage's seconds and the wall from image
+     to video; the video uint8 [1, 81, 480, 832, 3] and not constant.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -272,6 +293,22 @@ MOE_SMALL = (240, 416, 33)
 # phase 11: the i2v + camera point's factory scale and its request's steps
 I2V_SCALE = "i2v-1.3b"
 I2V_STEPS = 3
+# phase 12: the prompt of the preprocess on the scene's first frame (the
+# words are in the smoke vocabulary), MoGe's input padded to the 14-pixel
+# patch (2,100 tokens), the segmenter's request knobs (max_area_ratio 1.0:
+# random SAM masks cover most of the image), the depth of the segmenter's
+# card-vs-CPU check (the full widths), and the bars
+PRE_PROMPT = "car. person. box."
+PRE_PAD = (490, 840)
+PRE_KNOBS = dict(box_threshold=0.25, text_threshold=0.25, max_objects=5,
+                 min_area_ratio=0.002, max_area_ratio=1.0)
+PRE_CPU_DEPTH = {"gdino": dict(swin_depths=(2, 2, 2, 2), bert_layers=2, enc_layers=2,
+                               dec_layers=2),
+                 "sam2": dict(blocks=(2, 2, 4, 2), global_blocks=(6,))}
+MOGE_BAR = 1e-3  # fp32 with TF32 off on both sides: max|card - CPU| / max|CPU|
+SEG_BAR = 1e-3
+DET_MARGIN = 0.002  # a detection decision's distance from its threshold
+PRE_MASK_AGREE = 0.99  # share of a detection's mask pixels equal card vs CPU
 PRODUCT_CHECK_ROWS = 1024
 LORA_RANK = 16
 LORA_WEIGHT = 0.55
@@ -2912,6 +2949,308 @@ def extras_phase(fa, fab, ms, dev, card, records, image, controls, mask):
     return launches
 
 
+def tree_to(tree, device):
+    """A parameter tree with every tensor moved to `device` (other leaves
+    kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def rel_to_max(got, ref):
+    """max|got - ref| / max|ref| over the entries finite in ref (on the CPU,
+    in fp32)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(got)):
+        return math.inf
+    return ((got - ref)[fin].abs().max() / ref[fin].abs().max()).item()
+
+
+def peak_since(base):
+    """GiB allocated at the peak since the last reset, above `base` bytes."""
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def moge_check(dev, image, card):
+    """MoGe-v2 at ViT-L + HEAD_L from seed 0 on the scene's first frame
+    edge-padded to PRE_PAD: points and mask logits card vs CPU (MOGE_BAR *
+    max), infer's focal and shift from each side's point map, a rerun
+    bit-identical; seconds and peak. Returns (params on the card, infer's
+    output on the card cropped to the image, seconds)."""
+    from versecrafter_tpu_torch.perception import moge
+    h, w = image.shape[:2]
+    padded = np.pad(image, ((0, PRE_PAD[0] - h), (0, PRE_PAD[1] - w), (0, 0)), mode="edge")
+    x = torch.from_numpy(padded.astype(np.float32) / 255.0)[None]
+    t1 = time.perf_counter()
+    params = moge.init_moge(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[pre] MoGe ViT-L + HEAD_L built on the card in {time.perf_counter() - t1:.2f} s, "
+        f"{sum(t.numel() for t in tree_leaves(params)) / 1e6:.1f} M parameters, "
+        f"{(PRE_PAD[0] // 14) * (PRE_PAD[1] // 14)} tokens at {PRE_PAD[0]}x{PRE_PAD[1]}")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    moge.moge_forward(params, x.to(dev))  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pts, mlog = moge.moge_forward(params, x.to(dev))
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t1
+    peak = peak_since(base)
+    pts2, mlog2 = moge.moge_forward(params, x.to(dev))
+    same = torch.equal(pts, pts2) and torch.equal(mlog, mlog2)
+    t1 = time.perf_counter()
+    cpu_params = tree_to(params, "cpu")
+    pts_h, mlog_h = moge.moge_forward(cpu_params, x)
+    cpu_s = time.perf_counter() - t1
+    e_pts, e_mask = rel_to_max(pts, pts_h), rel_to_max(mlog, mlog_h)
+    f_c, s_c = moge.recover_focal_shift(pts[0].cpu().numpy(), (mlog[0] > 0).cpu().numpy())
+    f_h, s_h = moge.recover_focal_shift(pts_h[0].numpy(), (mlog_h[0] > 0).numpy())
+    log(f"[pre] MoGe forward {fwd_s * 1e3:.1f} ms on {card} (CPU {cpu_s:.1f} s), peak "
+        f"{peak:.3f} GiB above the {base / 2**30:.2f} GiB before it; card vs CPU: points "
+        f"{e_pts:.3e}, mask logits {e_mask:.3e} of max (bar {MOGE_BAR}); focal {f_c:.6f} vs "
+        f"{f_h:.6f}, shift {s_c:.6f} vs {s_h:.6f}; rerun bit-identical: {same}")
+    del cpu_params, pts_h, mlog_h, pts2, mlog2
+    if not same:
+        raise AssertionError("a rerun of MoGe gave other outputs")
+    if max(e_pts, e_mask) > MOGE_BAR:
+        raise AssertionError(f"MoGe card vs CPU {e_pts:.3e} / {e_mask:.3e} above {MOGE_BAR}")
+    if abs(f_c - f_h) > MOGE_BAR * abs(f_h) or abs(s_c - s_h) > MOGE_BAR * max(abs(s_h), 1.0):
+        raise AssertionError(f"focal / shift differ: {f_c} {s_c} vs {f_h} {s_h}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = moge.infer(params, padded.astype(np.float32) / 255.0)
+    infer_s = time.perf_counter() - t1
+    for k in ("depth", "points", "mask"):
+        out[k] = out[k][:h, :w]
+    if not np.isfinite(out["depth"]).all() or out["depth"].shape != (h, w):
+        raise AssertionError(f"depth {out['depth'].shape} not finite everywhere")
+    log(f"[pre] infer (forward + host focal / shift) {infer_s:.3f} s; depth {h}x{w} in "
+        f"[{out['depth'].min():.3f}, {out['depth'].max():.3f}], focal "
+        f"{out['intrinsics'][0, 0]:.4f} (normalized fx)")
+    return params, out, infer_s
+
+
+def _tokenizer():
+    import tempfile
+
+    from versecrafter_tpu_torch.perception.wordpiece import SMOKE_VOCAB, WordPieceTokenizer
+    with tempfile.NamedTemporaryFile("w", suffix=".txt", delete=False) as f:
+        f.write("\n".join(SMOKE_VOCAB))
+    tok = WordPieceTokenizer(f.name)
+    os.unlink(f.name)
+    return tok
+
+
+def segmenter_check(dev, image, labels, card):
+    """The neural segmenter at full width and PRE_CPU_DEPTH depth (Swin-T
+    896 + BERT-base widths, Hiera-L 1024 widths, from seed 1), card against
+    the CPU. The two-stage query selection ranks ~16,660 proposals by
+    continuous scores whose neighbours lie closer than the two devices'
+    rounding, and each rank carries its own query embedding: so the
+    encoder's scores are held to SEG_BAR * max, and both sides then decode
+    the CPU's selection (the logits, boxes, and the masks / IoU of the same
+    boxes within SEG_BAR * max). After asserting that every query's score
+    and every kept detection's token probabilities clear their thresholds
+    by DET_MARGIN (the sides' probabilities differing by less than half of
+    it), the detection lists of that selection are compared."""
+    from versecrafter_tpu_torch.perception import gdino_hf, sam2
+    from versecrafter_tpu_torch.perception.segmenter import (
+        IMAGENET_MEAN, IMAGENET_STD, ImageSegmenter)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gcfg = dict(gdino_hf.SWINT_CFG)
+    scfg = dict(sam2.HIERA_LARGE, **PRE_CPU_DEPTH["sam2"])
+    tok = _tokenizer()
+    card_seg = ImageSegmenter(backend="neural", tokenizer=tok, **PRE_KNOBS,
+                              gdino_params=(gdino_hf.init_gdino(gcfg, gen,
+                                                                shapes=PRE_CPU_DEPTH["gdino"]),
+                                            gcfg),
+                              sam2_params=(sam2.init_sam2(gen, scfg), scfg))
+    cpu_seg = ImageSegmenter(backend="neural", tokenizer=tok, **PRE_KNOBS,
+                             gdino_params=(tree_to(card_seg.gdino_params[0], "cpu"), gcfg),
+                             sam2_params=(tree_to(card_seg.sam2_params[0], "cpu"), scfg))
+    t1 = time.perf_counter()
+    ids, _ = gdino_hf.phrase_token_spans(tok, labels)
+    L = ids.shape[1]
+    gimg, _, _ = ImageSegmenter._letterbox(image, card_seg.det_size)
+    px = torch.from_numpy(((gimg - IMAGENET_MEAN) / IMAGENET_STD).transpose(2, 0, 1)[None]
+                          .astype(np.float32))
+    enc_c = gdino_hf.gdino_encode(card_seg.gdino_params[0], gcfg, px, ids)
+    enc_h = gdino_hf.gdino_encode(cpu_seg.gdino_params[0], gcfg, px, ids)
+    top = gdino_hf.topk_stable(enc_h["scores"], gcfg["num_queries"])
+    own = gdino_hf.topk_stable(enc_c["scores"], gcfg["num_queries"]).cpu()
+    ranks_differ = int((own != top).sum())
+    in_both = len(set(own[0].tolist()) & set(top[0].tolist()))
+    lg_c, bx_c = gdino_hf.gdino_decode(card_seg.gdino_params[0], gcfg, enc_c, top.to(dev))
+    lg_h, bx_h = gdino_hf.gdino_decode(cpu_seg.gdino_params[0], gcfg, enc_h, top)
+    real_forward = gdino_hf.gdino_forward
+
+    def cpu_selection(params, cfg, pixels, input_ids):  # both sides decode the CPU's ranks
+        enc = gdino_hf.gdino_encode(params, cfg, pixels, input_ids)
+        return gdino_hf.gdino_decode(params, cfg, enc, top.to(enc["vis"].device))
+    gdino_hf.gdino_forward = cpu_selection
+    try:
+        found_h, pix_h, _, _ = cpu_seg.detect(image, labels)
+        m_c, iou_c, _ = card_seg.masks_for_boxes(image, pix_h)
+        m_h, iou_h, _ = cpu_seg.masks_for_boxes(image, pix_h)
+        got = card_seg.segment_image(image, PRE_PROMPT)
+        want = cpu_seg.segment_image(image, PRE_PROMPT)
+    finally:
+        gdino_hf.gdino_forward = real_forward
+    errs = {"scores": rel_to_max(enc_c["scores"], enc_h["scores"]),
+            "logits": rel_to_max(lg_c, lg_h), "boxes": rel_to_max(bx_c, bx_h),
+            "masks": rel_to_max(m_c, m_h), "iou": rel_to_max(iou_c, iou_h)}
+    p_c = torch.sigmoid(lg_c[0, :, :L].float().cpu())
+    p_h = torch.sigmoid(lg_h[0, :, :L].float())
+    dp = (p_c - p_h).abs().max().item()
+    score_gap = (p_h.amax(-1) - PRE_KNOBS["box_threshold"]).abs().min().item()
+    token_gap = min([(torch.from_numpy(d["probs"][1:L - 1]) - PRE_KNOBS["text_threshold"])
+                     .abs().min().item() for d in found_h] or [math.inf])
+    log(f"[pre] segmenter at depth {PRE_CPU_DEPTH} (card + CPU {time.perf_counter() - t1:.1f} s): "
+        f"card vs CPU {({k: f'{v:.3e}' for k, v in errs.items()})} of max (bar {SEG_BAR}); "
+        f"the card's own top-{gcfg['num_queries']} ranks differ at {ranks_differ} places "
+        f"({in_both} proposals in both); probabilities differ by {dp:.2e} at most; closest "
+        f"score to box_threshold {score_gap:.4f}, closest kept token to text_threshold "
+        f"{token_gap:.4f} (margin {DET_MARGIN}); {len(found_h)} boxes kept after NMS")
+    if max(errs.values()) > SEG_BAR:
+        raise AssertionError(f"segmenter card vs CPU {errs} above {SEG_BAR}")
+    if not (score_gap > DET_MARGIN and token_gap > DET_MARGIN and dp < DET_MARGIN / 2):
+        raise AssertionError(f"a detection decision lies within {DET_MARGIN} of its threshold")
+    agree = [float((a.mask == b.mask).mean()) for a, b in zip(got, want)]
+    boxes = [[(d.label, tuple(int(v) for v in d.box)) for d in ds] for ds in (got, want)]
+    log(f"[pre] detection lists: card {boxes[0]}, CPU {boxes[1]}; masks agree on "
+        f"{[round(a, 5) for a in agree]} of pixels")
+    if boxes[0] != boxes[1] or min(agree, default=1.0) < PRE_MASK_AGREE:
+        raise AssertionError("the card's detection list differs from the CPU's")
+
+
+def preprocess_phase(fa, fab, ms, pipe, dev, card):
+    """Phase 12: the Blender add-on's preprocess, then the whole chain. MoGe
+    (moge_check) and the segmenter's card-vs-CPU check (segmenter_check),
+    then the segmenter at full depth (build_neural fresh_init: Swin-T 896 +
+    BERT-base, Hiera-L 1024) with its seconds and peak; the chain on the
+    scene's first frame: the card's depth and eroded masks ->
+    fit_objects_from_depth -> each fitted Gaussian moved sideways over 81
+    frames under the scene's camera -> render_control_maps -> a 3-step
+    480x832x81 request on phase 10's 1.3B pipeline (45 launches a step per
+    fused flavor). Returns the request's launches."""
+    from versecrafter_tpu_torch.geometry.coords import (
+        CV2BLENDER, blender_c2w_to_opencv_w2c, denormalize_intrinsics)
+    from versecrafter_tpu_torch.geometry import render as tr
+    from versecrafter_tpu_torch.geometry.gaussians import fit_objects_from_depth
+    from versecrafter_tpu_torch.geometry.morphology import erode
+    from versecrafter_tpu_torch.geometry.pointcloud import build_background
+    from versecrafter_tpu_torch.geometry.splat import TAB20
+    from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
+    from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
+    from versecrafter_tpu_torch.serve.model_server import run_loaded_request
+    t0 = time.perf_counter()
+    h, w, n = RENDER_SIZE
+    log(f"[pre] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+        f"(phase 10's pipeline resident)")
+    scene = synthetic_scene(h, w, n, RENDER_SEED)
+    image = scene["image"]
+    labels = [t.strip() for t in PRE_PROMPT.split(".") if t.strip()]
+    stages = {}
+    moge_params, out, stages["depth"] = moge_check(dev, image, card)
+    segmenter_check(dev, image, labels, card)
+
+    t1 = time.perf_counter()
+    seg = ImageSegmenter.build_neural(fresh_init=True, device=dev, **PRE_KNOBS)
+    seg.tokenizer = _tokenizer()  # the smoke vocabulary, whatever the cache holds
+    torch.cuda.synchronize()
+    log(f"[pre] segmenter at full depth built in {time.perf_counter() - t1:.2f} s "
+        f"(Grounding DINO Swin-T + BERT-base fp32, SAM 2.1 Hiera-L)")
+    seg.detect(image, labels)  # warm-up of both models
+    seg.masks_for_boxes(image, np.array([[10.0, 10.0, 200.0, 200.0]]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    found, pix, _, _ = seg.detect(image, labels)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    seg.masks_for_boxes(image, pix)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"[pre] Grounding DINO {t2 - t1:.3f} s ({len(found)} boxes after NMS), SAM 2.1 "
+        f"{t3 - t2:.3f} s ({PRE_KNOBS['max_objects'] * 2} prompts); peak "
+        f"{peak_since(base):.3f} GiB above {base / 2**30:.2f} GiB, on {card}")
+
+    t1 = time.perf_counter()
+    dets = seg.segment_image(image, PRE_PROMPT)
+    stages["segment"] = time.perf_counter() - t1
+    log(f"[pre] segment_image: {len(dets)} detections (label, score, box, mask pixels) "
+        f"{[(d.label, round(d.score, 3), tuple(int(v) for v in d.box), int(d.mask.sum())) for d in dets]}")
+    if not dets:
+        raise AssertionError("no detection at full depth")
+
+    # the chain: depth + masks -> Gaussians -> trajectories -> maps -> video
+    t1 = time.perf_counter()
+    masks = {i + 1: (d.label, erode(d.mask, 5)) for i, d in enumerate(dets)}
+    fitted = fit_objects_from_depth(out["depth"], out["intrinsics"], masks)
+    stages["gaussian"] = time.perf_counter() - t1
+    if not fitted:
+        raise AssertionError("no object fitted from the card's depth and masks")
+    t1 = time.perf_counter()
+    K = denormalize_intrinsics(out["intrinsics"], w, h)
+    union = np.any([d.mask for d in dets], 0).astype(np.uint8)
+    pts, cols = build_background(image, out["depth"], K, union)
+    f = np.arange(n, dtype=np.float32) / (n - 1)
+    ids = sorted(fitted)
+    mean0 = np.array([fitted[i]["mean"] for i in ids], np.float32) @ CV2BLENDER.T
+    cov0 = np.array([CV2BLENDER @ np.array(fitted[i]["cov"]) @ CV2BLENDER.T for i in ids],
+                    np.float32)
+    step = np.abs(mean0[:, 1:2]) * np.array([[0.3, 0.0, 0.0]], np.float32)  # sideways
+    means = mean0[None] + f[:, None, None] * step[None]
+    covs = np.broadcast_to(cov0[None], (n,) + cov0.shape).copy()
+    present = np.ones((n, len(ids)), bool)
+    args = (pts, cols, K, blender_c2w_to_opencv_w2c(scene["c2w_blender"]), means, covs,
+            present, TAB20[np.arange(len(ids)) % 20], (h, w))
+    stages["trajectories"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    maps = tr.render_control_maps(*args, device=dev)
+    stages["render"] = time.perf_counter() - t1
+    for name, v in maps.items():
+        if v.shape != (n, h, w, 3) or v.dtype != np.uint8:
+            raise AssertionError(f"{name}: {v.shape} {v.dtype}")
+    drawn = int(maps["3D_gaussian_RGB"].any(-1).any((1, 2)).sum())
+    log(f"[pre] fitted {len(fitted)} Gaussians "
+        f"{ {i: (fitted[i]['label'], fitted[i]['num_points']) for i in ids} }; "
+        f"{len(pts)} background points; Gaussian pixels drawn in {drawn} of {n} frames")
+    controls, mask = maps_to_request(maps, image)
+    del maps
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    t1 = time.perf_counter()
+    video = run_loaded_request(pipe, {"prompt": "a red car drives left", "negative_prompt":
+                                      "blurry", "num_inference_steps": STEPS,
+                                      "guidance_scale": 5.0, "seed": 17, "height": h,
+                                      "width": w, "num_frames": n}, controls, mask)
+    stages["generate"] = time.perf_counter() - t1
+    counts = dict(fa.LAUNCHES)
+    wall = sum(stages.values())
+    log(f"[chain] image -> depth + masks -> Gaussians -> control maps -> video: "
+        f"{ {k: round(v, 3) for k, v in stages.items()} } s, {wall:.2f} s from image to "
+        f"video (models built beforehand); request "
+        f"{ {k: round(v, 3) for k, v in pipe.last_wall_profile.items()} } launches {counts}; "
+        f"output {video.shape} {video.dtype} on {card}")
+    want = {"fused_rope_rms_attention": 45 * STEPS, "fused_rope_rms_attention_int8": 0,
+            "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
+    if counts != want or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values()):
+        raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} != {want}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    del video, seg, moge_params, controls, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pre] phase 12 {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3141,6 +3480,10 @@ def main() -> int:
     pipe = carry.pop("pipe")
     for k_, v in masked_init_request(fa, fab, ms, pipe, carry["controls"], carry["mask"],
                                      card).items():
+        launches_main[k_] = launches_main.get(k_, 0) + v
+
+    # -- 12. preprocessing and the whole chain, on the same pipeline ----------
+    for k_, v in preprocess_phase(fa, fab, ms, pipe, dev, card).items():
         launches_main[k_] = launches_main.get(k_, 0) + v
     del pipe
     gc.collect()

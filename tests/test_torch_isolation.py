@@ -73,7 +73,11 @@ def test_the_port_imports_without_cv2_safetensors_transformers():
     for name in ("core.convert", "core.checkpoint", "serve.api_server", "serve.http",
                  "serve.tasks", "utils.video", "utils.profiling", "cli.inference",
                  "geometry.pointcloud", "geometry.gaussians", "geometry.render",
-                 "cli.render_maps", "cli.fit_gaussian", "models.clip"):
+                 "cli.render_maps", "cli.fit_gaussian", "models.clip",
+                 "perception.vit", "perception.dinov2", "perception.moge_head",
+                 "perception.moge", "perception.sam2", "perception.sam",
+                 "perception.gdino_hf", "perception.wordpiece", "perception.segmenter",
+                 "utils.mesh_export", "cli.moge_infer", "cli.segment", "cli.pipeline"):
         assert f"versecrafter_tpu_torch.{name}" in names
 
 

@@ -363,17 +363,6 @@ def test_subprocess_tier_runs_the_cli(workdir):
     assert video.shape == (1, 3, 5, 16, 16)
 
 
-@pytest.mark.parametrize("kind,items", [("preprocess", "item 10")])
-def test_unported_stages_fail_naming_their_items(api, kind, items):
-    _, url = api
-    task = _call(f"{url}/api/{kind}", "POST", {"image": "input.png"})[1]["task_id"]
-    st, _ = _wait(f"{url}/api/status/{task}")
-    assert st["status"] == "FAILED"
-    assert st["error"].startswith("NotImplementedError") and items in st["error"]
-    status, body = _call(f"{url}/api/preprocess_sync", "POST", {"image": "input.png"})
-    assert status == 500 and items in body["error"]
-
-
 @pytest.fixture(scope="module")
 def render_request(workdir):
     """A render request on a seeded 16x32 scene of N frames written into the

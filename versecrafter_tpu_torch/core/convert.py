@@ -1,7 +1,8 @@
 """Parameter conversion: the JAX package's pytrees, and the reference's
 torch checkpoints.
 
-`params_from_jax` takes a DiT, VAE or T5 parameter tree given as nested
+`params_from_jax` takes a DiT, VAE, T5, CLIP or perception (MoGe, DINOv2,
+SAM 2.1, SAM, Grounding DINO) parameter tree given as nested
 dicts/lists of numpy arrays (np.asarray of each JAX leaf) and returns the
 port's tree: the same keys, every leaf a tensor of the same dtype (bf16
 included), linear kernels kept [in, out] and conv kernels kept OIDHW/OIHW.
@@ -77,7 +78,12 @@ def _num_stacked(tree) -> int:
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
-    """Nested dicts/lists of numpy arrays -> the port's parameter tree."""
+    """Nested dicts/lists of numpy arrays -> the port's parameter tree.
+    Python scalars and strings (the static config some perception trees
+    carry, e.g. MoGe's "_static" or SAM's decoder "_heads") stay as they
+    are."""
+    if isinstance(tree, (str, bool, int, float)) or tree is None:
+        return tree
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():

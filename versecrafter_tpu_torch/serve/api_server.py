@@ -16,9 +16,9 @@ Endpoints:
   POST/GET /api/render[_get]      trajectories -> the six control videos
                                   (geometry/render.py, on `device`)
   POST     /api/workflow          render, then generate from the rendered maps
-  POST/GET /api/preprocess[_get], POST /api/preprocess_sync: their tasks end
-           FAILED until the perception slice is ported (ROADMAP queue 1,
-           item 10)
+  POST/GET /api/preprocess[_get], POST /api/preprocess_sync (blocking)
+                                  image -> depth (MoGe) + masks (segmenter)
+                                  + fitted Gaussians, on `device`
   GET      /api/status/<task_id>, /api/tasks
   POST     /api/upload, /api/upload_base64, /api/upload_chunk,
            /api/upload_complete; GET /api/upload_base64[_get]
@@ -53,11 +53,6 @@ import torch
 from versecrafter_tpu_torch.serve.http import Router, make_server
 from versecrafter_tpu_torch.serve.tasks import (
     COMPLETED, FAILED, RUNNING, ChunkStore, TaskRegistry)
-
-PREPROCESS_NOT_PORTED = (
-    "preprocess (depth and segmentation before the Gaussian fit) needs the "
-    "perception slice, not ported yet (ROADMAP queue 1, item 10)")
-
 
 class ApiServer:
     POLL_S = 2.0  # tier 1: seconds between two polls of the model server
@@ -152,10 +147,82 @@ class ApiServer:
                           message=traceback.format_exc()[-2000:])
 
     def run_preprocess(self, task_id: str, params: dict):
+        """A request's image (inside the workdir) -> estimated_depth/
+        (depth_intrinsics.npz + views), object_mask/ (the segmenter's files)
+        and fitted_3D_gaussian/gaussian_params.json beside it; result
+        {"depth_npz", "gaussian_params", "mask_dir", "num_objects"}, relative
+        to the workdir. The detection knobs ride the request (backend,
+        box_threshold, text_threshold, min_area_ratio, max_area_ratio,
+        max_objects, text_prompt); MoGe runs on `device`. Image and PNG IO
+        need OpenCV."""
         try:
-            raise NotImplementedError(PREPROCESS_NOT_PORTED)
+            import numpy as np
+
+            from versecrafter_tpu_torch.geometry.gaussians import process_single_image
+            from versecrafter_tpu_torch.perception import moge
+            from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
+            from versecrafter_tpu_torch.utils.video import _cv2
+
+            cv2 = _cv2()
+            self.tasks.update(task_id, status=RUNNING, progress=5, message="estimating depth")
+            img_path = self.safe_path(params["image"])
+            out_root = os.path.dirname(img_path)
+            img = cv2.cvtColor(cv2.imread(img_path), cv2.COLOR_BGR2RGB)
+            ph, pw = -img.shape[0] % 14, -img.shape[1] % 14  # the ViT patch multiple
+            pimg = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge") if ph or pw else img
+            mparams = self._moge_params(params.get("moge_checkpoint"),
+                                        params.get("model_version", "v2"))
+            out = moge.infer(mparams, pimg.astype(np.float32) / 255.0)
+            depth = out["depth"][: img.shape[0], : img.shape[1]]
+            out["depth"] = depth
+            depth_dir = os.path.join(out_root, "estimated_depth")
+            moge.save_outputs(out, depth_dir)
+
+            self.tasks.update(task_id, progress=40, message="segmenting")
+            seg = ImageSegmenter(
+                backend=params.get("backend", "saliency"),
+                box_threshold=float(params.get("box_threshold", 0.25)),
+                text_threshold=float(params.get("text_threshold", 0.25)),
+                min_area_ratio=float(params.get("min_area_ratio", 0.002)),
+                max_area_ratio=float(params.get("max_area_ratio", 0.6)),
+                max_objects=int(params.get("max_objects", 5)))
+            dets = seg.segment_image(img, params.get("text_prompt", "object."), depth=depth)
+            mask_dir = os.path.join(out_root, "object_mask")
+            seg.save_results(img, dets, mask_dir, stem=os.path.splitext(
+                os.path.basename(img_path))[0])
+
+            self.tasks.update(task_id, progress=70, message="fitting gaussians")
+            gdir = os.path.join(out_root, "fitted_3D_gaussian")
+            process_single_image(os.path.join(depth_dir, "depth_intrinsics.npz"),
+                                 os.path.join(mask_dir, "masks"), gdir,
+                                 input_image_path=img_path)
+            self.tasks.update(task_id, status=COMPLETED, progress=100, result={
+                "depth_npz": os.path.relpath(os.path.join(depth_dir, "depth_intrinsics.npz"),
+                                             self.workdir),
+                "gaussian_params": os.path.relpath(os.path.join(gdir, "gaussian_params.json"),
+                                                   self.workdir),
+                "mask_dir": os.path.relpath(mask_dir, self.workdir),
+                "num_objects": len(dets),
+            })
         except Exception as e:  # noqa: BLE001 — task boundary
             self._fail(task_id, e)
+
+    def _moge_params(self, ckpt: Optional[str], version: str = "v2"):
+        """MoGe parameters for a preprocess request: the request's checkpoint
+        (inside the workdir), else self.moge_checkpoints[version] when
+        configured ('v1' / 'v2', the add-on's depth-model knob), else a
+        random full ViT-L from seed 0 on `device`, built once and cached."""
+        from versecrafter_tpu_torch import resolve_device
+        from versecrafter_tpu_torch.perception import moge
+
+        if not ckpt:
+            ckpt = getattr(self, "moge_checkpoints", {}).get(version)
+        dev = resolve_device(self.device)
+        if ckpt:
+            return moge.load_checkpoint(self.safe_path(ckpt), device=dev)
+        if getattr(self, "_moge_cache", None) is None:
+            self._moge_cache = moge.init_moge(torch.Generator(device=dev).manual_seed(0))
+        return self._moge_cache
 
     def run_render(self, task_id: str, params: dict):
         """The control maps of a request's image, depth npz, masks and
