@@ -24,15 +24,17 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      CTAs; twenty back-to-back launches of each forward flavor, bit-identical;
   3. the generate path end to end: a full-width Wan2.1-1.3B + GeoAdapter
      pipeline with umT5-xxl and the Wan VAE from random weights serves a
-     generate request (480x832x81, 3 UniPC steps, CFG 5; the VAE streams
-     at that size) through the serving mapping; the launch counters must
-     read 45 per step per fused flavor, and the DiT on the card must agree
-     with the same DiT on the CPU at a small input; one 480x832x81 control
-     video through the streaming and the full-sequence VAE (in fp32 on its
-     first 33 frames the two within 2*2^-8*max; in bf16 at 81 frames the
-     streaming path within 2*2^-8*max of the full path's own distance from
-     the fp32 result; each path's time and peak memory); one 480x832x81
-     request with TeaCache and cfg-skip (8 steps),
+     generate request (480x832x45, 2 UniPC steps, CFG 5; the VAE streams
+     at that size; the served 480p requests run 45 frames and 2 steps, not
+     81 and 3, to leave room for phase 13) through the serving
+     mapping; the launch counters must read 45 per step per fused flavor,
+     and the DiT on the card must agree with the same DiT on the CPU at a
+     small input; one 480x832x45 control video through the streaming and
+     the full-sequence VAE (in fp32 on its first 17 frames the two within
+     2*2^-8*max; in bf16 at 45 frames the streaming path within 2*2^-8*max
+     of the full path's own distance from the fp32 result; each path's
+     time and peak memory); one 480x832x45 request with TeaCache and
+     cfg-skip (8 steps),
      whose skip schedule must equal the one recomputed here from the
      timesteps' e0 and whose launches must be 45 per evaluation that ran the
      blocks; the generate request's uint8 frames and denoised latents are
@@ -49,12 +51,12 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      end);
   5. the training path: GeoAdapter-only training of the full-width
      Wan2.1-1.3B + GeoAdapter at 480x832x81, batch 1: loss and gradients on
-     the card against the CPU at 192 tokens, a warm-up and two timed steps
+     the card against the CPU at 192 tokens, a warm-up and a timed step
      (finite losses, every trainable leaf moved, every frozen leaf
      unchanged, launch counts as derived from the model), peak memory, and
      one step under torch.profiler;
   6. the generate path's two opt-in variants on a fresh full-width
-     pipeline: one 480x832x81 request with `int8_attention` through the
+     pipeline: one 480x832x45 request with `int8_attention` through the
      serving toggle (int8-scored self-attention) and one with
      wan_dit.PROJ_STAT_FUSION on (q/k statistics from the linear_rstat
      GEMM), each with its launch counts; then one timed CFG-2 denoise step
@@ -63,10 +65,12 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      the default's;
   7. the flagship: the fused attention kernels at the Wan2.1-14B width (40
      heads, [2, 32,760, 5120], cross against 512 keys) against their plain
-     versions, timed, reruns bit-identical; then Wan2.1-T2V-14B + GeoAdapter
+     versions, timed, reruns bit-identical, then at 720p (phase 13, part 1)
+     and the 720p controls rendered; then Wan2.1-T2V-14B + GeoAdapter
      with umT5-xxl and the Wan VAE from random weights (build time, resident
      memory), its first GeoAdapter superstep on the card against the CPU at
-     192 tokens, one 480x832x81 request with TeaCache and cfg-skip (4 steps;
+     192 tokens, the 720p step (phase 13, part 2), one 480x832x45 request
+     with TeaCache and cfg-skip (4 steps;
      schedule, 60 launches per evaluation that ran the blocks, stage split,
      peak memory), one timed CFG-2 step under torch.profiler and the same
      step as sequential CFG held to it (twice the noise floor, in max error
@@ -74,13 +78,11 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      measurements with and without the FFN hidden held through the
      residual (fault F1); then the Wan2.2 two-expert MoE at Wan2.2-T2V-A14B
      width (each expert the 14B + GeoAdapter): phase 7's DiT dropped and an
-     expert_swap building the high expert from seed 1 and the low one from
-     seed 0 for one 480x832x81 request on two custom timesteps that
-     straddle the 0.875 boundary (CFG-2 batched; swap calls ["high",
-     "low"], 60 launches of rows 1-2 a step, each build's seconds and the
-     bytes allocated before it, the request's peak at most the single-
-     expert request's + 1 GiB), the same 2-step request at 1.3B width as a
-     resident pair and as an expert swap (latents bit-identical), and after
+     expert_swap building the high expert from seed 1 and then the low one
+     from seed 0 at sigma 0.95 and 0.5 (swap calls ["high", "low"], the high
+     expert freed before the low one is built; phase 13 serves a request
+     through the swap at 720p), a 2-step 240x416x33 request at 1.3B width as
+     a resident pair and as an expert swap (latents bit-identical), and after
      phase 9's W8A8 conversion (and phase 7's pipeline dropped) the resident
      int8 pair through default_pipeline_factory(moe=True, quantize=(8,
      True)), which quantizes each expert W8A8 (dynamic scales) before it
@@ -98,7 +100,7 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      ApiServer whose tier is a port ModelServer, over HTTP on 127.0.0.1:
      the mirrored progress must never fall and end at 100, its frames must
      equal phase 3's bit for bit, and it must launch each fused flavor 45 x
-     3 times (phase 3's second request, once served back to back behind
+     2 times (phase 3's second request, once served back to back behind
      it, was cut to keep the run inside its time; the check that it
      waited in the queue at depth 1 moved to the CPU test
      tests/test_torch_serving.py::test_model_server_queues_a_second_request).
@@ -110,25 +112,25 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      timed whole and split (activation quantize, int4 unpack, _int_mm, fp32
      epilogue) beside torch.addmm in bf16, with their peak bytes, the first
      1,024 rows equal to the CPU's bit for bit; LoRA training through
-     cli/train.py --lora_rank 16 (three 480x832x81 batch-1 steps of the
+     cli/train.py --lora_rank 16 (two 480x832x81 batch-1 steps of the
      1.3B + GeoAdapter: finite losses, the base tree's SHA-256 unchanged,
      an up factor moved, launches as attention_launches_per_step(cfg,
-     lora=True) derives, the exported step_000003_lora.safetensors read
+     lora=True) derives, the exported step_000002_lora.safetensors read
      back equal); then phase 3's pipeline (bf16 tree kept) in five modes in
      turn (int8, int4 with group scales, W8A8 dynamic, W8A8 static with
      scales from calibrate=True on one 480x832x81 forward, W4A8): resident
      DiT bytes and its first GeoAdapter superstep within 5e-2 * max of the
      CPU in the same mode at 192 tokens, W4A8 also one timed 480x832x81
      CFG-2 step against the bf16 step (the rebuilt pipeline's bf16 step
-     must equal phase 4's bit for bit); one 3-step
-     480x832x81 request with {"int8_compute": true} through
+     must equal phase 4's bit for bit); one 2-step
+     480x832x45 request with {"int8_compute": true} through
      run_loaded_request (45 launches per step per fused flavor), after which
      {"quantize_bits": 4} must raise; the trained LoRA merged at 0.55 (two
      merged leaves equal to the CPU merge bit for bit), one CFG-2 step, and
      the unmerged leaves' distance from the base in bf16 ulps. Its 14B part
      runs at the end of phase 7, on the resident 14B pipeline: quantized in
-     place to W8A8, resident bytes, a warm-up and two timed CFG-2 steps
-     with their peak, the first GeoAdapter superstep against the CPU;
+     place to W8A8, resident bytes, one timed CFG-2 step with its peak,
+     the first GeoAdapter superstep against the CPU;
  10. the render -> generate workflow (the Blender add-on's postprocess): a
      seeded synthetic scene (geometry/synthetic.py: a 480x832 image and
      depth, four object masks carving the background through the port's
@@ -145,11 +147,11 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      27-frame batch under torch.profiler (device time by kernel, idle
      share); then the six streams as a generate request (the way
      load_request_inputs makes them from decoded frames) served on phase
-     3's 1.3B pipeline through run_loaded_request at 480x832x81, 3 steps,
-     CFG 5: 45 launches a step per fused flavor, its stage split beside the
-     render's wall time.
- 11. the conditioning extras: a 2-step video= masked-init request on phase
-     3's pipeline (the rendered background clip masked by merged_mask as
+     3's 1.3B pipeline through run_loaded_request on the first 45 frames
+     (480x832x45), 2 steps, CFG 5: 45 launches a step per fused flavor, its
+     stage split beside the render's wall time.
+ 11. the conditioning extras: a 2-step 480x832x45 video= masked-init
+     request on phase 3's pipeline (the rendered background clip masked by merged_mask as
      the single control, a geoada_patch_embedding for its 80 channels);
      row 4b, the plain forward's exp2 flavor, at the i2v cross shapes
      ([2, 12, 32,760, 128] against 512 and 257 keys) against its plain
@@ -159,12 +161,12 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      ViT-H/14 tower from random weights: the DiT on the card against the
      CPU at 192 tokens with y, clip_fea and y_camera (5e-2 * max),
      encode_image of a 480x832 uint8 frame against the CPU (2 * 2^-8 *
-     max, timed), one 480x832x81 request (3 UniPC steps, CFG 5, batched)
-     with clip_image, y as Wan i2v builds it [1, 20, 21, 60, 104], 24-channel
-     camera maps [1, 24, 21, 480, 832] and phase 10's four rendered controls
+     max, timed), one 480x832x45 request (2 UniPC steps, CFG 5, batched)
+     with clip_image, y as Wan i2v builds it [1, 20, 12, 60, 104], 24-channel
+     camera maps [1, 24, 12, 480, 832] and phase 10's four rendered controls
      (launches a step: row 1 45, row 2 15, row 4b 60; stage split, peak),
-     a 2-step request with one subject reference frame (noise drawn at 22
-     latent frames, 81 frames out), one timed CFG-2 step under
+     a 2-step request with one subject reference frame (noise drawn at 13
+     latent frames, 45 frames out), one timed CFG-2 step at 480x832x81 under
      torch.profiler, and the plain cross path's parts beside the fused
      cross kernel by CUDA events.
  12. preprocessing and the whole chain (run on phase 10's pipeline, between
@@ -185,9 +187,32 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      seed 0): each model's seconds, the peak, the detections; then the
      chain: the card's depth and eroded masks -> fit_objects_from_depth ->
      each Gaussian moved sideways over 81 frames under the scene's camera
-     -> render_control_maps -> a 3-step 480x832x81 request (45 launches a
+     -> render_control_maps -> a 2-step 480x832x81 request (45 launches a
      step per fused flavor), each stage's seconds and the wall from image
      to video; the video uint8 [1, 81, 480, 832, 3] and not constant.
+ 13. 720p at 14B (720x1280x81, 75,600 tokens), in three parts: with the
+     card empty (in phase 7), rows 1-2 at [2, 75,600, 40, 128] (cross
+     against 512 keys), a rerun bit-identical, heads 0 and 39 of both batch
+     items held to the plain version on those heads, timed beside their
+     bounds and SDPA, and the seeded scene rendered at 720x1280x81 as the
+     request's controls; on phase 7's resident pipeline, the request's first
+     step (its noise, the prompt pair through umT5, the controls through the
+     VAE) as sequential CFG, timed with its peak, and as batched CFG where
+     the measured sequential peak plus the memory model's batched term stays
+     under sampling/staged.CARD_MODEL's bar (else not launched); after phase
+     7, the request through staged.generate_staged with
+     fresh_init_factories("14b", bits=0) (phase 7's DiT bit for bit), 2
+     UniPC steps, CFG 5 as auto_cfg_parallel picks: each stage's seconds and
+     peak, the bytes left after each free (the stage outputs within 64
+     MiB), 60 launches of rows 1-2 an evaluation, frames [1, 81, 720, 1280,
+     3] uint8, the first step's prediction held to the resident one (bit for
+     bit in the same CFG mode, else twice the noise floor); the same request
+     as the Wan2.2 swap under staged residency (timesteps 950 and 500, the
+     high expert from seed 1: its build seconds, the bytes before each
+     build, the stages); and record -> fit -> fire (generate_staged with
+     record_teacache, teacache.fit_teacache_coefficients, the recorded
+     latents decoded, a fired request) at the 1.3B widths at 240x416x33, 4
+     steps.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -254,11 +279,14 @@ TEA_13B = {"steps": 8, "threshold": 12000.0, "skip_start": 2, "cfg_skip_ratio": 
 TEA_14B = {"steps": 4, "threshold": 20000.0, "skip_start": 2, "cfg_skip_ratio": 0.25}
 TEA_MARGIN = 0.05
 CFG_PARALLEL_14B = True  # batched CFG-2 fits beside the 14B weights on 80 GB
-VAE_EXACT_FRAMES = 33  # the fp32 stream-vs-full check's length (full path fits)
-TRAIN_STEPS = 3  # a warm-up step and two timed ones
+VAE_EXACT_FRAMES = 17  # the fp32 stream-vs-full check's length (full path fits)
+TRAIN_STEPS = 2  # a warm-up step and a timed one
 TRAIN_GRID = (21, 30, 52)  # 480x832x81: latents 21x60x104, 32,760 tokens
-STEPS = 3
-FRAMES_E2E = 81
+STEPS = 2
+# the served 480p requests' frames: the fewest whose video (480 x 832 x 45 =
+# 17,971,200 voxels) still goes through the streaming VAE (above 2^24), cut
+# from 81 to make room for phase 13
+FRAMES_E2E = 45
 E2E_SIZE = (480, 832, FRAMES_E2E)  # height, width, frames of the served requests
 # phase 3's generate request (prompt, seed); phase 8 serves it again through
 # the HTTP tiers
@@ -292,7 +320,7 @@ MOE_TIMESTEPS = (950.0, 500.0)
 MOE_SMALL = (240, 416, 33)
 # phase 11: the i2v + camera point's factory scale and its request's steps
 I2V_SCALE = "i2v-1.3b"
-I2V_STEPS = 3
+I2V_STEPS = 2
 # phase 12: the prompt of the preprocess on the scene's first frame (the
 # words are in the smoke vocabulary), MoGe's input padded to the 14-pixel
 # patch (2,100 tokens), the segmenter's request knobs (max_area_ratio 1.0:
@@ -309,6 +337,17 @@ MOGE_BAR = 1e-3  # fp32 with TF32 off on both sides: max|card - CPU| / max|CPU|
 SEG_BAR = 1e-3
 DET_MARGIN = 0.002  # a detection decision's distance from its threshold
 PRE_MASK_AGREE = 0.99  # share of a detection's mask pixels equal card vs CPU
+# phase 13: 720p at 14B. The request's size, its steps and its prompt,
+# negative prompt and seed (its controls the renderer's seeded scene at that
+# size); the heads whose columns the 720p kernel checks hold to the plain
+# version; the record -> fit -> fire check's size and steps (the fit needs
+# more than 4 observations: 3 step pairs x 2 CFG rows) at the 1.3B widths
+SIZE_720P = (720, 1280, 81)
+STAGED_STEPS = 2
+REQUEST_720P = ("a red car drives left along a coast road", "blurry", 47)
+HEADS_720P = (0, 39)
+FIT_SIZE = (240, 416, 33)
+FIT_STEPS = 4
 PRODUCT_CHECK_ROWS = 1024
 LORA_RANK = 16
 LORA_WEIGHT = 0.55
@@ -383,11 +422,13 @@ def compare(what, got, ref, corr_bar=None, err_bar=None):
 
 
 def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
-                 timed=False, seed=0, rerun=False):
+                 timed=False, seed=0, rerun=False, heads=None):
     """Kernel vs plain on the same inputs; returns the record's numbers. The
     int8 flavor is also held to the exact bf16 kernel (int8 envelope). With
     `rerun`, a second launch on the same inputs must be bit-identical; a
-    batch element with k_len 0 must write zeros."""
+    batch element with k_len 0 must write zeros. `heads`: the plain version
+    runs on those heads' columns only (at 720p it would take ~17 s on all),
+    which the kernel's output is held to (and plain_ms timed on)."""
     rope = name.startswith("fused_rope_rms_attention")
     int8 = name == "fused_rope_rms_attention_int8"
     q, k, v, gq, gk, cos, sin = attention_inputs(fa, B, S, Skv, N, seed, dev)
@@ -398,11 +439,24 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
     kw = dict(num_heads=N, window_size=window, k_lens=kl, int8_score=int8)
     got = fa.fused_attention(*args, **kw)
     torch.cuda.synchronize()
-    ref = fa.fused_attention_plain(*args, **kw)
-    err = (got.float() - ref.float()).abs().max().item()
+    cols = None if heads is None else torch.cat(
+        [torch.arange(h * fa.HEAD_DIM, (h + 1) * fa.HEAD_DIM) for h in heads]).to(dev)
+
+    def sliced(t):
+        return t if cols is None else t.index_select(-1, cols).contiguous()
+
+    def plain():
+        if cols is None:
+            return fa.fused_attention_plain(*args, **kw)
+        return fa.fused_attention_plain(sliced(q), sliced(k), sliced(v), rq, rk, gqv[cols],
+                                        gkv[cols], ci, si, **{**kw, "num_heads": len(heads)})
+
+    ref = plain()
+    err = (sliced(got).float() - ref.float()).abs().max().item()
     mx = ref.float().abs().max().item()
     ok = math.isfinite(err) and err <= BF16_BAR * mx
-    log(f"  {name} B={B} S={S} Skv={Skv} N={N} window={window} k_lens={k_lens}: "
+    log(f"  {name} B={B} S={S} Skv={Skv} N={N} window={window} k_lens={k_lens}"
+        f"{'' if heads is None else f' heads {heads} of every batch item'}: "
         f"max_abs_err={err:.4g} bar={BF16_BAR * mx:.4g} (2*2^-8*max|plain|, "
         f"max|plain|={mx:.4g}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -425,7 +479,7 @@ def check_kernel(fa, name, B, S, Skv, N, dev, window=(-1, -1), k_lens=None,
     if timed:
         rec["ms"] = cuda_ms(lambda: fa.fused_attention(*args, **kw), 5)
         t0 = time.perf_counter()
-        fa.fused_attention_plain(*args, **kw)
+        plain()
         torch.cuda.synchronize()
         rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
         # yardstick only: SDPA on the pre-transformed q~/k~ (exp2 domain,
@@ -1063,7 +1117,7 @@ def timed_step(step, label, card, reps=2, tag="variants", profile=True, top=15):
 def variants_phase(fa, fab, ms, dev, card, scale="1.3b", size=E2E_SIZE,
                    blocks=45):
     """Phase 6: the two opt-in variants of the generate path on a fresh
-    full-width pipeline. One 480x832x81 request with `int8_attention`
+    full-width pipeline. One 480x832x45 request with `int8_attention`
     through the serving toggle and one with wan_dit.PROJ_STAT_FUSION on,
     each with its launch counts; then one timed CFG-2 denoise step per
     variant, profiled, its prediction held against the default step's on
@@ -1220,7 +1274,7 @@ def block_evaluations(calc, tea, cfg_parallel):
 
 
 def tea_request(fa, fab, ms, pipe, tag, tea, blocks, seed, card):
-    """One 480x832x81 request with TeaCache and cfg-skip through the serving
+    """One 480x832x45 request with TeaCache and cfg-skip through the serving
     toggles: its skip schedule (teacache_accum_history: 0 after a step that
     ran the blocks) must equal expected_tea_schedule, each attention flavor
     must launch `blocks` times per evaluation that ran the blocks and no
@@ -1285,7 +1339,7 @@ def tea_request(fa, fab, ms, pipe, tag, tea, blocks, seed, card):
 
 
 def stream_vs_full(pipe, seed, card):
-    """One 480x832x81 control video through the full-sequence VAE and the
+    """One 480x832x45 control video through the full-sequence VAE and the
     streaming one, encoded, and the full path's latents decoded by each.
 
     In bf16, the pipeline's dtype, each path rounds at every conv and the
@@ -1296,7 +1350,7 @@ def stream_vs_full(pipe, seed, card):
     against each other, bit-identity, time and peak memory above what was
     allocated before. The streaming math is held to the full sequence in
     fp32 on the first VAE_EXACT_FRAMES frames (the fp32 full path at 81
-    frames does not fit beside the weights): within 2*2^-8*max."""
+    frames did not fit beside the weights): within 2*2^-8*max."""
     from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
     from versecrafter_tpu_torch.models.vae_stream import (vae_decode_chunked,
                                                           vae_encode_chunked)
@@ -1362,11 +1416,11 @@ def stream_vs_full(pipe, seed, card):
     torch.cuda.empty_cache()
 
 
-def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2):
-    """The CFG-2 step as sequential CFG (two batch-1 forwards, the positive
-    prompt's and then the negative one's, combined): `reps` timed runs and
-    the peak memory above what was allocated before; returns the
-    prediction and that peak in GiB."""
+def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2, t=999.0):
+    """The CFG-2 step at timestep t as sequential CFG (two batch-1
+    forwards, the positive prompt's and then the negative one's, combined):
+    `reps` timed runs and the peak memory above what was allocated before;
+    returns the prediction and that peak in GiB."""
     from versecrafter_tpu_torch.sampling.pipeline import Denoiser
     pipe.cfg_parallel = False
     try:
@@ -1377,7 +1431,7 @@ def sequential_step(pipe, lat, ctx, geo, cos, sin, tag, card, reps=2):
         times = []
         for _ in range(reps):
             t1 = time.perf_counter()
-            pred = den.step(0, 999.0, lat, ctx, geo, cos, sin, 1.0)
+            pred = den.step(0, t, lat, ctx, geo, cos, sin, 1.0)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
     finally:
@@ -1427,15 +1481,18 @@ def dit_card_vs_cpu(pipe, params, cfg, tag, what):
         raise AssertionError(f"{what} on the card disagrees with the CPU reference")
 
 
-def flagship_phase(fa, fab, ms, dev, card, records):
+def flagship_phase(fa, fab, ms, dev, card, records, p13):
     """Phase 7: Wan2.1-T2V-14B + GeoAdapter with umT5-xxl and the Wan VAE
     (the '14b' factory, random weights from seed 0). First, with the card
     empty, the fused attention kernels at its width (40 heads: [2, 32,760,
-    5120], cross against 512 context tokens), timed, with reruns; then the
+    5120], cross against 512 context tokens), timed, with reruns, then at
+    720x1280x81 (phase 13, part 1) and the 720p controls rendered; then the
     pipeline's build time and resident memory, its first GeoAdapter
-    superstep (2 base + 1 GeoAdapter blocks) card vs CPU, one 480x832x81
+    superstep (2 base + 1 GeoAdapter blocks) card vs CPU, one 480x832x45
     TeaCache + cfg-skip request, one timed CFG-2 step under the profiler and
-    one sequential-CFG step held to it. Returns the request's launches."""
+    one sequential-CFG step held to it, the 720p step (phase 13, part 2; its
+    inputs and results go to `p13`), the MoE swap's build and free. Returns
+    the launches of its requests."""
     from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
     from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
 
@@ -1446,6 +1503,9 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     for name, ctx_len in (("fused_rope_rms_attention", None), ("fused_rms_cross_attention", 512)):
         records[name + "_14b"] = check_kernel(fa, name, 2, 32760, ctx_len or 32760, 40, dev,
                                               timed=True, rerun=True)
+    for name, ctx_len in (("fused_rope_rms_attention", None), ("fused_rms_cross_attention", 512)):
+        records[name + "_14b"].update(check_kernel_720p(fa, name, ctx_len, dev))
+    p13["controls"], p13["mask"], p13["render_s"] = render_720p(card)
     t1 = time.perf_counter()
     pipe = default_pipeline_factory(scale="14b", device=dev, seed=0)()
     randomize_zero_inits(pipe.dit_params, dev)
@@ -1461,9 +1521,10 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     dit_card_vs_cpu(pipe, sub, sub_cfg, "14b", "first GeoAdapter superstep (2 base + 1 "
                     "GeoAdapter blocks of the 14B DiT)")
     del sub
+    # phase 13, part 2, on the pipeline alone (as the memory model measured it)
+    p13["resident"] = resident_720p(pipe, p13["controls"], p13["mask"], card)
     pipe.cfg_parallel = CFG_PARALLEL_14B
     counts = tea_request(fa, fab, ms, pipe, "14b", TEA_14B, 60, 21, card)
-    single_peak = torch.cuda.max_memory_allocated() / 2**30  # the request's
 
     f, th, tw = TRAIN_GRID
     g7 = torch.Generator(device=dev).manual_seed(81)
@@ -1476,7 +1537,7 @@ def flagship_phase(fa, fab, ms, dev, card, records):
         return pipe.denoise_step(lat, 999.0, ctx, geo, cos, sin, 5.0, 1.0, True)
 
     torch.cuda.reset_peak_memory_stats()
-    base, _, _ = timed_step(step, "14B default path", card, tag="14b")
+    base, _, _ = timed_step(step, "14B default path", card, reps=1, tag="14b")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[14b] peak over the timed steps {peak:.2f} GiB (F1: {PEAK_14B[0]} before the "
         f"FFN hidden was held through the residual, {PEAK_14B[1]} while it was; the "
@@ -1490,20 +1551,19 @@ def flagship_phase(fa, fab, ms, dev, card, records):
     # below correlation 0.999, so a bar of 0.999 would fail on any rounding
     corr_bar = min(0.999, 1.0 - 2.0 * (1.0 - correlation(moved, base)))
     del lat_p, moved
-    seq, extra = sequential_step(pipe, lat, ctx, geo, cos, sin, "14b", card)
+    seq, extra = sequential_step(pipe, lat, ctx, geo, cos, sin, "14b", card, reps=1)
     log(f"[14b] F1: the sequential-CFG step's extra peak +{extra:.2f} GiB (before "
         f"+{SEQ_EXTRA_14B[0]}, with the hidden held +{SEQ_EXTRA_14B[1]})")
     compare("14B sequential-CFG step vs batched", seq, base, corr_bar=corr_bar,
             err_bar=2 * floor)
     del seq
     # the Wan2.2 two-expert MoE: an expert swap at 14B, pair vs swap at 1.3B
-    moe_counts = moe_swap_14b(fa, fab, ms, pipe, card, single_peak, build_s)
+    moe_swap_14b(pipe, card, build_s)
     moe_pair_vs_swap_13b(pipe, card)
     quant_14b(pipe, step, base, card)  # phase 9's 14B part, while it is resident
     del pipe, step, lat, geo, ctx, base
-    for more in (moe_counts, moe_pair_14b(fa, fab, ms, dev, card)):  # the resident int8 pair
-        for k_, v in more.items():
-            counts[k_] = counts.get(k_, 0) + v
+    for k_, v in moe_pair_14b(fa, fab, ms, dev, card).items():  # the resident int8 pair
+        counts[k_] = counts.get(k_, 0) + v
     log(f"[14b] {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -2130,7 +2190,7 @@ def quant_phase(fa, fab, ms, dev, card, bf16_step):
     for label, nbytes in rows:
         log(f"  {label:13s} {nbytes / 2**30:8.3f} GiB")
 
-    # a 3-step W8A8 request through the serving mapping, then another mode
+    # a 2-step W8A8 request through the serving mapping, then another mode
     h, w, n = E2E_SIZE
     controls, mask = synth_request(n, h, w, 16)
     params = {"prompt": "a kite over a beach", "negative_prompt": "blurry",
@@ -2217,8 +2277,9 @@ def quant_phase(fa, fab, ms, dev, card, bf16_step):
 def quant_14b(pipe, step, bf16_pred, card):
     """Phase 9, 14B part (run inside phase 7, while the 14B pipeline is
     resident): the pipeline quantized in place to W8A8, its resident memory,
-    one CFG-2 step (a warm-up and two timed) with its peak, and its first
-    GeoAdapter superstep against the CPU at 192 tokens."""
+    one timed CFG-2 step (no warm-up: phase 9 repeats the 1.3B W4A8 step)
+    with its peak, and its first GeoAdapter superstep against the CPU at
+    192 tokens."""
     from versecrafter_tpu_torch.utils import quantize as qz
 
     t0 = time.perf_counter()
@@ -2232,8 +2293,13 @@ def quant_14b(pipe, step, bf16_pred, card):
         f"{qz.tree_bytes(pipe.dit_params) / 2**30:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
     torch.cuda.reset_peak_memory_stats()
-    pred, times, _ = timed_step(step, "14B W8A8", card, reps=1, tag="14b-w8a8",
-                                profile=False)
+    t1 = time.perf_counter()
+    pred = step()
+    torch.cuda.synchronize()
+    log(f"[14b-w8a8] 14B W8A8: CFG-2 denoise step {(time.perf_counter() - t1) * 1e3:.1f} ms "
+        f"(the first) on {card}")
+    if not torch.isfinite(pred).all():
+        raise AssertionError("non-finite 14B W8A8 prediction")
     err = (pred.float() - bf16_pred.float()).abs().max() / bf16_pred.float().abs().max()
     log(f"[14b-w8a8] peak over the steps {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"against the bf16 step: correlation {correlation(pred, bf16_pred):.6f}, max|diff| "
@@ -2254,16 +2320,15 @@ def build_expert(cfg, seed, dev):
     return params
 
 
-def moe_swap_14b(fa, fab, ms, pipe, card, single_peak, build_s):
-    """Phase 7's Wan2.2 timestep-MoE as an expert swap at Wan2.2-T2V-A14B
-    width (each expert the Wan2.1-14B architecture + GeoAdapter): phase 7's
-    DiT dropped (a staged shell), expert_swap building the high expert from
-    seed 1 and the low one from seed 0, one 480x832x81 request with two
-    custom timesteps that straddle the boundary (sigma 0.95 and 0.5),
-    TeaCache off, CFG-2 batched. The swap calls must be ["high", "low"], 60
-    launches of rows 1-2 per step, and the request's peak at most phase 7's
-    single-expert request peak + 1 GiB. Leaves the low expert (phase 7's DiT)
-    resident. Returns the launches."""
+def moe_swap_14b(pipe, card, build_s):
+    """Phase 7's Wan2.2 timestep-MoE expert swap at Wan2.2-T2V-A14B width
+    (each expert the Wan2.1-14B architecture + GeoAdapter), its build and
+    free only (phase 13 serves a request through it at 720p under staged
+    residency): phase 7's DiT dropped, then expert_for at sigma 0.95 and at
+    0.5 builds the high expert from seed 1 and then the low one from seed 0.
+    The calls must be ["high", "low"] and the bytes allocated before the
+    second build no more than before the first (the high expert freed
+    first). Leaves the low expert (phase 7's DiT bit for bit) resident."""
     dev, cfg = pipe.device, pipe.dit_cfg
     t0 = time.perf_counter()
     pipe.dit_params = None
@@ -2283,44 +2348,20 @@ def moe_swap_14b(fa, fab, ms, pipe, card, single_peak, build_s):
         return params
 
     pipe.expert_swap, pipe.moe_boundary = swap, MOE_BOUNDARY
-    h, w, n = E2E_SIZE
-    controls, mask = synth_request(n, h, w, 31)
-    fa.reset_launch_counts()
-    fab.reset_launch_counts()
-    ms.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
     try:
-        video = pipe("a harbour at dawn", negative_prompt="blurry", control_videos=controls,
-                     mask_video=mask, height=h, width=w, num_frames=n,
-                     timesteps=list(MOE_TIMESTEPS), guidance_scale=5.0, seed=31,
-                     output_type="uint8")
+        for t in MOE_TIMESTEPS:
+            pipe.expert_for(t)
     finally:
         pipe.expert_swap = None
-    dt = time.perf_counter() - t1
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
     for which, s_, before in builds:
         log(f"[moe] expert_swap('{which}'): built in {s_:.1f} s with {before / 2**30:.2f} GiB "
-            f"allocated just before (phase 7's whole pipeline built in {build_s:.1f} s)")
-    log(f"[moe] expert-swap request at {h}x{w}x{n}, timesteps {MOE_TIMESTEPS} (boundary "
-        f"{MOE_BOUNDARY}), CFG-2 batched: {video.shape} {video.dtype} in {dt:.1f} s "
-        f"{ {k: round(v, 2) for k, v in pipe.last_wall_profile.items()} } launches {counts}; "
-        f"peak {peak:.2f} GiB (phase 7's single-expert request {single_peak:.2f} GiB) on {card}")
+            f"allocated just before (phase 7's whole pipeline built in {build_s:.1f} s) on "
+            f"{card}")
     if [b[0] for b in builds] != ["high", "low"]:
         raise AssertionError(f"swap calls {[b[0] for b in builds]} != ['high', 'low']")
-    blocks = cfg.num_layers + len(cfg.resolved_geoada_layers)
-    want = {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * 2,
-            "fused_rms_cross_attention": blocks * 2}
-    if counts != want:
-        raise AssertionError(f"expert-swap request launches {counts} != {want}")
-    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
-        raise AssertionError(f"bad output {video.shape} {video.dtype}")
-    if peak > single_peak + 1.0:
-        raise AssertionError(f"the expert-swap request peaked at {peak:.2f} GiB, above "
-                             f"phase 7's {single_peak:.2f} + 1 GiB")
+    if builds[1][2] > builds[0][2]:
+        raise AssertionError("the high expert was still allocated when the low one was built")
     log(f"[moe] {time.perf_counter() - t0:.1f} s")
-    return counts
 
 
 def moe_pair_vs_swap_13b(pipe, card):
@@ -2370,7 +2411,7 @@ def moe_pair_14b(fa, fab, ms, dev, card):
     scales) before it builds the high one from seed 1, then umT5-xxl and the
     VAE (the experts' zero-init leaves made random as build_expert does).
     Prints the build's seconds and peak and the resident bytes, then serves
-    one 480x832x81 request through __call__ on the two custom timesteps
+    one 480x832x45 request through __call__ on the two custom timesteps
     that straddle the boundary (CFG-2 batched; 60 launches of rows 1-2 a
     step), each step's time, the request's peak. A pair that does not fit
     fails, with the shortfall printed. Returns the request's launches."""
@@ -2544,11 +2585,11 @@ def workflow_phase(fa, fab, ms, dev, card):
     at RENDER_SMALL; at 480x832x81 (frame_batch 27) its time split, stages,
     peak and a bit-identical rerun, each stream's shape and the Gaussians
     in every frame that shows one; one 27-frame batch under torch.profiler;
-    then the six streams as a 3-step request on phase 3's 1.3B pipeline
-    through run_loaded_request (45 launches a step per fused flavor).
-    Returns the request's launches and {"pipe", "controls", "mask",
-    "image"}: the pipeline and the request's inputs, which phase 11 takes
-    over."""
+    then the six streams' first FRAMES_E2E frames as a 2-step request on
+    phase 3's 1.3B pipeline through run_loaded_request (45 launches a step
+    per fused flavor). Returns the request's launches and {"pipe",
+    "controls", "mask", "image"}: the pipeline and the whole 81-frame
+    request inputs, which phase 11 takes over."""
     from versecrafter_tpu_torch.geometry import render as tr
     from versecrafter_tpu_torch.serve.model_server import run_loaded_request
     t0 = time.perf_counter()
@@ -2613,6 +2654,11 @@ def workflow_phase(fa, fab, ms, dev, card):
     if any(c.shape != (1, 3, n, h, w) for c in controls) or mask.shape != (1, 1, n, h, w):
         raise AssertionError(f"request inputs {[c.shape for c in controls]} {mask.shape}")
     del maps
+    # the request takes the maps' first FRAMES_E2E frames (phase 12's chain
+    # serves a whole 81-frame render, phase 11 these 81 frames)
+    full, n = (controls, mask), FRAMES_E2E
+    controls = [np.ascontiguousarray(c[:, :, :n]) for c in controls]
+    mask = np.ascontiguousarray(mask[:, :, :n])
     fa.reset_launch_counts()
     fab.reset_launch_counts()
     ms.reset_launch_counts()
@@ -2635,7 +2681,7 @@ def workflow_phase(fa, fab, ms, dev, card):
         raise AssertionError(f"bad output {video.shape} {video.dtype}")
     del video
     log(f"[workflow] phase 10 {time.perf_counter() - t0:.1f} s")
-    return counts, {"pipe": pipe, "controls": controls, "mask": mask, "image": scene["image"]}
+    return counts, {"pipe": pipe, "controls": full[0], "mask": full[1], "image": scene["image"]}
 
 
 def check_flash_cross(fa, dev, skv, card, seed=0):
@@ -2860,11 +2906,19 @@ def extras_phase(fa, fab, ms, dev, card, records, image, controls, mask):
         raise AssertionError("encode_image on the card disagrees with the CPU")
     del cpu_tok
 
-    h, w, n = E2E_SIZE
+    # the profiled step takes phase 10's whole 81-frame render, the requests
+    # its first FRAMES_E2E frames
+    h, w = mask.shape[3:]
     n_base, n_geo = len(pipe.dit_params["blocks"]), len(pipe.dit_params["geoada_blocks"])
-    y = i2v_y(pipe, image, n, h, w)
+    y_step = i2v_y(pipe, image, mask.shape[2], h, w)
     gc_ = torch.Generator(device=dev).manual_seed(43)
-    cam = torch.randn(1, 24, y.shape[2], h, w, generator=gc_, device=dev).to(torch.bfloat16)
+    cam_step = torch.randn(1, 24, y_step.shape[2], h, w, generator=gc_,
+                           device=dev).to(torch.bfloat16)
+    n = FRAMES_E2E
+    controls = [np.ascontiguousarray(c[:, :, :n]) for c in controls]
+    mask = np.ascontiguousarray(mask[:, :, :n])
+    y = i2v_y(pipe, image, n, h, w)
+    cam = cam_step[:, :, :y.shape[2]].contiguous()
     fa.reset_launch_counts()
     fab.reset_launch_counts()
     ms.reset_launch_counts()
@@ -2931,6 +2985,7 @@ def extras_phase(fa, fab, ms, dev, card, records, image, controls, mask):
 
     # one timed CFG-2 step under the profiler, then the cross path's parts
     g4 = torch.Generator(device=dev).manual_seed(81)
+    y, cam = y_step, cam_step
     grid = y.shape[2:]
     lat = torch.randn(1, pipe.vae_cfg.z_dim, *grid, generator=g4, device=dev).to(torch.bfloat16)
     geo = torch.randn(1, cfg.resolved_geoada_in_dim, *grid, generator=g4,
@@ -3133,7 +3188,7 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
     BERT-base, Hiera-L 1024) with its seconds and peak; the chain on the
     scene's first frame: the card's depth and eroded masks ->
     fit_objects_from_depth -> each fitted Gaussian moved sideways over 81
-    frames under the scene's camera -> render_control_maps -> a 3-step
+    frames under the scene's camera -> render_control_maps -> a 2-step
     480x832x81 request on phase 10's 1.3B pipeline (45 launches a step per
     fused flavor). Returns the request's launches."""
     from versecrafter_tpu_torch.geometry.coords import (
@@ -3249,6 +3304,344 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
     torch.cuda.empty_cache()
     log(f"[pre] phase 12 {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def check_kernel_720p(fa, name, ctx_len, dev):
+    """Phase 13, part 1: one fused flavor at the 14B width at 720x1280x81
+    CFG-2 ([2, 75,600, 40, 128]; the cross flavor against `ctx_len` keys),
+    with the card empty, through check_kernel: a rerun bit-identical, the
+    columns of heads HEADS_720P of both batch items held to the plain
+    version on those heads (the far offsets of every TMA map and store),
+    the time beside the bound and SDPA's. Returns the record's 720p keys
+    (plain_ms is the two heads')."""
+    rec = check_kernel(fa, name, 2, 21 * 45 * 80, ctx_len or 21 * 45 * 80, 40, dev,
+                       timed=True, rerun=True, heads=HEADS_720P)
+    rec["plain_2heads_ms"] = rec.pop("plain_ms")
+    return {f"720p_{k}": v for k, v in rec.items()}
+
+
+def render_720p(card):
+    """Phase 13's controls: the seeded scene rendered at 720x1280x81 on the
+    card, as a request's inputs; returns (controls, mask, render seconds)."""
+    from versecrafter_tpu_torch.geometry import render as tr
+    h, w, n = SIZE_720P
+    scene, args = render_inputs(h, w, n, RENDER_SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    maps = tr.render_control_maps(*args, device="cuda")
+    render_s = time.perf_counter() - t0
+    prof = tr.last_render_profile
+    log(f"[720p] the seeded scene rendered at {h}x{w}x{n}: wall {render_s:.3f} s, device "
+        f"{prof['device_s']:.4f} s ({prof['device_fps']:.1f} frames/s), peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} allocated on {card}")
+    controls, mask = maps_to_request(maps, scene["image"])
+    if any(c.shape != (1, 3, n, h, w) for c in controls) or mask.shape != (1, 1, n, h, w):
+        raise AssertionError(f"720p request inputs {[c.shape for c in controls]} {mask.shape}")
+    return controls, mask, render_s
+
+
+def resident_720p(pipe, controls, mask, card):
+    """Phase 13, part 2, on phase 7's resident 14B pipeline: the 720x1280x81
+    request's first denoise step (its noise from the request's seed, the
+    prompt pair through the resident umT5, the rendered controls through the
+    resident VAE, the first of STAGED_STEPS UniPC timesteps) as sequential
+    CFG, timed, with its peak. The batched step runs only where the measured
+    sequential peak plus the memory model's batched-over-sequential term
+    stays under the model's bar. Returns the predictions on the host (the
+    staged request's first step is held to them) and the numbers."""
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin
+    from versecrafter_tpu_torch.sampling import staged
+    from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
+    from versecrafter_tpu_torch.utils import prng
+    dev, cfg = pipe.device, pipe.dit_cfg
+    prompt, negative, seed = REQUEST_720P
+    h, w, n = SIZE_720P
+    t0 = time.perf_counter()
+    ctx = pipe.encode_prompt(prompt, negative).to(torch.bfloat16)
+    geo, _ = pipe.encode_controls(controls, mask, torch.bfloat16)
+    f, hl, wl = geo.shape[2:]
+    lat = prng.normal(prng.key(seed, dev), (1, pipe.vae_cfg.z_dim, f, hl, wl), torch.bfloat16)
+    cos, sin = grid_cos_sin(pipe._angles, f, hl // 2, wl // 2, device=dev)
+    t = float(np.float32(make_scheduler(pipe.scheduler_name, pipe.scheduler_cfg)
+                         .set_timesteps(STAGED_STEPS, shift=16.0)[0]))
+    torch.cuda.synchronize()
+    tokens = cos.shape[0]
+    log(f"[720p] resident step inputs ({tokens} tokens, t = {t}): prompt + controls encoded "
+        f"in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    out = {"t": t, "tokens": tokens}
+    before = torch.cuda.memory_allocated() / 2**30
+    t1 = time.perf_counter()
+    seq, extra = sequential_step(pipe, lat, ctx, geo, cos, sin, "720p", card, reps=1, t=t)
+    out["seq_s"] = time.perf_counter() - t1
+    out["seq"], out["seq_peak"] = seq.float().cpu(), before + extra
+    del seq
+    est = {b: staged.estimate_denoise_gb(cfg, 0, tokens, b) for b in (1, 2)}
+    predicted = out["seq_peak"] + est[2] - est[1]
+    fits = predicted <= staged.CARD_MODEL.fits_gb
+    log(f"[720p] resident sequential-CFG step peak {out['seq_peak']:.2f} GiB; a batched "
+        f"step predicted at {predicted:.2f} GiB (+{est[2] - est[1]:.2f} from the memory "
+        f"model), bar {staged.CARD_MODEL.fits_gb} GiB: "
+        f"{'fits, timed' if fits else 'does not fit, not launched'}")
+    out["batched"] = None
+    if not fits and staged.auto_cfg_parallel(cfg, 0, tokens):
+        # the staged request runs batched, held to this sequential step at
+        # twice the noise floor (in correlation too, as phase 7 holds it)
+        lat_p = (lat.float() * (1 + 2.0 ** -8)).to(lat.dtype)
+        moved, _ = sequential_step(pipe, lat_p, ctx, geo, cos, sin, "720p", card, reps=1, t=t)
+        out["floor"] = compare("720p sequential step at latents x (1 + 2^-8) vs the step "
+                               "(noise floor)", moved.float().cpu(), out["seq"])
+        out["corr_bar"] = min(0.999, 1.0 - 2.0 * (1.0 - correlation(moved.float().cpu(),
+                                                                     out["seq"])))
+        del lat_p, moved
+    if fits:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        pred = pipe.denoise_step(lat, t, ctx, geo, cos, sin, 5.0, 1.0, True)
+        torch.cuda.synchronize()
+        out["batched_s"] = time.perf_counter() - t1
+        out["batched_peak"] = torch.cuda.max_memory_allocated() / 2**30
+        out["batched"] = pred.float().cpu()
+        log(f"[720p] resident batched CFG-2 step {out['batched_s'] * 1e3:.1f} ms, peak "
+            f"{out['batched_peak']:.2f} GiB on {card}")
+        del pred
+    del lat, geo, ctx, cos, sin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class StageMemory:
+    """Wraps sampling/staged._free for one staged request: after each stage
+    it records the stage's peak (torch.cuda.max_memory_allocated since the
+    last stage) and the bytes still allocated once the weights are freed."""
+
+    def __init__(self, staged):
+        self.staged, self.free, self.rows = staged, staged._free, []
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def free(pipe, attr):
+            peak = torch.cuda.max_memory_allocated()
+            self.free(pipe, attr)
+            self.rows.append((attr, peak, torch.cuda.memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+        self.staged._free = free
+        return self
+
+    def __exit__(self, *exc):
+        self.staged._free = self.free
+
+    def check(self, tag, outputs):
+        """`outputs`: bytes the stage outputs hold after each free, in order;
+        allocated must be back within 64 MiB of base + outputs."""
+        for (attr, peak, after), held in zip(self.rows, outputs):
+            log(f"[{tag}] after freeing {attr}: peak {peak / 2**30:.2f} GiB, then "
+                f"{(after - self.base) / 2**20:.1f} MiB above the "
+                f"{self.base / 2**30:.2f} GiB allocated before the request (the stage "
+                f"outputs {held / 2**20:.1f} MiB)")
+            if after - self.base > held + (64 << 20):
+                raise AssertionError(f"{tag}: freeing {attr} left "
+                                     f"{(after - self.base) / 2**20:.1f} MiB allocated")
+        if len(self.rows) != len(outputs):
+            raise AssertionError(f"{tag}: {len(self.rows)} stages freed, expected "
+                                 f"{len(outputs)}")
+
+
+def staged_720p(fa, fab, ms, dev, card, controls, mask, render_s, resident):
+    """Phase 13, parts 3-5, after phase 7's pipelines are gone: the 14B
+    request at 720x1280x81 through generate_staged with
+    fresh_init_factories("14b", bits=0) (phase 7's DiT bit for bit, its
+    zero-init leaves made random as there), STAGED_STEPS UniPC steps, CFG 5,
+    cfg_parallel from auto_cfg_parallel: each stage's seconds and peak,
+    the bytes left after each free, the launches, the frames, and the first
+    step's prediction against part 2's resident one; then the Wan2.2 swap
+    under staged residency on the same request with two custom timesteps
+    (the high expert from seed 1); then the record -> fit -> fire path at
+    the 1.3B widths. Returns the 720p requests' launches."""
+    from versecrafter_tpu_torch.sampling import pipeline as tp
+    from versecrafter_tpu_torch.sampling import staged
+    from versecrafter_tpu_torch.sampling import teacache as tc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[720p] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the staged "
+        f"requests")
+    prompt, negative, seed = REQUEST_720P
+    h, w, n = SIZE_720P
+    factories, cfg, vae_cfg, t5_cfg = staged.fresh_init_factories("14b", bits=0, device=dev)
+
+    def randomized(factory, seed_):
+        def build():
+            params = factory()
+            randomize_zero_inits(params, dev, seed=7 + seed_)
+            return params
+        return build
+
+    low = factories.dit = randomized(factories.dit, 0)
+    tokens = staged.request_tokens(cfg, vae_cfg, h, w, n)
+    batched = staged.auto_cfg_parallel(cfg, 0, tokens)
+    evals = 1 if batched else 2
+    blocks = cfg.num_layers + len(cfg.resolved_geoada_layers)
+    mode = "batched" if batched else "sequential"
+    log(f"[720p] auto_cfg_parallel: {mode} CFG (estimate "
+        f"{staged.estimate_denoise_gb(cfg, 0, tokens, 2):.2f} GiB batched, "
+        f"{staged.estimate_denoise_gb(cfg, 0, tokens, 1):.2f} sequential; bar "
+        f"{staged.CARD_MODEL.fits_gb})")
+
+    def shell():
+        return tp.VerseCrafterPipeline(dit_params=None, dit_cfg=cfg, vae_params=None,
+                                       vae_cfg=vae_cfg, t5_params=None, t5_cfg=t5_cfg,
+                                       cfg_parallel=batched, device=dev)
+
+    f_lat, hl, wl = (n - 1) // 4 + 1, h // 8, w // 8
+    outputs = [2 * 512 * t5_cfg.dim * 2,  # the prompt pair's embedding, bf16
+               2 * 512 * t5_cfg.dim * 2 + (4 * vae_cfg.z_dim + 64) * f_lat * hl * wl * 2,
+               vae_cfg.z_dim * f_lat * hl * wl * 2, 0]  # the latents, then nothing
+    counts_all = {}
+
+    def launches():
+        counts = {**fa.LAUNCHES, **fab.LAUNCHES, **ms.LAUNCHES}
+        for k_, v in counts.items():
+            counts_all[k_] = counts_all.get(k_, 0) + v
+        return counts
+
+    def want(counts, steps):
+        return {**dict.fromkeys(counts, 0), "fused_rope_rms_attention": blocks * steps * evals,
+                "fused_rms_cross_attention": blocks * steps * evals}
+
+    # part 3: the staged request, its first step's prediction captured
+    step, first = tp.Denoiser.step, []
+
+    def capture(self, i, *a, **kw):
+        pred = step(self, i, *a, **kw)
+        if i == 0 and not first:
+            first.append(pred.float().cpu())
+        return pred
+
+    pipe = shell()
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    tp.Denoiser.step = capture
+    t1 = time.perf_counter()
+    try:
+        with StageMemory(staged) as mem:
+            video = staged.generate_staged(
+                pipe, factories, prompt, negative, control_videos=controls, mask_video=mask,
+                height=h, width=w, num_frames=n, num_inference_steps=STAGED_STEPS,
+                guidance_scale=5.0, shift=16.0, seed=seed)
+    finally:
+        tp.Denoiser.step = step
+    dt = time.perf_counter() - t1
+    counts = launches()
+    prof = pipe.last_stage_profile
+    log(f"[720p] staged request {h}x{w}x{n}, {STAGED_STEPS} UniPC steps, CFG 5 {mode}: "
+        f"{video.shape} {video.dtype} in {dt:.1f} s; render {render_s:.2f} s before it; "
+        f"stages {prof}; launches {counts} on {card}")
+    mem.check("720p", outputs)
+    if counts != want(counts, STAGED_STEPS):
+        raise AssertionError(f"staged 720p launches {counts} != {want(counts, STAGED_STEPS)}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    del video
+    ref = resident["batched" if batched else "seq"]
+    if ref is not None:  # the same CFG mode on the same weights and inputs
+        same = torch.equal(first[0], ref)
+        compare(f"staged first step ({mode}) vs the resident one", first[0], ref)
+        log(f"    bit-identical: {same}")
+        if not same:
+            raise AssertionError("the staged 720p step differs from the resident one")
+    else:  # batched against the resident sequential step: twice the noise floor
+        compare(f"staged first step ({mode}) vs the resident sequential one", first[0],
+                resident["seq"], corr_bar=resident["corr_bar"], err_bar=2 * resident["floor"])
+
+    # part 4: the Wan2.2 swap under staged residency, one step per expert
+    high = randomized(staged.fresh_init_factories("14b", bits=0, seed=1, device=dev)[0].dit, 1)
+    builds = []
+
+    def swap(which):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t2 = time.perf_counter()
+        params = (high if which == "high" else low)()
+        torch.cuda.synchronize()
+        builds.append((which, time.perf_counter() - t2, before))
+        return params
+
+    pipe = shell()
+    pipe.expert_swap, pipe.moe_boundary = swap, MOE_BOUNDARY
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    ms.reset_launch_counts()
+    t1 = time.perf_counter()
+    with StageMemory(staged) as mem:
+        video = staged.generate_staged(
+            pipe, factories, prompt, negative, control_videos=controls, mask_video=mask,
+            height=h, width=w, num_frames=n, timesteps=list(MOE_TIMESTEPS),
+            guidance_scale=5.0, seed=seed)
+    dt = time.perf_counter() - t1
+    counts = launches()
+    for which, s_, before in builds:
+        log(f"[720p-moe] expert_swap('{which}'): built in {s_:.1f} s with "
+            f"{before / 2**30:.2f} GiB allocated just before")
+    log(f"[720p-moe] staged expert swap at {h}x{w}x{n}, timesteps {MOE_TIMESTEPS} (boundary "
+        f"{MOE_BOUNDARY}), CFG 5 {mode}: {video.shape} {video.dtype} in {dt:.1f} s; stages "
+        f"{pipe.last_stage_profile}; launches {counts} on {card}")
+    mem.check("720p-moe", outputs)
+    if [b[0] for b in builds] != ["high", "low"]:
+        raise AssertionError(f"swap calls {[b[0] for b in builds]} != ['high', 'low']")
+    if builds[1][2] > builds[0][2] + (64 << 20):
+        raise AssertionError("the high expert was not freed before the low one was built")
+    if counts != want(counts, 2):
+        raise AssertionError(f"staged swap launches {counts} != {want(counts, 2)}")
+    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
+        raise AssertionError(f"bad output {video.shape} {video.dtype}")
+    del video, pipe, controls, mask
+    gc.collect()
+
+    # part 5: record -> fit -> fire at the 1.3B widths
+    t1 = time.perf_counter()
+    factories, cfg13, vae_cfg, t5_cfg = staged.fresh_init_factories("1.3b", bits=0, device=dev)
+    factories.dit = randomized(factories.dit, 0)
+    fh, fw, fn = FIT_SIZE
+    fctl, fmask = synth_request(fn, fh, fw, 51)
+    pipe = tp.VerseCrafterPipeline(dit_params=None, dit_cfg=cfg13, vae_params=None,
+                                   vae_cfg=vae_cfg, t5_params=None, t5_cfg=t5_cfg, device=dev)
+    kw = dict(control_videos=fctl, mask_video=fmask, height=fh, width=fw, num_frames=fn,
+              num_inference_steps=FIT_STEPS, guidance_scale=5.0, seed=51)
+    rel_e0, rel_res = staged.generate_staged(pipe, factories, "a harbour at dawn", "blurry",
+                                             record_teacache=True, **kw)
+    coeffs = tc.fit_teacache_coefficients(rel_e0, rel_res, degree=4)
+    thresh = float(np.median(np.polyval(coeffs, rel_e0)) * 1.5)
+    pipe.enable_teacache(max(thresh, 1e-6), 1, coefficients=coeffs)
+    pipe.vae_params = factories.vae()
+    recorded = pipe.decode_latents(pipe.last_record_latents, "uint8")
+    pipe.last_record_latents = None
+    staged._free(pipe, "vae_params")
+    fa.reset_launch_counts()
+    fired = staged.generate_staged(pipe, factories, "a harbour at dawn", "blurry", **kw)
+    ran = fa.LAUNCHES["fused_rope_rms_attention"]
+    log(f"[fit] record -> fit -> fire at {fh}x{fw}x{fn}, {FIT_STEPS} steps (1.3B widths): "
+        f"rel_e0 {rel_e0.shape}, coefficients {[f'{c:.4g}' for c in coeffs]}, threshold "
+        f"{thresh:.4g}; the recorded video {recorded.shape}, the fired one {fired.shape} with "
+        f"{ran} self-attention launches ({45 * FIT_STEPS} without a skip); its stages "
+        f"{pipe.last_stage_profile}; {time.perf_counter() - t1:.1f} s")
+    if rel_e0.shape != (FIT_STEPS - 1, 2) or not np.all(np.isfinite(coeffs)):
+        raise AssertionError(f"bad TeaCache record / fit {rel_e0.shape} {coeffs}")
+    for v in (recorded, fired):
+        if v.shape != (1, fn, fh, fw, 3) or v.dtype != np.uint8:
+            raise AssertionError(f"bad output {v.shape} {v.dtype}")
+    if not 0 < ran <= 45 * FIT_STEPS:
+        raise AssertionError(f"the fired request launched {ran} self-attention kernels")
+    log(f"[720p] phase 13's staged part {time.perf_counter() - t0:.1f} s")
+    return counts_all
 
 
 def main() -> int:
@@ -3456,9 +3849,19 @@ def main() -> int:
         launches_main[k_] = launches_main.get(k_, 0) + v
 
     # -- 7. the flagship: Wan2.1-T2V-14B + GeoAdapter at 480x832x81 -------
-    counts = flagship_phase(fa, fab, ms, dev, card, records)
+    p13 = {}
+    counts = flagship_phase(fa, fab, ms, dev, card, records, p13)
     for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
         launches_main[name + "_14b"] = counts[name]
+
+    # -- 13. 720p at 14B: the staged request, the staged swap, record -> fit
+    t0 = time.perf_counter()
+    counts = staged_720p(fa, fab, ms, dev, card, p13.pop("controls"), p13.pop("mask"),
+                         p13["render_s"], p13.pop("resident"))
+    for name in ("fused_rope_rms_attention", "fused_rms_cross_attention"):
+        launches_main[name + "_14b"] += counts[name]
+        records[name + "_14b"]["720p_launches"] = counts[name]
+    log(f"[720p] phase 13 after phase 7 {time.perf_counter() - t0:.1f} s")
 
     # -- 8. the front door: a reference-layout checkpoint served over HTTP --
     counts, differ = front_door_phase(fa, fab, ms, dev, card, direct)
@@ -3478,8 +3881,9 @@ def main() -> int:
 
     # -- 11. the conditioning extras: video=, then the i2v + camera point --
     pipe = carry.pop("pipe")
-    for k_, v in masked_init_request(fa, fab, ms, pipe, carry["controls"], carry["mask"],
-                                     card).items():
+    first = [c[:, :, :FRAMES_E2E] for c in carry["controls"]]
+    for k_, v in masked_init_request(fa, fab, ms, pipe, first,
+                                     carry["mask"][:, :, :FRAMES_E2E], card).items():
         launches_main[k_] = launches_main.get(k_, 0) + v
 
     # -- 12. preprocessing and the whole chain, on the same pipeline ----------
@@ -3505,7 +3909,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             **{k_: v for k_, v in rec.items()
-               if k_.startswith(("cross_", "cross257_"))
+               if k_.startswith(("cross_", "cross257_", "720p_"))
                or k_ in ("inference_ms", "inference_plain_ms", "library_note",
                          "library_gemm_ms")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -308,6 +308,32 @@ def test_staged_expert_swap_matches_resident_moe(moe_pipes):
 
 
 @pytest.mark.parametrize("cfg_parallel", [True, False], ids=["batched", "sequential"])
+def test_generate_staged_expert_swap_matches_resident_pair(moe_pipes, cfg_parallel):
+    """The expert swap under staged residency (sampling/staged.py: umT5, the
+    VAE and each expert built and freed in turn) gives the resident pair's
+    frames bit for bit, high expert first, no dit_build stage."""
+    from versecrafter_tpu_torch.sampling import staged as tstaged
+
+    _, tp = moe_pipes
+    rng = np.random.default_rng(0)
+    kw = dict(control_videos=[rng.random((1, 3, 5, 8, 8)).astype(np.float32) for _ in range(2)],
+              mask_video=np.ones((1, 1, 5, 8, 8), np.float32), height=8, width=8,
+              num_frames=5, num_inference_steps=4, guidance_scale=2.0, shift=8.0, seed=3,
+              dtype=torch.float32, output_type="numpy")
+    ref = dataclasses.replace(tp, cfg_parallel=cfg_parallel)("x", **kw)
+    high, low, calls = tp.dit_params_high, tp.dit_params, []
+    shell = dataclasses.replace(tp, dit_params=None, dit_params_high=None, vae_params=None,
+                                t5_params=None, cfg_parallel=cfg_parallel)
+    shell.expert_swap = lambda which: calls.append(which) or (high if which == "high" else low)
+    factories = tstaged.StageFactories(lambda: tp.t5_params, lambda: tp.vae_params,
+                                       lambda: low, 0)
+    got = tstaged.generate_staged(shell, factories, "x", **kw)
+    assert calls == ["high", "low"] and "dit_build" not in shell.last_stage_profile
+    assert np.array_equal(got, ref)
+    assert shell.dit_params is None and shell.vae_params is None
+
+
+@pytest.mark.parametrize("cfg_parallel", [True, False], ids=["batched", "sequential"])
 def test_moe_teacache_cfg_skip_matches_jax(moe_pipes, cfg_parallel):
     """TeaCache + cfg-skip across the expert boundary: the JAX schedule
     (the accumulator history: C S C S S C at 30,000, the random weights'

@@ -179,11 +179,23 @@ def test_pipeline_cli_runs_every_stage(tmp_path, monkeypatch, capsys):
 
 
 def test_pipeline_cli_skips_and_staged(tmp_path, capsys):
+    """--skip skips each stage; --staged generates from the maps directory
+    with staged residency and a W4A8 DiT (the generate CLI's --staged
+    --quantize_int8 --int8_compute --quantize_bits 4)."""
+    from test_torch_video_io import _maps
     from versecrafter_tpu_torch.cli import pipeline
+    from versecrafter_tpu_torch.serve.model_server import CONTROL_NAMES
 
     assert pipeline.main(["--data", str(tmp_path), "--out", str(tmp_path / "o"), "--skip",
                           "depth,segment,gaussian,render,generate", "--device", "cpu"]) == {}
     assert capsys.readouterr().out.count("skipped") == 5
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pipeline.main(["--data", str(tmp_path), "--out", str(tmp_path / "o"), "--skip",
-                       "depth,segment,gaussian,render", "--staged", "--device", "cpu"])
+    _maps(str(tmp_path / "o" / "rendering_4D_maps"), CONTROL_NAMES + ["merged_mask.mp4"])
+    cv2.imwrite(str(tmp_path / "0001.png"), np.full((24, 40, 3), 90, np.uint8))
+    times = pipeline.main(["--data", str(tmp_path), "--out", str(tmp_path / "o"), "--skip",
+                           "depth,segment,gaussian,render", "--staged", "--smoke_scale", "tiny",
+                           "--sample_size", "16,16", "--video_length", "5",
+                           "--num_inference_steps", "2", "--device", "cpu"])
+    assert list(times) == ["generate"]
+    out = capsys.readouterr().out
+    assert '"staged_profile_s"' in out and '"cfg_parallel"' in out
+    assert [f for f in os.listdir(tmp_path / "o" / "generated") if f.endswith(".mp4")]

@@ -363,6 +363,25 @@ def test_subprocess_tier_runs_the_cli(workdir):
     assert video.shape == (1, 3, 5, 16, 16)
 
 
+def test_subprocess_tier_runs_the_staged_cli(workdir):
+    """Tier 3 with subprocess_model_args "--staged --smoke_scale tiny": the
+    request runs in a fresh generate-CLI process under staged residency."""
+    def broken():
+        raise RuntimeError("resident pipeline unavailable")
+    server = tapi.ApiServer(workdir=str(workdir), pipeline_factory=broken, device="cpu",
+                            subprocess_fallback=True,
+                            subprocess_model_args=["--staged", "--smoke_scale", "tiny"])
+    t = server.tasks.create("generate")
+    server.run_generate(t.task_id, {"rendering_maps_path": "maps", "prompt": "x",
+                                    "height": 16, "width": 16, "num_frames": 5,
+                                    "num_inference_steps": 2,
+                                    "save_path": str(workdir / "subprocess_staged")})
+    st = server.tasks.get(t.task_id)
+    assert st["status"] == "COMPLETED", st
+    video = jvideo.load_video(os.path.join(str(workdir), st["result"]["video_path"]))
+    assert video.shape == (1, 3, 5, 16, 16)
+
+
 @pytest.fixture(scope="module")
 def render_request(workdir):
     """A render request on a seeded 16x32 scene of N frames written into the
@@ -499,7 +518,6 @@ def test_cli_moe(workdir, capsys, monkeypatch, tmp_path, source):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--staged"], "item 6"), (["--fit_teacache"], "item 6"),
     (["--ring_degree", "2"], "item 11"),
     (["--ulysses_degree", "2"], "item 11"), (["--auto_parallel"], "item 11"),
 ])
@@ -511,9 +529,6 @@ def test_cli_unported_flags_raise(flags, item):
 
 @pytest.mark.parametrize("flags,item", [(["--tp", "2"], "item 11"),
                                         (["--auto_mesh"], "item 11"),
-                                        (["--staged"], "item 6"),
-                                        (["--staged", "--staged_scale", "1.3b"], "item 6"),
-                                        (["--staged", "--quantize_bits", "8"], "item 6"),
                                         (["--staged_scale", "tiny", "--quantize_bits", "8",
                                           "--tp", "2"], "item 11")])
 def test_model_server_unported_flags_raise(flags, item):
@@ -522,8 +537,100 @@ def test_model_server_unported_flags_raise(flags, item):
     past them to --tp)."""
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tserve.ModelServer(lambda: None, staged_factories=object())
+
+
+STAGED_CLI = ["--staged", "--offline_smoke", "--smoke_scale", "tiny", "--device", "cpu",
+              "--prompt", "x", "--input_image_path", "", "--sample_size", "16,16",
+              "--video_length", "5"]
+
+
+@pytest.mark.parametrize("cfg_parallel,moe", [("auto", False), ("on", False), ("off", False),
+                                              ("auto", True)])
+def test_cli_staged(workdir, capsys, tmp_path, cfg_parallel, moe):
+    """--staged on the CPU: the {"cfg_parallel", "tokens", "est_step_gb"}
+    line first (auto: the memory model's choice), one 'denoise i / n' line a
+    step, the stage split, the mp4's path last; with --moe the staged swap
+    builds the high expert (seed 1) and then the low one where sigma crosses
+    the boundary (2 steps at shift 16: sigma 1.0, then 0.94)."""
+    from versecrafter_tpu_torch.sampling import staged as tstaged
+
+    flags = STAGED_CLI + ["--rendering_maps_path", str(workdir / "maps"),
+                          "--num_inference_steps", "2", "--cfg_parallel", cfg_parallel,
+                          "--save_path", str(tmp_path)]
+    out = tinf.main(flags + (["--moe", "--moe_boundary", "0.97"] if moe else []))
+    lines = capsys.readouterr().out.strip().splitlines()
+    factories, cfg, vae_cfg, _ = tstaged.fresh_init_factories("tiny", bits=0, device="cpu")
+    want = {"auto": tstaged.auto_cfg_parallel(cfg, 0, 2), "on": True, "off": False}[cfg_parallel]
+    assert json.loads(lines[0]) == {
+        "cfg_parallel": want, "tokens": 2,
+        "est_step_gb": round(tstaged.estimate_denoise_gb(cfg, 0, 2, 2 if want else 1), 2)}
+    assert [line for line in lines if line.startswith("denoise ")] == [
+        "denoise 1 / 2", "denoise 2 / 2"]
+    builds = [json.loads(line)["expert_build"] for line in lines if "expert_build" in line]
+    assert builds == (["high", "low"] if moe else [])
+    profile = json.loads(lines[-3])["staged_profile_s"]
+    assert ("dit_build" in profile) != moe and "denoise" in profile
+    assert lines[-1] == out and os.path.isfile(out)
+
+
+def test_cli_fit_teacache(workdir, capsys, tmp_path):
+    """--staged --fit_teacache OUT_JSON: the recorded trajectory's fit (five
+    coefficients and a threshold) written to OUT_JSON, the recorded run's
+    video saved first, then the fired generation's."""
+    fit = tmp_path / "fit.json"
+    out = tinf.main(STAGED_CLI + ["--rendering_maps_path", str(workdir / "maps"),
+                                  "--num_inference_steps", "4", "--cfg_parallel", "on",
+                                  "--fit_teacache", str(fit), "--save_path", str(tmp_path)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    saved = json.loads(fit.read_text())
+    assert len(saved["coefficients"]) == 5 and saved["threshold"] > 0
+    assert any(json.loads(line).get("teacache_fit") == saved for line in lines
+               if line.startswith('{"teacache_fit"'))
+    first = next(json.loads(line)["record_video"] for line in lines if "record_video" in line)
+    assert os.path.basename(first) == "generated_video_0.mp4" and os.path.isfile(first)
+    assert os.path.basename(out) == "generated_video_1.mp4" and os.path.isfile(out)
+
+
+def test_model_server_staged(workdir, monkeypatch, tmp_path):
+    """The model server's --staged --staged_scale tiny --quantize_bits 8
+    over HTTP: a shell pipeline whose weights each request builds and frees;
+    a request's cfg_parallel pins the CFG mode, without it the memory model
+    picks; /metrics carries the stage split; quantize params fail the
+    task."""
+    from versecrafter_tpu_torch.sampling import staged as tstaged
+
+    routers, modes = [], []
+
+    class Stub:
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(tserve, "make_server", lambda router, *a: routers.append(router) or Stub())
+    generate = tstaged.generate_staged
+    monkeypatch.setattr(tstaged, "generate_staged", lambda pipe, *a, **k: (
+        modes.append(pipe.cfg_parallel), generate(pipe, *a, **k))[1])
+    tserve.main(["--device", "cpu", "--staged", "--staged_scale", "tiny", "--quantize_bits", "8"])
+    httpd, url = _serve(routers[0])
+    try:
+        req = {"rendering_maps_path": str(workdir / "maps"), "prompt": "x", "height": 16,
+               "width": 16, "num_frames": 5, "num_inference_steps": 2,
+               "save_path": str(tmp_path)}
+        for pin in (False, None):
+            body = dict(req, **({} if pin is None else {"cfg_parallel": pin}))
+            task = _call(f"{url}/generate", "POST", body)[1]["task_id"]
+            st, _ = _wait(f"{url}/status/{task}")
+            assert st["status"] == "COMPLETED", st
+        cfg = tstaged.fresh_init_factories("tiny", device="cpu")[1]
+        assert modes == [False, tstaged.auto_cfg_parallel(cfg, 8, 2)]
+        profile = _call(f"{url}/metrics")[1]["last_generation_stage_profile_s"]
+        assert {"t5_build", "dit_build", "denoise", "decode", "total"} <= set(profile)
+        task = _call(f"{url}/generate", "POST", dict(req, quantize_bits=4))[1]["task_id"]
+        st, _ = _wait(f"{url}/status/{task}")
+        assert st["status"] == "FAILED" and "stage factories" in st["error"]
+        assert len(modes) == 2
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 @pytest.mark.parametrize("weights,mode", [("bf16", None), ("int8", (8, False)),

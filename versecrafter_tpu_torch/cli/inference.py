@@ -21,6 +21,16 @@ a LoRA the DiT is quantized as it loads, each expert of a
 low_noise_model/ + high_noise_model/ directory before the next is read, so
 a Wan2.2-A14B pair fits one 80 GB card resident in int8.
 
+--staged runs the request with staged weight residency
+(sampling/staged.py): umT5, the VAE and the DiT are resident one at a
+time, the DiT in --quantize_bits when a quantize flag is given (bf16
+otherwise); --cfg_parallel auto lets the card's memory model choose batched
+or sequential CFG (printed as {"cfg_parallel", "tokens", "est_step_gb"}),
+and the stage split is printed as {"staged_profile_s": ...}. With --staged,
+--fit_teacache [OUT_JSON] first records a full trajectory, fits the
+TeaCache coefficients (written to OUT_JSON when given), decodes and saves
+the recorded run's video, and then generates with the fit.
+
 --moe runs the Wan2.2 two-expert timestep-MoE as an expert swap: the
 high-noise expert (from --transformer_high_path, a high_noise_model/ beside
 low_noise_model/ under the transformer directory, or the low expert's
@@ -28,11 +38,11 @@ checkpoint; a fresh init from seed 1 without --model_name) takes the steps
 with sigma >= --moe_boundary, the low one the rest, and only one is ever
 resident: each is built where the schedule crosses to it, printing
 {"expert_build": which, "s": seconds}; each expert takes the LoRA and
-quantize flags as it is built.
+quantize flags as it is built. Under --staged the experts come from the
+staged factories (the high one from seed 1 or its checkpoint).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
---staged and --fit_teacache (staged residency), mesh degrees > 1 and
---auto_parallel.
+mesh degrees > 1 and --auto_parallel.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import numpy as np
 
 NEGATIVE_PROMPT = (
     "Bright tones, overexposed, static, blurred details, subtitles, style, "
@@ -104,7 +116,9 @@ def parse_args(argv=None):
                    choices=["1.3b", "tiny", "14b"],
                    help="random-weight model size without --model_name (tiny: "
                         "head_dim 16, the CPU only)")
-    p.add_argument("--staged", action="store_true", help="not ported yet")
+    p.add_argument("--staged", action="store_true",
+                   help="staged weight residency: umT5 -> encode -> free, VAE -> encode "
+                        "-> free, DiT -> denoise -> free, VAE -> decode")
     p.add_argument("--moe", action="store_true",
                    help="Wan2.2 two-expert timestep MoE, one expert resident at a "
                         "time (swapped where sigma crosses --moe_boundary)")
@@ -113,21 +127,16 @@ def parse_args(argv=None):
     p.add_argument("--transformer_high_path", type=str, default=None,
                    help="high-noise expert checkpoint dir (Wan2.2)")
     p.add_argument("--cfg_parallel", type=str, default="auto", choices=("auto", "on", "off"),
-                   help="off: the CFG pair as two batch-1 forwards; auto and on: "
-                        "one batch-2 forward")
+                   help="off: the CFG pair as two batch-1 forwards; on: one batch-2 "
+                        "forward; auto: with --staged, batched where the card's memory "
+                        "model says the batch-2 step fits (sampling.staged."
+                        "auto_cfg_parallel), batched without --staged")
     p.add_argument("--fit_teacache", nargs="?", const="", default=None, metavar="OUT_JSON",
-                   help="not ported yet (needs --staged)")
+                   help="with --staged: record a full trajectory, fit TeaCache "
+                        "coefficients, then generate with them (the fit saved as "
+                        "OUT_JSON when given)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
-
-
-def _check_ported(args):
-    from versecrafter_tpu_torch.serve.model_server import (
-        STAGED, check_ported_serving_flags)
-
-    check_ported_serving_flags(args)
-    if args.fit_teacache is not None:
-        raise NotImplementedError(f"--fit_teacache (with --staged) is not ported yet {STAGED}")
 
 
 def expert_swap(args, pipe, dev):
@@ -174,11 +183,12 @@ def apply_weight_flags(args, pipe, quantize=True):
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
-
     from versecrafter_tpu_torch import resolve_device
     from versecrafter_tpu_torch.serve.model_server import (
-        default_pipeline_factory, run_generate_request, save_generated_video)
+        check_ported_serving_flags, default_pipeline_factory, run_generate_request,
+        save_generated_video)
+
+    check_ported_serving_flags(args)
 
     dev = resolve_device(args.device)
     # --offline_smoke defaults to tiny shapes, but explicit size flags win
@@ -189,6 +199,8 @@ def main(argv=None):
         args.video_length = defaults[2]
     if args.num_inference_steps is None:
         args.num_inference_steps = defaults[3]
+    if args.staged:
+        return _main_staged(args, h, w, dev)
 
     # without a LoRA to merge into the bf16 weights first, quantized as it loads
     load_quant = ((args.quantize_bits, args.int8_compute)
@@ -246,6 +258,108 @@ def main(argv=None):
     out = save_generated_video(video, {"save_path": args.save_path, "fps": args.fps})
     prof = dict(pipe.last_wall_profile, model_build=round(t_build, 2))
     print(json.dumps({"generate_wall_profile_s": prof}), flush=True)
+    print(args.prompt)
+    print(out, flush=True)
+    return out
+
+
+def _main_staged(args, h, w, dev):
+    """--staged: the request with staged weight residency (the JAX CLI's
+    _main_staged). The DiT is stored in --quantize_bits only when a quantize
+    flag is given. As on the JAX staged path, --lora_path and
+    --enable_riflex are not applied."""
+    from versecrafter_tpu_torch.sampling import teacache as tc
+    from versecrafter_tpu_torch.sampling.pipeline import VerseCrafterPipeline
+    from versecrafter_tpu_torch.sampling.staged import (
+        _free, auto_cfg_parallel, checkpoint_factories, estimate_denoise_gb,
+        fresh_init_factories, generate_staged, request_tokens)
+    from versecrafter_tpu_torch.serve.model_server import (
+        load_request_inputs, save_generated_video)
+
+    bits = args.quantize_bits if (args.quantize_int8 or args.int8_compute) else 0
+
+    def factories_of(transformer_path, seed):
+        if args.model_name:
+            return checkpoint_factories(
+                args.model_name, transformer_path=transformer_path,
+                geoada_in_dim=args.geoada_in_dim, bits=bits,
+                int8_compute=args.int8_compute, device=dev)
+        return fresh_init_factories(scale=args.smoke_scale, bits=bits,
+                                    int8_compute=args.int8_compute, seed=seed, device=dev)
+
+    factories, dit_cfg, vae_cfg, t5_cfg = factories_of(args.transformer_path, 0)
+    tokens = request_tokens(dit_cfg, vae_cfg, h, w, args.video_length)
+    cfg_par = (auto_cfg_parallel(dit_cfg, bits, tokens) if args.cfg_parallel == "auto"
+               else args.cfg_parallel == "on")
+    print(json.dumps({"cfg_parallel": cfg_par, "tokens": tokens,
+                      "est_step_gb": round(estimate_denoise_gb(
+                          dit_cfg, bits, tokens, 2 if cfg_par else 1), 2)}), flush=True)
+
+    pipe = VerseCrafterPipeline(
+        dit_params=None, dit_cfg=dit_cfg, vae_params=None, vae_cfg=vae_cfg,
+        t5_params=None, t5_cfg=t5_cfg, scheduler_name=SAMPLERS[args.sampler],
+        cfg_parallel=cfg_par, device=dev)
+    if args.teacache_coeffs:
+        with open(args.teacache_coeffs) as f:
+            fit = json.load(f)
+        pipe.enable_teacache(float(fit.get("threshold", args.teacache_threshold)),
+                             args.teacache_skip_start, coefficients=tuple(fit["coefficients"]))
+    elif args.teacache_threshold > 0 and args.fit_teacache is None:
+        pipe.enable_teacache(args.teacache_threshold, args.teacache_skip_start)
+    if args.cfg_skip_ratio > 0:
+        pipe.enable_cfg_skip(args.cfg_skip_ratio)
+    if args.int8_attention:
+        pipe.enable_int8_attention()
+    if args.moe:  # the high expert: its own checkpoint, or seed 1
+        high = factories_of(args.transformer_high_path or args.transformer_path, 1)[0].dit
+
+        def expert_swap(which, low=factories.dit):
+            t0 = time.perf_counter()
+            params = (high if which == "high" else low)()
+            print(json.dumps({"expert_build": which,
+                              "s": round(time.perf_counter() - t0, 1)}), flush=True)
+            return params
+
+        pipe.expert_swap = expert_swap
+        pipe.moe_boundary = args.moe_boundary
+
+    controls, mask = load_request_inputs({
+        "rendering_maps_path": args.rendering_maps_path,
+        "input_image_path": args.input_image_path,
+        "height": h, "width": w, "num_frames": args.video_length, "fps": args.fps})
+    kw = dict(control_videos=controls, mask_video=mask, height=h, width=w,
+              num_frames=args.video_length, num_inference_steps=args.num_inference_steps,
+              guidance_scale=args.guidance_scale, shift=args.shift, seed=args.seed,
+              progress=lambda i, n: print(f"denoise {i} / {n}", flush=True))
+
+    if args.fit_teacache is not None and not args.teacache_coeffs:
+        # record -> fit -> fire; the recorded run is a full ungated generation,
+        # so its latents are decoded into the first video
+        rel_e0, rel_res = generate_staged(pipe, factories, args.prompt, NEGATIVE_PROMPT,
+                                          record_teacache=True, **kw)
+        coeffs = tc.fit_teacache_coefficients(rel_e0, rel_res, degree=4)
+        thresh = float(np.median(np.polyval(coeffs, rel_e0)) * 1.5)  # ~40 % skipped
+        pipe.enable_teacache(max(thresh, 1e-6), args.teacache_skip_start,
+                             coefficients=coeffs)
+        fit = {"coefficients": [float(c) for c in coeffs], "threshold": thresh}
+        print(json.dumps({"teacache_fit": fit, "record_profile_s": pipe.last_stage_profile}),
+              flush=True)
+        if args.fit_teacache:
+            with open(args.fit_teacache, "w") as f:
+                json.dump(fit, f)
+        t0 = time.perf_counter()
+        pipe.vae_params = factories.vae()
+        rec_video = pipe.decode_latents(pipe.last_record_latents, "uint8")
+        pipe.last_record_latents = None
+        _free(pipe, "vae_params")
+        out0 = save_generated_video(rec_video, {"save_path": args.save_path, "fps": args.fps})
+        print(json.dumps({"record_video": out0,
+                          "record_decode_s": round(time.perf_counter() - t0, 1)}), flush=True)
+
+    video = generate_staged(pipe, factories, args.prompt, NEGATIVE_PROMPT,
+                            geoada_context_scale=args.geoada_context_scale, **kw)
+    out = save_generated_video(video, {"save_path": args.save_path, "fps": args.fps})
+    print(json.dumps({"staged_profile_s": pipe.last_stage_profile}), flush=True)
     print(args.prompt)
     print(out, flush=True)
     return out

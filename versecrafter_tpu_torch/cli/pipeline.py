@@ -9,8 +9,9 @@ The clip directory has the demo layout (0001.png, estimated_depth/,
 object_mask/, camera_object_0/); render reads the clip's own depth and
 masks, as the JAX CLI does. The JAX CLI's flags, plus --device
 (default cuda) passed to every stage. Prints the stages' wall seconds as
-one JSON line, {"stage_wall_s": ..., "total_wall_s": ...}. --staged reaches
-the generate CLI, which raises NotImplementedError naming its ROADMAP item.
+one JSON line, {"stage_wall_s": ..., "total_wall_s": ...}. --staged
+generates with staged weight residency and a W4A8 DiT (the generate CLI's
+--staged --quantize_int8 --int8_compute --quantize_bits 4, TeaCache off).
 """
 
 from __future__ import annotations
@@ -47,9 +48,11 @@ def main(argv=None):
     p.add_argument("--skip", default="",
                    help="comma-separated stages to skip (depth,segment,gaussian,render,generate)")
     p.add_argument("--smoke_scale", default="1.3b", choices=["1.3b", "tiny", "14b"],
-                   help="offline-smoke model size when --model is absent")
+                   help="offline-smoke model size when --model is absent (14b with "
+                        "--staged)")
     p.add_argument("--staged", action="store_true",
-                   help="staged weight residency + W4A8 (not ported yet)")
+                   help="generate with staged weight residency + W4A8 "
+                        "(cli/inference.py --staged)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 

@@ -217,16 +217,13 @@ def init_simple_adapter(gen, cfg: WanDiTConfig, dtype, device) -> Params:
     return p
 
 
-def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
-                 dtype=torch.bfloat16) -> Params:
-    """Random init from `generator`, on the generator's device; the head
-    projection is zero, as in the reference. The tree is the JAX init's,
-    the i2v and SimpleAdapter parts included, drawn in its order."""
-    device = generator.device
+def _init_parts(cfg: WanDiTConfig, g: torch.Generator, dtype):
+    """The DiT's parts in the order init_wan_dit draws them: (None, None,
+    a dict of top-level entries) or (list name, index, one block)."""
+    device = g.device
     pt, ph, pw = cfg.patch_size
-    g = generator
     head_mod = torch.empty((2, cfg.dim), dtype=torch.float32, device=device)
-    params: Params = {
+    yield None, None, {
         "patch_embedding": _init_linear(g, cfg.in_dim * pt * ph * pw, cfg.dim,
                                         dtype, device),
         "text_embedding": {
@@ -246,22 +243,25 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
                                  dtype, device, zero=True),
             "modulation": head_mod.normal_(generator=g) / math.sqrt(cfg.dim),
         },
-        "blocks": [_init_block(g, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)],
+        # the block lists, filled by the parts that follow
+        "blocks": [],
+        **({"geoada_blocks": []} if cfg.has_geoadapter else {}),
     }
+    for i in range(cfg.num_layers):
+        yield "blocks", i, _init_block(g, cfg, dtype, device)
     if cfg.has_geoadapter:
-        params["geoada_blocks"] = [
-            _init_block(g, cfg, dtype, device, geoada=True)
-            for _ in cfg.resolved_geoada_layers]
-        params["geoada_before_proj"] = _init_linear(g, cfg.dim, cfg.dim, dtype,
-                                                    device, zero=True)
-        params["geoada_patch_embedding"] = _init_linear(
-            g, cfg.resolved_geoada_in_dim * pt * ph * pw, cfg.dim, dtype, device)
+        for i in range(len(cfg.resolved_geoada_layers)):
+            yield "geoada_blocks", i, _init_block(g, cfg, dtype, device, geoada=True)
+        yield None, None, {
+            "geoada_before_proj": _init_linear(g, cfg.dim, cfg.dim, dtype, device,
+                                               zero=True),
+            "geoada_patch_embedding": _init_linear(
+                g, cfg.resolved_geoada_in_dim * pt * ph * pw, cfg.dim, dtype, device)}
     if cfg.add_control_adapter:
-        params["control_adapter"] = init_simple_adapter(g, cfg, dtype, device)
+        yield None, None, {"control_adapter": init_simple_adapter(g, cfg, dtype, device)}
     if cfg.model_type == "i2v" and cfg.add_img_emb:
         e_in = cfg.img_emb_dim
-        params["img_emb"] = {
+        yield None, None, {"img_emb": {
             "norm_in": {"scale": _ones(e_in, device),
                         "bias": torch.zeros((e_in,), dtype=torch.float32, device=device)},
             "fc1": _init_linear(g, e_in, e_in, dtype, device),
@@ -269,8 +269,47 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
             "norm_out": {"scale": _ones(cfg.dim, device),
                          "bias": torch.zeros((cfg.dim,), dtype=torch.float32,
                                              device=device)},
-        }
+        }}
+
+
+def _assemble(parts) -> Params:
+    params: Params = {}
+    for group, _, part in parts:
+        if group is None:
+            params.update(part)
+        else:
+            params[group].append(part)
     return params
+
+
+def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
+                 dtype=torch.bfloat16) -> Params:
+    """Random init from `generator`, on the generator's device; the head
+    projection is zero, as in the reference. The tree is the JAX init's,
+    the i2v and SimpleAdapter parts included, drawn in its order."""
+    return _assemble(_init_parts(cfg, generator, dtype))
+
+
+def init_wan_dit_quantized(cfg: WanDiTConfig, generator: torch.Generator,
+                           dtype=torch.bfloat16, bits: int = 8,
+                           int8_compute: bool = False, act_scales=None) -> Params:
+    """init_wan_dit's tree quantized as it is drawn (the JAX package's
+    init_wan_dit_quantized): each block is quantized
+    (utils/quantize.quantize_dit_block) before the next is drawn, so at most
+    one block exists unquantized and the whole unquantized tree (41 GiB at
+    14B + GeoAdapter in bf16) never does. Equal, bit for bit, to
+    quantize_dit(init_wan_dit(cfg, generator, dtype), bits, int8_compute,
+    act_scales) from a generator in the same state."""
+    def quantized():
+        for group, i, part in _init_parts(cfg, generator, dtype):
+            if group is None:
+                out = qz.quantize_dit_top(part, bits, int8_compute, act_scales)
+            else:
+                n = cfg.num_layers if group == "blocks" else len(cfg.resolved_geoada_layers)
+                out = qz.quantize_dit_block(part, group, i, n, bits, int8_compute, act_scales)
+            del part  # before the next part is drawn
+            yield group, i, out
+    return _assemble(quantized())
 
 
 # ---------------------------------------------------------------------------

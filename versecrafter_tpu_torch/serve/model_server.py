@@ -12,12 +12,17 @@ Endpoints:
                          per-step timing and per-stage wall split
 
     python -m versecrafter_tpu_torch.serve.model_server --model_path <dir> --port 8191
+    python -m versecrafter_tpu_torch.serve.model_server --staged --staged_scale 14b
 
 A request names a control-map directory by the reference's file contract
 (load_request_inputs); reading its mp4s needs OpenCV (utils/video.py).
 run_loaded_request serves a request whose control videos are already
 arrays. The pipeline comes from default_pipeline_factory: a reference-layout
 checkpoint directory (core.convert.load_versecrafter) or random weights.
+With --staged the host keeps a shell pipeline and builds and frees each
+component per request stage (sampling/staged.py: umT5, the VAE, the DiT in
+--quantize_bits with W8A8 / W4A8 compute); a request's `cfg_parallel` pins
+batched or sequential CFG, else the card's memory model picks.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ from versecrafter_tpu_torch.serve.tasks import COMPLETED, FAILED, RUNNING, TaskR
 
 CONTROL_NAMES = ["background_RGB.mp4", "background_depth.mp4",
                  "3D_gaussian_RGB.mp4", "3D_gaussian_depth.mp4"]
-STAGED = "(ROADMAP queue 1, item 6: staged residency)"
 MESH = "(ROADMAP queue 1, item 11: parallelism)"
 # the model server's --resident_weights -> default_pipeline_factory's
 # quantize (bits, int8_compute)
@@ -173,7 +177,32 @@ def _call_pipe(pipe, params, controls, mask, h, w, n, progress):
     )
 
 
-def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
+def _call_pipe_staged(pipe, params, controls, mask, h, w, n, progress, factories):
+    """One generate request under staged residency: CFG batched or
+    sequential as the request's `cfg_parallel` says, else as
+    staged.auto_cfg_parallel decides for the request's tokens."""
+    from versecrafter_tpu_torch.sampling.staged import (
+        auto_cfg_parallel, generate_staged, request_tokens)
+
+    if "cfg_parallel" in params:
+        pipe.cfg_parallel = bool(params["cfg_parallel"])
+    else:
+        pipe.cfg_parallel = auto_cfg_parallel(
+            pipe.dit_cfg, factories.bits, request_tokens(pipe.dit_cfg, pipe.vae_cfg, h, w, n))
+    return generate_staged(
+        pipe, factories, params.get("prompt", ""),
+        negative_prompt=params.get("negative_prompt", ""),
+        control_videos=controls, mask_video=mask, height=h, width=w, num_frames=n,
+        num_inference_steps=int(params.get("num_inference_steps", 30)),
+        guidance_scale=float(params.get("guidance_scale", 5.0)),
+        shift=float(params.get("shift", 16.0)),
+        seed=int(params.get("seed", 2025)),
+        geoada_context_scale=float(params.get("geoada_context_scale", 1.0)),
+        progress=progress, output_type="uint8")
+
+
+def run_loaded_request(pipe, params: dict, controls, mask, progress=None,
+                       staged_factories=None):
     """One generate request whose control videos and mask are loaded: the
     per-request toggles of the JAX server's run_generate_request, then the
     pipeline call (uint8 frames [B, T, H, W, 3]). `int8_attention` sets
@@ -186,7 +215,11 @@ def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
     quantize the resident DiT on the first request that asks; the mode then
     stays for the pipeline's life (the weights are rewritten), and a request
     for another mode raises ValueError. Every param is applied inside the
-    try, so a raising request leaves no toggle behind."""
+    try, so a raising request leaves no toggle behind.
+
+    staged_factories (sampling.staged.StageFactories): `pipe` is a shell
+    whose weights are built and freed per stage (_call_pipe_staged); the
+    factories fix the quantization, so quantize params raise ValueError."""
     from versecrafter_tpu_torch.models import wan_dit
 
     h = int(params.get("height", 480))
@@ -206,6 +239,12 @@ def run_loaded_request(pipe, params: dict, controls, mask, progress=None):
         if "cfg_skip_ratio" in params:
             pipe.enable_cfg_skip(float(params["cfg_skip_ratio"]))
         qmode = _requested_quant_mode(params)
+        if staged_factories is not None:
+            if qmode is not None:
+                raise ValueError("staged-residency host: the stage factories fix the "
+                                 "quantization; drop the quantize params")
+            return _call_pipe_staged(pipe, params, controls, mask, h, w, n, progress,
+                                     staged_factories)
         if qmode is not None:
             resident = getattr(pipe, "_quantized", None)
             if resident is None:
@@ -275,13 +314,11 @@ def load_request_inputs(params: dict):
 def run_generate_request(pipe, params: dict, progress=None,
                          staged_factories=None) -> np.ndarray:
     """One generate request: load_request_inputs, then run_loaded_request
-    (uint8 frames [B, T, H, W, 3]). Shared by the model server, the API
-    server's in-process tier and the generate CLI. Staged residency raises
-    NotImplementedError."""
-    if staged_factories is not None:
-        raise NotImplementedError(f"staged weight residency is not ported yet {STAGED}")
+    (uint8 frames [B, T, H, W, 3]; staged residency with
+    `staged_factories`). Shared by the model server, the API server's
+    in-process tier and the generate CLI."""
     controls, mask = load_request_inputs(params)
-    return run_loaded_request(pipe, params, controls, mask, progress)
+    return run_loaded_request(pipe, params, controls, mask, progress, staged_factories)
 
 
 def save_generated_video(video: np.ndarray, params: dict,
@@ -301,18 +338,21 @@ def save_generated_video(video: np.ndarray, params: dict,
 class ModelServer:
     """pipeline_factory builds the pipeline on the first request; requests
     run one at a time, in order, on one worker thread. _generate and _save
-    are the override points (what a request runs and where its frames go)."""
+    are the override points (what a request runs and where its frames go).
+    staged_factories (sampling.staged.StageFactories): serve with staged
+    residency, the pipeline a shell whose weights each request builds and
+    frees stage by stage (staged.staged_pipeline_factory makes both)."""
 
     def __init__(self, pipeline_factory: Callable[[], Any],
                  output_dir: str = "outputs/serve", staged_factories=None):
-        if staged_factories is not None:
-            raise NotImplementedError(f"staged weight residency is not ported yet {STAGED}")
         self.pipeline_factory = pipeline_factory
+        self.staged_factories = staged_factories
         self.output_dir = output_dir
         self.tasks = TaskRegistry()
         self.queue: "queue.Queue" = queue.Queue()
         self.last_step_stats: dict = {}
         self.last_wall_profile: dict = {}
+        self.last_stage_profile: dict = {}
         self._pipeline = None
         self._lock = threading.Lock()
         self._worker = threading.Thread(target=self._work_loop, daemon=True)
@@ -352,6 +392,7 @@ class ModelServer:
             video = self._generate(pipe, params, progress)
             self.last_step_stats = timer.summary()
             self.last_wall_profile = dict(getattr(pipe, "last_wall_profile", {}))
+            self.last_stage_profile = dict(getattr(pipe, "last_stage_profile", {}))
             out_path = self._save(video, params)
             self.tasks.update(task_id, status=COMPLETED, progress=100,
                               result={"video_path": out_path})
@@ -360,7 +401,7 @@ class ModelServer:
                               message=traceback.format_exc()[-2000:])
 
     def _generate(self, pipe, params: dict, progress):
-        return run_generate_request(pipe, params, progress)
+        return run_generate_request(pipe, params, progress, self.staged_factories)
 
     def _save(self, video: np.ndarray, params: dict) -> str:
         return save_generated_video(video, params, self.output_dir)
@@ -410,23 +451,21 @@ def build_router(server: ModelServer) -> Router:
             "tasks": len(server.tasks.all()),
             "last_generation_step_ms": server.last_step_stats,
             "last_generation_wall_profile_s": server.last_wall_profile,
+            # staged residency: the last request's build / run split by stage
+            "last_generation_stage_profile_s": server.last_stage_profile,
         }
 
     return r
 
 
 def check_ported_serving_flags(args) -> None:
-    """The servers' and the generate CLI's flags that are not ported raise
-    NotImplementedError naming their ROADMAP item. --staged_scale and
-    --quantize_bits act only under --staged, as in the JAX model server, so
-    without it they are accepted and do nothing."""
+    """The servers' and the generate CLI's mesh flags, which are not ported,
+    raise NotImplementedError naming their ROADMAP item."""
     degrees = [getattr(args, k, 1) for k in ("ulysses_degree", "ring_degree", "tp")]
     if max(degrees) > 1 or getattr(args, "auto_mesh", False) or getattr(
             args, "auto_parallel", False):
         raise NotImplementedError(
             f"sequence / tensor parallel serving is not ported yet {MESH}")
-    if getattr(args, "staged", False):
-        raise NotImplementedError(f"--staged is not ported yet {STAGED}")
 
 
 def main(argv=None):
@@ -443,11 +482,13 @@ def main(argv=None):
     p.add_argument("--ring_degree", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--auto_mesh", action="store_true", help="not ported yet")
-    p.add_argument("--staged", action="store_true", help="not ported yet")
+    p.add_argument("--staged", action="store_true",
+                   help="staged weight residency: umT5, the VAE and the quantized DiT "
+                        "built and freed per request stage instead of staying resident")
     p.add_argument("--staged_scale", default="14b", choices=["14b", "1.3b", "tiny"],
-                   help="with --staged (not ported yet)")
+                   help="with --staged and no --model_path: the random-weight size")
     p.add_argument("--quantize_bits", type=int, default=4, choices=(8, 4),
-                   help="with --staged (not ported yet)")
+                   help="with --staged: the DiT's weight width (W8A8 / W4A8)")
     p.add_argument("--resident_weights", default="bf16", choices=sorted(RESIDENT_WEIGHTS),
                    help="the DiT quantized as it loads, each expert of a pair before "
                         "the next is read (a Wan2.2-A14B pair fits one 80 GB card as "
@@ -456,9 +497,17 @@ def main(argv=None):
     check_ported_serving_flags(args)
     resolve_device(args.device)
 
-    server = ModelServer(default_pipeline_factory(
-        args.model_path, device=args.device,
-        quantize=RESIDENT_WEIGHTS[args.resident_weights]), output_dir=args.output_dir)
+    if args.staged:
+        from versecrafter_tpu_torch.sampling.staged import staged_pipeline_factory
+        factory, staged_factories = staged_pipeline_factory(
+            args.model_path, scale=args.staged_scale, bits=args.quantize_bits,
+            int8_compute=True, device=args.device)
+        server = ModelServer(factory, output_dir=args.output_dir,
+                             staged_factories=staged_factories)
+    else:
+        server = ModelServer(default_pipeline_factory(
+            args.model_path, device=args.device,
+            quantize=RESIDENT_WEIGHTS[args.resident_weights]), output_dir=args.output_dir)
     httpd = make_server(build_router(server), args.host, args.port)
     print(f"model server on {args.host}:{args.port} ({args.device})", flush=True)
     httpd.serve_forever()

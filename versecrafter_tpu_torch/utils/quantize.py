@@ -94,15 +94,20 @@ def _quantize_leaf(leaf: torch.Tensor, bits: int, group_size: Optional[int]):
     kdim = leaf.shape[-2]
     g = group_size if group_size is not None else (128 if bits == 4 else 0)
     grouped = bool(g) and g < kdim and kdim % g == 0 and g % 2 == 0
+    # at most two fp32 copies of the leaf live at once: its values and the codes
     lf = leaf.float()
     if grouped:
         lf = lf.reshape(*leaf.shape[:-2], kdim // g, g, leaf.shape[-1])
-    absmax = lf.abs().amax(dim=-2, keepdim=True)
+    absmax = torch.maximum(lf.amax(dim=-2, keepdim=True), -lf.amin(dim=-2, keepdim=True))
     scale = _div(absmax.clamp_min(1e-8), qmax)  # [..., (K/g,) 1, N]
-    q = torch.clamp(torch.round(lf / scale), -qmax, qmax).reshape(leaf.shape)
+    q = (lf / scale).round_().clamp_(-qmax, qmax).reshape(leaf.shape)
+    del lf
     if bits == 4:
-        qu = q.to(torch.int32) & 0xF  # two's-complement low nibble
-        vals = (qu[..., 0::2, :] | (qu[..., 1::2, :] << 4)).to(torch.uint8)
+        qu = q.to(torch.int32).bitwise_and_(0xF)  # two's-complement low nibble
+        del q
+        packed = (qu[..., 1::2, :] << 4).bitwise_or_(qu[..., 0::2, :])
+        del qu
+        vals = packed.to(torch.uint8)
         key = "q4values"
     else:
         vals = q.to(torch.int8)
@@ -153,6 +158,25 @@ def quantize_tree(params: Dict[str, Any], bits: int = 8,
     return _quantize(params, bits, group_size, "", None)
 
 
+def quantize_dit_top(part: Dict[str, Any], bits: int = 8, int8_compute: bool = False,
+                     act_scales: Optional[Dict[str, Any]] = None,
+                     sites: Optional[tuple] = None) -> Dict[str, Any]:
+    """Non-block entries of a DiT tree (a dict of some of its top-level
+    keys, no block list among them), quantized as quantize_dit quantizes
+    them."""
+    top = quantize_tree(part, bits, 0 if (bits == 4 and int8_compute) else None)
+    return tag_int8_compute(top, act_scales, sites) if int8_compute else top
+
+
+def quantize_dit_block(block, group: str, index: int, num_blocks: int, bits: int = 8,
+                       int8_compute: bool = False, act_scales=None, sites=None):
+    """Block `index` of the list `group` of `num_blocks` blocks, quantized as
+    quantize_dit quantizes it."""
+    blk = quantize_block(block, group, num_blocks, bits,
+                         0 if (bits == 4 and int8_compute) else None)
+    return tag_block(blk, group, index, num_blocks, act_scales, sites) if int8_compute else blk
+
+
 def quantize_dit(params: Dict[str, Any], bits: int = 8, int8_compute: bool = False,
                  act_scales: Optional[Dict[str, Any]] = None,
                  sites: Optional[tuple] = None) -> Dict[str, Any]:
@@ -162,16 +186,13 @@ def quantize_dit(params: Dict[str, Any], bits: int = 8, int8_compute: bool = Fal
     leaves are replaced at once, then each entry of the block lists in turn,
     so a block's original is dropped as soon as its quantized copy exists
     unless something else still holds it."""
-    gs = 0 if (bits == 4 and int8_compute) else None
     lists = {k: v for k, v in params.items() if isinstance(v, list)}
-    top = quantize_tree({k: v for k, v in params.items() if k not in lists}, bits, gs)
-    params.update(tag_int8_compute(top, act_scales, sites) if int8_compute else top)
+    params.update(quantize_dit_top({k: v for k, v in params.items() if k not in lists},
+                                   bits, int8_compute, act_scales, sites))
     for key, blocks in lists.items():
         for i in range(len(blocks)):
-            blk = quantize_block(blocks[i], key, len(blocks), bits, gs)
-            if int8_compute:
-                blk = tag_block(blk, key, i, len(blocks), act_scales, sites)
-            blocks[i] = blk
+            blocks[i] = quantize_dit_block(blocks[i], key, i, len(blocks), bits,
+                                           int8_compute, act_scales, sites)
     return params
 
 
