@@ -213,6 +213,15 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      record_teacache, teacache.fit_teacache_coefficients, the recorded
      latents decoded, a fired request) at the 1.3B widths at 240x416x33, 4
      steps.
+ 14. parallelism, one rank's share of the reference's 8-GPU points (the card
+     has one GPU): an NCCL world of one through utils/cache and core/mesh,
+     one all_to_all_single and one batch_isend_irecv to itself; row 4b on
+     [2, 5, 75,600, 128] through sharding.ulysses_attention (the 14B at
+     720p, sp = 8) against its plain version on two heads; the ring's hops
+     (ring_attention.attend_shard) for the q shards of ranks 0 and 7 of the
+     1.3B at 480p, sp = 8 ([2, 12, 4,095, 128]) against the full
+     attention's rows; the ring's backward hops (hop_backward) at its train
+     point against the full fa_backward; the bytes a rank sends per layer.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -252,6 +261,10 @@ TPU_KERNELS = {
     "linear_rstat": "versecrafter_tpu/kernels/matmul_stat.py:76",
     "fused_rope_rms_attention_14b": "versecrafter_tpu/kernels/flash_attention.py:800",
     "fused_rms_cross_attention_14b": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "flash_attention_inference_ulysses": "versecrafter_tpu/kernels/flash_attention.py:363",
+    "flash_attention_ring_hop": "versecrafter_tpu/kernels/flash_attention.py:363",
+    "fa_backward_dq_ring": "versecrafter_tpu/kernels/flash_attention_bwd.py:100",
+    "fa_backward_dkv_ring": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
 }
 SOURCES = {
     "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
@@ -264,6 +277,10 @@ SOURCES = {
     "linear_rstat": "versecrafter_tpu_torch/csrc/matmul_stat.cu",
     "fused_rope_rms_attention_14b": "versecrafter_tpu_torch/csrc/fused_attention.cu",
     "fused_rms_cross_attention_14b": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "flash_attention_inference_ulysses": "versecrafter_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_ring_hop": "versecrafter_tpu_torch/csrc/flash_attention.cu",
+    "fa_backward_dq_ring": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fa_backward_dkv_ring": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 # (B, N, Sq, Skv, window, k_lens) that straddle the fused kernel's tiles
 FUSED_EDGE_CASES = [(1, 2, 193, 321, (-1, -1), None), (2, 2, 129, 64, (-1, -1), (64, 0)),
@@ -2072,7 +2089,7 @@ def lora_train(fa, fab, ms, dev, card, out_dir):
     t0 = time.perf_counter()
     args = tcli.parse_args(["--synthetic", "1", "--steps", str(TRAIN_STEPS), "--lora_rank",
                             str(LORA_RANK), "--output_dir", out_dir, "--log_every", "1"])
-    cfg, params = tcli.build_model(args, dev)
+    cfg, params, _ = tcli.build_model(args, dev)
     before = sha256_of(*tree_leaves(params))
     del params
     fa.reset_launch_counts()
@@ -3644,6 +3661,256 @@ def staged_720p(fa, fab, ms, dev, card, controls, mask, render_s, resident):
     return counts_all
 
 
+# phase 14: the reference's 8-GPU operating points, one rank's share
+SP_RANKS = 8
+ULYSSES_POINT = (2, 40, 21 * 45 * 80)  # 14B at 720x1280x81, CFG-2: B, heads, tokens
+RING_POINT = (2, 12, 21 * 30 * 52)     # 1.3B at 480x832x81, CFG-2
+RING_TRAIN_POINT = (1, 12, 21 * 30 * 52)  # its train step, batch 1
+ULYSSES_HEADS = (0, 4)  # of the five a rank holds after the all_to_all
+
+
+def free_tcp_port():
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def nccl_world_of_one(dev):
+    """Phase 14 (e): torchrun's environment for one rank, the port's own
+    bootstrap (utils/cache.maybe_init_distributed: NCCL on the card) and
+    make_mesh(MeshSpec()); one all_to_all_single (sharding's Ulysses
+    collective) and one batch_isend_irecv (the ring's rotation) to itself on
+    card tensors. Returns the mesh; the caller destroys the group."""
+    from versecrafter_tpu_torch.core.mesh import MeshSpec, auto_mesh_spec, make_mesh
+    from versecrafter_tpu_torch.kernels import ring_attention as ring
+    from versecrafter_tpu_torch.parallel import sharding as shd
+    from versecrafter_tpu_torch.serve.model_server import resolve_mesh
+    from versecrafter_tpu_torch.utils.cache import maybe_init_distributed
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_tcp_port()))
+    t0 = time.perf_counter()
+    if not maybe_init_distributed(dev):
+        raise AssertionError("maybe_init_distributed did not initialise the world")
+    if maybe_init_distributed(dev):
+        raise AssertionError("maybe_init_distributed is not idempotent")
+    mesh = make_mesh(MeshSpec(), dev)
+    backend = torch.distributed.get_backend()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1, 2, 5, 4095, 128, generator=g, device=dev).to(torch.bfloat16)
+    y = shd._AllToAll.apply(x, mesh.group("sp"))
+    (z,) = ring._rotate((x[0],), mesh.group("sp"), mesh.global_ranks("sp"))
+    torch.cuda.synchronize()
+    ok = torch.equal(y, x) and torch.equal(z, x[0]) and y.is_cuda and z.is_cuda
+    single = auto_mesh_spec(1) == MeshSpec() and resolve_mesh(None, True, 40, dev) is None
+    log(f"  [nccl] world of one: backend {backend}, mesh {mesh.spec.shape}, "
+        f"all_to_all_single and batch_isend_irecv to itself on {tuple(x.shape)} bf16 "
+        f"{'equal' if ok else 'DIFFER'}; auto_mesh_spec(1) -> single device: {single} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if backend != "nccl" or not ok or not single:
+        raise AssertionError("the NCCL world of one failed")
+    return mesh
+
+
+def ulysses_rank_local(fa, mesh, dev, card):
+    """Phase 14 (a): one rank's attention after the Ulysses all_to_all at
+    sp = 8 on the 14B 720x1280x81 CFG-2 point, [2, 5, 75,600, 128], through
+    sharding.ulysses_attention (its kernel is row 4b); held to the plain
+    version on two of the five heads. Returns (record, launches)."""
+    from versecrafter_tpu_torch.parallel import sharding as shd
+    B, N, S = ULYSSES_POINT
+    n, D = N // SP_RANKS, fa.HEAD_DIM
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = (2.0 * torch.randn(B, n, S, D, generator=g, device=dev)).to(torch.bfloat16)
+    k, v = (torch.randn(B, n, S, D, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    fa.reset_launch_counts()
+    with shd.mesh_context(mesh):
+        out = shd.ulysses_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    heads = list(ULYSSES_HEADS)
+    t0 = time.perf_counter()
+    ref = fa.flash_attention_plain(q[:, heads], k[:, heads], v[:, heads])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"max_abs_err": agree(f"Ulysses rank-local {tuple(q.shape)}, heads {heads}",
+                                out[:, heads], ref)}
+    del ref
+    rec["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v), 3)
+    rec["plain_ms"] = plain_ms  # on two of the five heads (the whole would take ~3 s)
+    rec["library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 3)
+    rec["bound_ms"], rec["bound_by"] = bound(4 * B * n * S * S * D,
+                                             (2 * q.numel() + k.numel() + v.numel()) * 2)
+    log(f"  [ulysses] {rec['ms']:.3f} ms (bound {rec['bound_ms']:.3f} ms, "
+        f"{rec['bound_by']}; {rec['ms'] / rec['bound_ms']:.2f}x), SDPA "
+        f"{rec['library_ms']:.3f} ms, plain {plain_ms:.0f} ms for two heads; launches "
+        f"{launches} on {card}")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def ring_rank_local(fa, fab, dev, card):
+    """Phase 14 (b): the ring where the dispatch takes it, 1.3B (12 heads,
+    12 % 8 != 0) at 480x832x81 CFG-2 over sp = 8: the q shards of ranks 0
+    and 7, [2, 12, 4,095, 128], against all eight K/V shards through
+    ring_attention.attend_shard (row 4a + the merge), held to the full
+    attention's rows of each shard. Returns (hop record, launches)."""
+    from versecrafter_tpu_torch.kernels import ring_attention as ring
+    from versecrafter_tpu_torch.parallel import sharding as shd
+    B, N, S = RING_POINT
+    n = S // SP_RANKS
+    if N % SP_RANKS == 0:
+        raise AssertionError("this point must take the ring")
+    D = fa.HEAD_DIM
+    # the stats flavor at the hop shape against its plain version, timed
+    rec = check_flash(fa, fab, B, N, n, n, dev, timed=True, seed=8)["flash_attention"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    q = (2.0 * torch.randn(B, N, S, D, generator=g, device=dev)).to(torch.bfloat16)
+    k, v = (torch.randn(B, N, S, D, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    shards = [(k[:, :, j * n:(j + 1) * n].contiguous(), v[:, :, j * n:(j + 1) * n].contiguous())
+              for j in range(SP_RANKS)]
+    ranks = (0, SP_RANKS - 1)
+    qs = {r: q[:, :, r * n:(r + 1) * n].contiguous() for r in ranks}
+
+    def ring_rows(r):  # rank r's hops, in its ring order
+        acc = None
+        for hop in range(SP_RANKS):
+            kb, vb = shards[(r - hop) % SP_RANKS]
+            acc = ring.attend_shard(qs[r], kb, vb, acc)
+        return acc
+
+    fa.reset_launch_counts()
+    got = {r: ring_rows(r)[0] for r in ranks}
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    for r in ranks:
+        want = fa.flash_attention_plain(qs[r], k, v, stats=True)[0]
+        rec["max_abs_err"] = max(rec["max_abs_err"], agree(
+            f"ring rank {r}: 8 hops vs the full attention's rows", got[r], want))
+        del want
+    acc = ring.attend_shard(qs[0], *shards[0])
+    rec["hop_ms"] = cuda_ms(lambda: ring.attend_shard(qs[0], *shards[1], acc), 10)
+    rec["ring_ms"] = cuda_ms(lambda: ring_rows(0), 5)
+    ring_bound = SP_RANKS * rec["bound_ms"]
+    full_bound = bound(4 * B * N * S * S * D, 0)[0]
+    log(f"  [ring] hop {rec['hop_ms']:.4f} ms (kernel alone {rec['ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms {rec['bound_by']}, SDPA {rec['library_ms']:.4f} ms); "
+        f"eight hops {rec['ring_ms']:.3f} ms (bound {ring_bound:.3f} ms; the whole "
+        f"sequence on one card: bound {full_bound:.2f} ms); launches {launches} on {card}")
+    del q, k, v, shards, qs, got, acc
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def ring_backward_rank_local(fa, fab, dev, card):
+    """Phase 14 (c): the ring's backward at the 1.3B training point
+    (480x832x81, batch 1, 12 heads, sp = 8: [1, 12, 4,095, 128] shards),
+    each hop through ring_attention.hop_backward (rows 5-6) against the
+    merged stats. Shard 0's dq (its eight hops) and key shard 0's dk / dv
+    (summed over the eight ranks whose q visits it) equal the full
+    fa_backward's rows. Returns (dq record, dkv record, launches)."""
+    from versecrafter_tpu_torch.kernels import ring_attention as ring
+    B, N, S = RING_TRAIN_POINT
+    n, D = S // SP_RANKS, fa.HEAD_DIM
+    recs = check_flash(fa, fab, B, N, n, n, dev, timed=True, seed=9)
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = (2.0 * torch.randn(B, N, S, D, generator=g, device=dev)).to(torch.bfloat16)
+    k, v, do = (torch.randn(B, N, S, D, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(3))
+    o, m, l = fa._fa_forward(q, k, v, None, D ** -0.5, (-1, -1), True)
+    full = fab.fa_backward(q, k, v, o, m, l, do)
+
+    def part(t, r):
+        return t[:, :, r * n:(r + 1) * n].contiguous()
+
+    fa.reset_launch_counts()
+    fab.reset_launch_counts()
+    dq = dk = dv = 0.0
+    for r in range(SP_RANKS):
+        for j in range(SP_RANKS):
+            if r != 0 and j != 0:
+                continue  # only the hops of q shard 0 and of key shard 0
+            gq, gk, gv = ring.hop_backward(part(q, r), part(k, j), part(v, j), part(o, r),
+                                           part(m[..., None], r)[..., 0],
+                                           part(l[..., None], r)[..., 0], part(do, r))
+            if r == 0:
+                dq = dq + gq.float()
+            if j == 0:
+                dk, dv = dk + gk.float(), dv + gv.float()
+    torch.cuda.synchronize()
+    launches = dict(fab.LAUNCHES)
+    errs = [agree(f"ring backward shard 0 {what} vs the full fa_backward", got, part(ref, 0))
+            for what, got, ref in (("dq", dq, full[0]), ("dk", dk, full[1]),
+                                   ("dv", dv, full[2]))]
+    recs["fa_backward_dq"]["max_abs_err"] = max(recs["fa_backward_dq"]["max_abs_err"], errs[0])
+    recs["fa_backward_dkv"]["max_abs_err"] = max(recs["fa_backward_dkv"]["max_abs_err"],
+                                                 *errs[1:])
+    log(f"  [ring bwd] per hop dQ {recs['fa_backward_dq']['ms']:.4f} ms (bound "
+        f"{recs['fa_backward_dq']['bound_ms']:.4f}), dK/dV {recs['fa_backward_dkv']['ms']:.4f} "
+        f"ms (bound {recs['fa_backward_dkv']['bound_ms']:.4f}), SDPA backward "
+        f"{recs['fa_backward_dq']['library_ms']:.4f} ms for both; launches {launches} "
+        f"on {card}")
+    del q, k, v, do, o, m, l, full, dq, dk, dv
+    torch.cuda.empty_cache()
+    return recs["fa_backward_dq"], recs["fa_backward_dkv"], launches
+
+
+def collective_bytes():
+    """Phase 14 (d): the bytes one rank sends per DiT layer at sp = 8 (bf16
+    activations; computed, not timed: one card has no link). Ulysses: four
+    all_to_alls (q, k, v in, the output back), each sending 7/8 of the
+    rank's [B, N, S/8, 128]; the ring: seven hops of the K and V shards
+    forward, and in training backward seven hops of K, V and the fp32 dK,
+    dV, plus one hop that sends dK, dV home."""
+    out = {}
+    for label, (B, N, S) in (("14B 720p CFG-2", ULYSSES_POINT), ("1.3B 480p CFG-2", RING_POINT)):
+        local = B * N * (S // SP_RANKS) * 128 * 2
+        ulysses = 4 * local * (SP_RANKS - 1) // SP_RANKS
+        ring_f = (SP_RANKS - 1) * 2 * local
+        ring_b = (SP_RANKS - 1) * (2 * local + 2 * 2 * local) + 2 * 2 * local
+        ok_u = N % SP_RANKS == 0
+        out[label] = {"ulysses": ulysses if ok_u else None, "ring_forward": ring_f,
+                      "ring_backward": ring_b}
+        log(f"  [bytes] {label}, sp = {SP_RANKS}, per layer and rank: Ulysses "
+            f"{(str(round(ulysses / 1e6, 1)) + ' MB') if ok_u else 'n/a (heads % sp != 0)'}, "
+            f"ring forward {ring_f / 1e6:.1f} MB, ring backward {ring_b / 1e6:.1f} MB")
+    return out
+
+
+def parallel_phase(fa, fab, dev, card):
+    """Phase 14: the parallel path's rank-local work on one card, (e) first
+    (the NCCL world of one, its mesh used by (a)), then (a)-(d); returns the
+    four records and their launches."""
+    t0 = time.perf_counter()
+    log("[parallel] phase 14: one rank's work at the reference's 8-GPU points")
+    mesh = nccl_world_of_one(dev)
+    try:
+        uly, n_uly = ulysses_rank_local(fa, mesh, dev, card)
+    finally:
+        torch.distributed.destroy_process_group()
+        for k_ in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k_, None)
+    hop, n_hop = ring_rank_local(fa, fab, dev, card)
+    dq, dkv, n_bwd = ring_backward_rank_local(fa, fab, dev, card)
+    collective_bytes()
+    if n_uly != 1 or n_hop != 2 * SP_RANKS or n_bwd != {
+            "fa_backward_dq": 2 * SP_RANKS - 1, "fa_backward_dkv": 2 * SP_RANKS - 1}:
+        raise AssertionError(f"phase 14 launches {n_uly} {n_hop} {n_bwd}")
+    log(f"[parallel] {time.perf_counter() - t0:.1f} s")
+    records = {"flash_attention_inference_ulysses": uly, "flash_attention_ring_hop": hop,
+               "fa_backward_dq_ring": dq, "fa_backward_dkv_ring": dkv}
+    launches = {"flash_attention_inference_ulysses": n_uly,
+                "flash_attention_ring_hop": n_hop,
+                "fa_backward_dq_ring": n_bwd["fa_backward_dq"],
+                "fa_backward_dkv_ring": n_bwd["fa_backward_dkv"]}
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3898,6 +4165,11 @@ def main() -> int:
     for k_, v in counts.items():
         launches_main[k_] = launches_main.get(k_, 0) + v
 
+    # -- 14. parallelism: one rank's work, and an NCCL world of one --------
+    recs, counts = parallel_phase(fa, fab, dev, card)
+    records.update(recs)
+    launches_main.update(counts)
+
     if failures:
         raise AssertionError("; ".join(failures))
     kernels = []
@@ -3911,7 +4183,7 @@ def main() -> int:
             **{k_: v for k_, v in rec.items()
                if k_.startswith(("cross_", "cross257_", "720p_"))
                or k_ in ("inference_ms", "inference_plain_ms", "library_note",
-                         "library_gemm_ms")}})
+                         "library_gemm_ms", "hop_ms", "ring_ms")}})
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

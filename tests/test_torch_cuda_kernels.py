@@ -607,3 +607,74 @@ def test_int8_compute_dot_on_the_card_matches_the_cpu(dev, monkeypatch, rows, K,
     got = qz.int8_compute_dot({k: v.to(dev) for k, v in leaf.items()}, x.to(dev))
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), qz.int8_compute_dot(leaf, x))
+
+
+def _ring_inputs(dev, B=1, N=2, n=333, sp=4, seed=0):
+    """Head-major q, k, v, do [B, N, sp * n, 128] bf16 (q scaled by 2:
+    peaked rows), on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (B, N, sp * n, fa.HEAD_DIM)
+    q = (2.0 * torch.randn(shape, generator=g)).to(torch.bfloat16)
+    k, v, do = (torch.randn(shape, generator=g).to(torch.bfloat16) for _ in range(3))
+    return tuple(t.to(dev) for t in (q, k, v, do))
+
+
+def _shard(t, j, n):
+    return t[:, :, j * n:(j + 1) * n].contiguous()
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_hops_match_plain(dev, sp):
+    """kernels/ring_attention.attend_shard over sp key shards of 333 rows
+    (row 4a + the merge) for q shard 0, against the same hops on the CPU
+    (the plain version): out within the bf16 bar, m and l close; a rerun
+    bit-identical."""
+    from versecrafter_tpu_torch.kernels import ring_attention as ring
+    n = 333
+    q, k, v, _ = _ring_inputs(dev, sp=sp)
+
+    def hops(q, k, v):
+        acc = None
+        for j in range(sp):
+            acc = ring.attend_shard(_shard(q, 0, n), _shard(k, j, n), _shard(v, j, n), acc)
+        return acc
+
+    got = hops(q, k, v)
+    again = hops(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = hops(q.cpu(), k.cpu(), v.cpu())
+    err, mx = _err(got[0].cpu(), ref[0])
+    assert err <= BF16_BAR * mx, (err, mx)
+    torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_backward_hops_match_plain(dev, sp):
+    """kernels/ring_attention.hop_backward (rows 5-6) for q shard 0 against
+    every key shard and for key shard 0 against every q shard, from the
+    merged stats of the whole forward, against the same hops on the CPU:
+    dq, dk, dv within the bf16 bar; a rerun bit-identical."""
+    from versecrafter_tpu_torch.kernels import ring_attention as ring
+    n = 333
+    q, k, v, do = _ring_inputs(dev, sp=sp, seed=1)
+
+    def grads(q, k, v, do):
+        o, m, l = fa._fa_forward(q, k, v, None, fa.HEAD_DIM ** -0.5, (-1, -1), True)
+        m3, l3 = m[..., None], l[..., None]
+        dq = sum(ring.hop_backward(_shard(q, 0, n), _shard(k, j, n), _shard(v, j, n),
+                                   _shard(o, 0, n), _shard(m3, 0, n)[..., 0],
+                                   _shard(l3, 0, n)[..., 0], _shard(do, 0, n))[0].float()
+                 for j in range(sp))
+        dkv = [ring.hop_backward(_shard(q, r, n), _shard(k, 0, n), _shard(v, 0, n),
+                                 _shard(o, r, n), _shard(m3, r, n)[..., 0],
+                                 _shard(l3, r, n)[..., 0], _shard(do, r, n))[1:]
+               for r in range(sp)]
+        return (dq, sum(g[0].float() for g in dkv), sum(g[1].float() for g in dkv))
+
+    got = grads(q, k, v, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(q, k, v, do)))
+    ref = grads(q.cpu(), k.cpu(), v.cpu(), do.cpu())
+    for g, r in zip(got, ref):
+        err, mx = _err(g.cpu(), r)
+        assert err <= BF16_BAR * mx, (err, mx)

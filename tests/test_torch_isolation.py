@@ -77,7 +77,8 @@ def test_the_port_imports_without_cv2_safetensors_transformers():
                  "perception.vit", "perception.dinov2", "perception.moge_head",
                  "perception.moge", "perception.sam2", "perception.sam",
                  "perception.gdino_hf", "perception.wordpiece", "perception.segmenter",
-                 "utils.mesh_export", "cli.moge_infer", "cli.segment", "cli.pipeline"):
+                 "utils.mesh_export", "cli.moge_infer", "cli.segment", "cli.pipeline",
+                 "core.mesh", "parallel.sharding", "kernels.ring_attention", "utils.cache"):
         assert f"versecrafter_tpu_torch.{name}" in names
 
 

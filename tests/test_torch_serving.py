@@ -517,25 +517,41 @@ def test_cli_moe(workdir, capsys, monkeypatch, tmp_path, source):
     assert lines[-1] == out and os.path.isfile(out)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--ring_degree", "2"], "item 11"),
-    (["--ulysses_degree", "2"], "item 11"), (["--auto_parallel"], "item 11"),
+class _Built(Exception):
+    pass
+
+
+def _refuse_build(*a, **k):
+    raise _Built()
+
+
+@pytest.mark.parametrize("flags,raised", [
+    (["--ring_degree", "2"], "needs 2 ranks, the world has 1"),
+    (["--ulysses_degree", "2"], "needs 2 ranks, the world has 1"), (["--auto_parallel"], None),
 ])
-def test_cli_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_unported_flags_raise(flags, raised, monkeypatch):
+    """The mesh flags are ported: on one process a degree > 1 is refused
+    before anything is built (the world must be the mesh), and
+    --auto_parallel resolves to the single-device path and goes on to build
+    the pipeline. The gloo worlds are in test_torch_mesh.py and
+    test_sharded_model_server_matches_one_rank."""
+    monkeypatch.setattr(tserve, "default_pipeline_factory", _refuse_build)
+    with pytest.raises(ValueError if raised else _Built, match=raised):
         tinf.main(["--rendering_maps_path", "m", "--prompt", "x", "--input_image_path", "",
                    "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "item 11"),
-                                        (["--auto_mesh"], "item 11"),
-                                        (["--staged_scale", "tiny", "--quantize_bits", "8",
-                                          "--tp", "2"], "item 11")])
-def test_model_server_unported_flags_raise(flags, item):
+@pytest.mark.parametrize("flags,raised", [
+    (["--tp", "2"], "needs 2 ranks, the world has 1"), (["--auto_mesh"], None),
+    (["--staged_scale", "tiny", "--quantize_bits", "8", "--tp", "2"],
+     "needs 2 ranks, the world has 1")])
+def test_model_server_unported_flags_raise(flags, raised, monkeypatch):
     """The JAX model server's flags parse; --staged_scale and
     --quantize_bits act only under --staged, as there (the last case gets
-    past them to --tp)."""
-    with pytest.raises(NotImplementedError, match=item):
+    past them to --tp). On one process a mesh degree > 1 is refused before
+    the server starts; --auto_mesh resolves to one device and serves."""
+    monkeypatch.setattr(tserve, "make_server", _refuse_build)
+    with pytest.raises(ValueError if raised else _Built, match=raised):
         tserve.main(["--device", "cpu", *flags])
 
 
@@ -651,9 +667,18 @@ def test_model_server_resident_weights(weights, mode, monkeypatch):
     assert seen == {"path": "m", "device": "cpu", "quantize": mode, "served": True}
 
 
-def test_api_server_auto_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_api_server_auto_mesh_raises(monkeypatch):
+    """--auto_mesh is ported: on one process it resolves to the
+    single-device pipeline (built lazily) and the server starts."""
+    seen = {}
+    real = tserve.default_pipeline_factory
+    monkeypatch.setattr(tserve, "default_pipeline_factory",
+                        lambda *a, **k: seen.update(k) or real(*a, **k))
+    monkeypatch.setattr(tapi, "make_server", _refuse_build)
+    with pytest.raises(_Built):
         tapi.main(["--device", "cpu", "--auto_mesh"])
+    assert seen["auto_mesh"] is True
+    assert tserve.resolve_mesh(None, auto=True) is None
     with pytest.raises(SystemExit):  # choices as in the JAX parser
         tserve.main(["--device", "cpu", "--quantize_bits", "2"])
 
@@ -735,3 +760,68 @@ def test_unload_frees_the_pipeline_after_a_request():
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+def test_sharded_model_server_matches_one_rank(pipes, model_server, workdir, tmp_path):
+    """A model server of two gloo ranks (sp=2, Ulysses at 2 heads; tests/
+    torch_mesh.py) started like torchrun's: rank 0 answers /health,
+    /generate, /status and /unload over HTTP and the other rank follows
+    its tasks. The served frames equal the one-rank server's within one
+    uint8 level (fp32 pipelines). The default group's limit is lowered to
+    2 s and the server sits idle for 3 s between two requests: the other
+    rank waits for the next task on the control group and serves it. An
+    unload that fails on rank 1 only fails on rank 0 too (the ranks agree
+    on each task), and the world serves on."""
+    from tests.torch_mesh import flatten, free_port, start_world, stop_world
+
+    jp, _ = pipes
+    server, url1 = model_server
+    params = _request(workdir)
+    task = _call(f"{url1}/generate", "POST", params)[1]["task_id"]
+    assert _wait(f"{url1}/status/{task}")[0]["status"] == "COMPLETED"
+    ref = server.frames[-1]
+
+    port = free_port()
+    arrays = {}
+    for name, tree in (("dit", jp.dit_params), ("vae", jp.vae_params), ("t5", jp.t5_params)):
+        arrays.update(flatten(tree, name))
+    job = {"spec": [1, 1, 2, 1], "timeout_s": 2, "serve": {
+        "port": port, "dit_cfg": dataclasses.asdict(CFG), "fail_first_unload_on": 1,
+        "vae_cfg": dataclasses.asdict(VAE_CFG), "t5_cfg": dataclasses.asdict(T5_CFG)}}
+    out = tmp_path / "out"
+    out.mkdir()
+    procs = start_world(2, job, arrays, out)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        t0 = time.monotonic()
+        while True:
+            try:
+                if _call(f"{url}/health")[1] == {"status": "ok", "model_loaded": False}:
+                    break
+            except OSError:
+                pass
+            assert all(p.poll() is None for p in procs), "a rank exited"
+            assert time.monotonic() - t0 < 60, "the server did not start"
+            time.sleep(0.2)
+        served = []
+        for _ in range(2):
+            task = _call(f"{url}/generate", "POST", params)[1]["task_id"]
+            st = _wait(f"{url}/status/{task}")[0]
+            assert st["status"] == "COMPLETED", st
+            served.append(np.load(st["result"]["video_path"]))
+            if len(served) == 1:
+                time.sleep(3)  # idle past the default group's limit
+                assert all(p.poll() is None for p in procs), "a rank exited while idle"
+        status, body = _call(f"{url}/unload", "POST")
+        assert status == 500 and "task 'unload' failed on rank(s) [1]" in body["error"], body
+        assert _call(f"{url}/health")[1]["model_loaded"] is False
+        task = _call(f"{url}/generate", "POST", params)[1]["task_id"]
+        assert _wait(f"{url}/status/{task}")[0]["status"] == "COMPLETED"
+        assert _call(f"{url}/unload", "POST")[1] == {"unloaded": True}
+    finally:
+        stop_world(procs)
+    np.testing.assert_array_equal(served[1], served[0])
+    got = served[0]
+    assert got.dtype == ref.dtype == np.uint8 and got.shape == ref.shape
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1, diff.max()

@@ -243,9 +243,102 @@ def test_cli_trains_and_saves(tmp_path):
                                        "geoada_patch_embedding"]
 
 
-@pytest.mark.parametrize("flags", [["--data_dir", "x"], ["--fsdp", "2"],
-                                   ["--dp", "2"], ["--sp", "2"],
-                                   ["--attn_impl", "xla"]])
-def test_cli_unported_options_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flags,raised", [
+    (["--data_dir", "x"], SystemExit), (["--fsdp", "2"], ValueError),
+    (["--dp", "2"], ValueError), (["--sp", "2"], ValueError),
+    (["--attn_impl", "xla"], NotImplementedError)])
+def test_cli_unported_options_raise(flags, raised, tmp_path):
+    """--data_dir is ported and, as in the JAX CLI, needs --model_name to
+    encode its clips; a mesh axis > 1 needs a world of its size (one
+    process here: refused before the model is built; the gloo worlds are
+    in test_torch_parallel.py); the port has one attention path."""
+    with pytest.raises(raised):
         tcli.main(["--tiny", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
+
+
+def _clip_dir(d, seed):
+    """A clip directory by the JAX CLI's contract: the target video, three
+    of the four control maps (3D_gaussian_RGB.mp4 missing: zero-filled),
+    the merged mask and a prompt."""
+    from test_torch_video_io import _clip
+    from versecrafter_tpu.utils import video as jvideo
+    os.makedirs(d, exist_ok=True)
+    names = ["video.mp4", "background_RGB.mp4", "background_depth.mp4",
+             "3D_gaussian_depth.mp4", "merged_mask.mp4"]
+    for i, name in enumerate(names):
+        jvideo.save_video(_clip(7, 12, 20, seed + i), os.path.join(d, name), fps=16)
+    with open(os.path.join(d, "prompt.txt"), "w") as f:
+        f.write("a car drives left\n")
+
+
+def test_data_dir_encode_clip_matches_jax(tmp_path, monkeypatch):
+    """--data_dir's _encode_clip against the JAX CLI's on the tiny fp32
+    pipelines: x0 and the prompt embedding within 1e-4 * max. Both CLIs
+    encode the control latents in bf16 (encode_controls' default), where
+    each package's VAE lies ~2 % * max from the fp32 encode (ROADMAP §3, the
+    VAE in bf16): the fp32 encodes agree within 1e-4 * max, and the port's
+    bf16 one is no farther from them than the JAX CLI's (x1.25). Each
+    package reads the other's latent_cache_{h}x{w}x{n}.npz exactly; then
+    two train steps of the CLI on a directory of a clip cached by the JAX
+    package and a clip it encodes itself."""
+    from test_torch_convert import DIR_CFG
+    from test_torch_pipeline import pipes as make_pipes
+    from versecrafter_tpu.cli import train as jcli
+    from versecrafter_tpu_torch.core import convert as tconvert
+
+    jp, tp = make_pipes.__wrapped__()
+    h, w, n = 8, 8, 5
+    for name in ("j", "t"):
+        _clip_dir(str(tmp_path / name), seed=1)
+    ref = jcli._encode_clip(jp, str(tmp_path / "j"), h, w, n)
+    got = tcli._encode_clip(tp, str(tmp_path / "t"), h, w, n)
+    for what, g, r in zip(("x0", "geo", "ctx"), got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype == np.float32, what
+        if what != "geo":
+            assert np.abs(g - r).max() <= 1e-4 * np.abs(r).max(), what
+    from versecrafter_tpu.utils.video import load_video
+    clip = str(tmp_path / "j")
+    controls = [load_video(os.path.join(clip, c), num_frames=n, size=(h, w))
+                for c in ("background_RGB.mp4", "background_depth.mp4")]
+    controls += [np.zeros_like(controls[0]),
+                 load_video(os.path.join(clip, "3D_gaussian_depth.mp4"), num_frames=n,
+                            size=(h, w))]
+    mask = load_video(os.path.join(clip, "merged_mask.mp4"), num_frames=n, size=(h, w))[:, :1]
+    geo32 = np.asarray(jp.encode_controls(controls, mask, dtype=jnp.float32)[0][0])
+    geo32_t = tp.encode_controls(controls, mask, dtype=torch.float32)[0][0].numpy()
+    scale = np.abs(geo32).max()
+    assert np.abs(geo32_t - geo32).max() <= 1e-4 * scale
+    assert np.abs(got[1] - geo32).max() <= 1.25 * np.abs(ref[1] - geo32).max()
+    cache = f"latent_cache_{h}x{w}x{n}.npz"
+    for reader, writer in ((jcli, "t"), (tcli, "j")):
+        want = np.load(str(tmp_path / writer / cache))
+        for g, key in zip(reader._encode_clip(None, str(tmp_path / writer), h, w, n),
+                          ("x0", "geo", "ctx")):
+            np.testing.assert_array_equal(g, want[key])
+
+    # the CLI: clip "a" carries the JAX package's cache, clip "b" is encoded
+    data = tmp_path / "data"
+    os.makedirs(data / "a")
+    import shutil
+    shutil.copy(str(tmp_path / "j" / cache), str(data / "a" / cache))
+    _clip_dir(str(data / "b"), seed=9)
+    # the directory's GeoAdapter takes the tiny VAE's 20 control channels
+    real = tconvert.load_versecrafter
+    monkeypatch.setattr(tconvert, "load_versecrafter", lambda path, **kw: real(
+        path, **{**kw, "geoada_in_dim": DIR_CFG.geoada_in_dim}))
+    model = _tiny_model_dir(tmp_path / "model", monkeypatch)
+    losses = tcli.main(["--data_dir", str(data), "--model_name", model, "--device", "cpu",
+                        "--steps", "2", "--sample_size", f"{h},{w}", "--video_length", str(n),
+                        "--output_dir", str(tmp_path / "out")])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert os.path.isfile(data / "b" / cache)
+    assert os.path.isfile(tmp_path / "out" / "step_000002.pt")
+
+
+def _tiny_model_dir(d, monkeypatch):
+    """test_torch_convert's tiny reference-layout directory, with both
+    packages' T5Config / VAEConfig pointed at the tiny configs."""
+    import test_torch_convert as tc
+    tc.tiny_text_and_vae.__wrapped__(monkeypatch)
+    os.makedirs(d)
+    return tc.model_dir.__wrapped__(type("F", (), {"mktemp": lambda self, name: d})())

@@ -5,6 +5,8 @@
         --save_path outputs/inference
     python -m versecrafter_tpu_torch.cli.inference --offline_smoke --smoke_scale tiny \
         --device cpu --rendering_maps_path <maps> --prompt x --input_image_path ""
+    torchrun --standalone --nproc_per_node 8 -m versecrafter_tpu_torch.cli.inference \
+        --model_name <model dir> --ulysses_degree 8 --rendering_maps_path <maps> ...
 
 The flags are the JAX package's cli/inference.py flags plus --device
 (default cuda). --model_name is a reference-layout model directory
@@ -41,8 +43,12 @@ resident: each is built where the schedule crosses to it, printing
 quantize flags as it is built. Under --staged the experts come from the
 staged factories (the high one from seed 1 or its checkpoint).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-mesh degrees > 1 and --auto_parallel.
+--ulysses_degree x --ring_degree (the sp axis) x --tp, or --auto_parallel
+(core.mesh.auto_mesh_spec of the world), shard the pipeline over a
+torchrun world of exactly that many ranks (NCCL on the card, gloo with
+--device cpu); every rank runs the request and rank 0 writes the video
+and prints. The weight flags apply before the sharding; a quantized DiT
+runs under dp / fsdp / sp only. --staged runs on one device.
 """
 
 from __future__ import annotations
@@ -109,7 +115,9 @@ def parse_args(argv=None):
                    help="int8 QK^T scoring inside the fused self-attention kernel")
     p.add_argument("--quantize_bits", type=int, default=8, choices=(8, 4),
                    help="with --quantize_int8: int8, or nibble-packed int4")
-    p.add_argument("--auto_parallel", action="store_true", help="not ported yet")
+    p.add_argument("--auto_parallel", action="store_true",
+                   help="factorise the torchrun world into (sp, tp) (core.mesh."
+                        "auto_mesh_spec)")
     p.add_argument("--offline_smoke", action="store_true",
                    help="random-weight model, tiny shapes unless the size flags are given")
     p.add_argument("--smoke_scale", type=str, default="1.3b",
@@ -184,13 +192,15 @@ def apply_weight_flags(args, pipe, quantize=True):
 def main(argv=None):
     args = parse_args(argv)
     from versecrafter_tpu_torch import resolve_device
+    from versecrafter_tpu_torch.core.mesh import check_world, spec_from_degrees, world_size
     from versecrafter_tpu_torch.serve.model_server import (
-        check_ported_serving_flags, default_pipeline_factory, run_generate_request,
-        save_generated_video)
-
-    check_ported_serving_flags(args)
+        default_pipeline_factory, resolve_mesh, run_generate_request, save_generated_video)
+    from versecrafter_tpu_torch.utils.cache import maybe_init_distributed
 
     dev = resolve_device(args.device)
+    maybe_init_distributed(dev)
+    spec = spec_from_degrees(args.ulysses_degree, args.ring_degree, args.tp)
+    check_world(spec if spec.size > 1 else None, args.auto_parallel)  # before any build
     # --offline_smoke defaults to tiny shapes, but explicit size flags win
     defaults = (64, 64, 9, 4) if args.offline_smoke else (720, 1280, 81, 50)
     h, w = ((int(x) for x in args.sample_size.split(","))
@@ -200,6 +210,8 @@ def main(argv=None):
     if args.num_inference_steps is None:
         args.num_inference_steps = defaults[3]
     if args.staged:
+        if world_size() > 1:
+            raise ValueError("--staged runs on one device")
         return _main_staged(args, h, w, dev)
 
     # without a LoRA to merge into the bf16 weights first, quantized as it loads
@@ -240,9 +252,14 @@ def main(argv=None):
         apply_weight_flags(args, pipe, quantize=load_quant is None)
     if args.int8_attention:
         pipe.enable_int8_attention()
+    # the weights as the flags left them, sharded over the world's mesh
+    pipe.set_mesh(resolve_mesh(spec if spec.size > 1 else None, args.auto_parallel,
+                               pipe.dit_cfg.num_heads, dev))
+    lead = pipe.mesh is None or pipe.mesh.rank == 0
 
     def progress(i, n):
-        print(f"denoise {i} / {n}", flush=True)
+        if lead:
+            print(f"denoise {i} / {n}", flush=True)
 
     video = run_generate_request(pipe, {
         "rendering_maps_path": args.rendering_maps_path,
@@ -255,6 +272,8 @@ def main(argv=None):
         "seed": args.seed, "fps": args.fps,
         "geoada_context_scale": args.geoada_context_scale,
     }, progress)
+    if not lead:
+        return None
     out = save_generated_video(video, {"save_path": args.save_path, "fps": args.fps})
     prof = dict(pipe.last_wall_profile, model_build=round(t_build, 2))
     print(json.dumps({"generate_wall_profile_s": prof}), flush=True)

@@ -1,7 +1,9 @@
 """umT5 encoder (text conditioning): pre-RMSNorm blocks, unscaled q.k
 attention with a per-layer bucketed relative position bias, gated-GELU FFN,
 final RMSNorm. Parameters use the JAX package's tree: [in, out] kernels, a
-list of block dicts."""
+list of block dicts. A tree sharded over a mesh
+(parallel/sharding.shard_t5_params) has each big leaf gathered at use, so
+every rank runs the whole encode from its 1/N of the weights."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from versecrafter_tpu_torch.core.config import T5Config
+from versecrafter_tpu_torch.parallel.sharding import gathered
 
 Params = Dict[str, Any]
 
@@ -55,9 +58,9 @@ def _attention(p: Params, cfg: T5Config, x, mask):
     b, s, _ = x.shape
     n = cfg.num_heads
     hd = cfg.dim_attn // n
-    q = torch.matmul(x, p["q"].to(x.dtype)).view(b, s, n, hd)
-    k = torch.matmul(x, p["k"].to(x.dtype)).view(b, s, n, hd)
-    v = torch.matmul(x, p["v"].to(x.dtype)).view(b, s, n, hd)
+    q = torch.matmul(x, gathered(p["q"]).to(x.dtype)).view(b, s, n, hd)
+    k = torch.matmul(x, gathered(p["k"]).to(x.dtype)).view(b, s, n, hd)
+    v = torch.matmul(x, gathered(p["v"]).to(x.dtype)).view(b, s, n, hd)
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
     bias = _position_bias(p["rel_bias"], s, s, cfg.num_buckets,
                           cfg.rel_pos_max_distance).float()
@@ -66,20 +69,20 @@ def _attention(p: Params, cfg: T5Config, x, mask):
         scores = scores.masked_fill(~(mask[:, None, None, :] > 0), -1e9)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bnqk,bknd->bqnd", w, v).reshape(b, s, -1)
-    return torch.matmul(out, p["o"].to(out.dtype))
+    return torch.matmul(out, gathered(p["o"]).to(out.dtype))
 
 
 def _ffn(p: Params, x):
-    gate = F.gelu(torch.matmul(x, p["wi_0"].to(x.dtype)), approximate="tanh")
-    h = gate * torch.matmul(x, p["wi_1"].to(x.dtype))
-    return torch.matmul(h, p["wo"].to(h.dtype))
+    gate = F.gelu(torch.matmul(x, gathered(p["wi_0"]).to(x.dtype)), approximate="tanh")
+    h = gate * torch.matmul(x, gathered(p["wi_1"]).to(x.dtype))
+    return torch.matmul(h, gathered(p["wo"]).to(h.dtype))
 
 
 @torch.no_grad()
 def t5_encode(params: Params, cfg: T5Config, input_ids: torch.Tensor,
               attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, L] token ids -> [B, L, dim] encoder states."""
-    x = params["embed"][input_ids.long()]
+    x = gathered(params["embed"])[input_ids.long()]
     for blk in params["blocks"]:
         h = t5_layer_norm(x, blk["norm1"], cfg.eps)
         x = x + _attention(blk["attn"], cfg, h, attention_mask)

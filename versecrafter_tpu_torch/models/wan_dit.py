@@ -30,6 +30,15 @@ to the activations' dtype first. calibrate=True records each block's
 per-tensor activation absmax at every W8A8 site (the stats fit_act_scales
 takes). A LoRA (utils/lora.py) enters wan_dit_blocks as per-block factors
 whose effective kernels are formed inside each (rematerialised) block.
+
+Under a mesh (parallel/sharding.mesh_context with more than one rank) the
+blocks take this rank's [B/dp, S/sp, D] token slice and the head gathers
+the whole prediction back. Attention then takes the JAX package's
+sequence-parallel path (`attn_impl == "sp"`): separate q/k RMSNorm and RoPE
+passes, then sharding.sequence_parallel_attention (Ulysses or the ring) and
+sp_cross_attention over the plain flash kernel, never the fused kernel. The
+projections are tensor-parallel over tp and gathered over fsdp
+(sharding.tp_linear), the q/k norm statistic summed over tp.
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ from versecrafter_tpu_torch.kernels.flash_attention import (
     fused_rope_rms_attention, prepare_fused_rope_tables)
 from versecrafter_tpu_torch.kernels.matmul_stat import linear_rstat
 from versecrafter_tpu_torch.kernels.norms import layer_norm, rms_norm
+from versecrafter_tpu_torch.kernels.rope import apply_rope
+from versecrafter_tpu_torch.parallel import sharding as shd
 from versecrafter_tpu_torch.utils import quantize as qz
 from versecrafter_tpu_torch.utils.lora import block_factors, lora_block
 
@@ -75,7 +86,7 @@ FFN_CHUNK_ROWS = 65_520
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     k = p["kernel"]
     if not isinstance(k, dict):
-        y = torch.matmul(x, k.to(x.dtype))
+        y = torch.matmul(x, shd.gathered(k).to(x.dtype))
     elif qz.is_compute_tagged(k):
         y = qz.int8_compute_dot(k, x)
     else:  # storage-only: weight-only dequant to the activations' dtype
@@ -90,6 +101,9 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if shd.active_mesh() is not None:  # ffn_in column-, ffn_out row-parallel over tp
+        return shd.tp_linear(p["ffn_out"], _gelu_tanh(shd.tp_linear(p["ffn_in"], x, "col")),
+                             "row")
     return _linear(p["ffn_out"], _gelu_tanh(_linear(p["ffn_in"], x)))
 
 
@@ -320,7 +334,55 @@ def _plain_kernel(p: Params) -> bool:
     return isinstance(p["kernel"], torch.Tensor)
 
 
+def _heads_local(x, hd: int):
+    """[B, S, n*hd] (this rank's heads) -> head-major [B, n, S, hd]."""
+    return _heads(x, x.shape[-1] // hd)
+
+
+def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig):
+    """The sequence-parallel self-attention of this rank's token slice
+    and tp slice of heads: separate norm and RoPE passes (cos / sin are the
+    slice's rows), then Ulysses or the ring."""
+    hd = cfg.head_dim
+    q = shd.tp_linear(p["q"], x, "col")
+    k = shd.tp_linear(p["k"], x, "col")
+    v = shd.tp_linear(p["v"], x, "col")
+    if cfg.qk_norm:
+        q = shd.tp_rms_norm(q, p["norm_q"]["scale"], cfg.eps, cfg.dim)
+        k = shd.tp_rms_norm(k, p["norm_k"]["scale"], cfg.eps, cfg.dim)
+    b, s, _ = q.shape
+    q = apply_rope(q.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
+    k = apply_rope(k.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
+    out = shd.sequence_parallel_attention(q, k, _heads_local(v, hd),
+                                          window_size=cfg.window_size)
+    return shd.tp_linear(p["o"], _merge_heads(out), "row")
+
+
+def _sp_cross_attention(p: Params, x, context, cfg: WanDiTConfig, context_img=None):
+    """The sequence-parallel cross-attention: each token slice against the
+    whole context (and the i2v image tokens), tp slices of heads."""
+    hd = cfg.head_dim
+    q = shd.tp_linear(p["q"], x, "col")
+    k = shd.tp_linear(p["k"], context, "col")
+    v = shd.tp_linear(p["v"], context, "col")
+    if cfg.qk_norm:
+        q = shd.tp_rms_norm(q, p["norm_q"]["scale"], cfg.eps, cfg.dim)
+        k = shd.tp_rms_norm(k, p["norm_k"]["scale"], cfg.eps, cfg.dim)
+    qh = _heads_local(q, hd)
+    out = shd.sp_cross_attention(qh, _heads_local(k, hd), _heads_local(v, hd))
+    if context_img is not None:
+        k_img = shd.tp_linear(p["k_img"], context_img, "col")
+        if cfg.qk_norm:
+            k_img = shd.tp_rms_norm(k_img, p["norm_k_img"]["scale"], cfg.eps, cfg.dim)
+        v_img = shd.tp_linear(p["v_img"], context_img, "col")
+        out = out + shd.sp_cross_attention(qh, _heads_local(k_img, hd),
+                                           _heads_local(v_img, hd))
+    return shd.tp_linear(p["o"], _merge_heads(out), "row")
+
+
 def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=None):
+    if shd.active_mesh() is not None:
+        return _sp_self_attention(p, x, cos, sin, cfg)
     if calib is not None:
         calib["self_attn/q/kernel"] = calib["self_attn/k/kernel"] = \
             calib["self_attn/v/kernel"] = _amax(x)
@@ -348,6 +410,8 @@ def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=Non
 
 def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
                      context_img=None):
+    if shd.active_mesh() is not None:
+        return _sp_cross_attention(p, x, context, cfg, context_img)
     if calib is not None:
         calib["cross_attn/q/kernel"] = _amax(x)
         calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
@@ -401,8 +465,10 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     utils/quantize.COMPUTE_SITES). lora: (this block's factors, scale), whose
     effective kernels are formed here, inside any rematerialisation.
     context_img: the i2v image tokens [B, N_img, D] of a base block."""
+    mesh = shd.active_mesh()
     if lora is not None:
-        p = lora_block(p, *lora)
+        # the LoRA delta applies to the whole kernels
+        p = lora_block(_gathered_tree(p) if mesh is not None else p, *lora)
     dtype = x.dtype
     e = p["modulation"][None].float() + e0
     tmp = layer_norm(x, eps=cfg.eps).float()
@@ -418,16 +484,23 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     tmp = (tmp * (1.0 + e[:, 4][:, None]) + e[:, 3][:, None]).to(dtype)
     if calib is None and tmp.shape[0] * tmp.shape[1] > FFN_CHUNK_ROWS:
         y = _ffn_chunked(p, tmp)
+    elif calib is None:
+        y = _ffn(p, tmp)
     else:
         h = _gelu_tanh(_linear(p["ffn_in"], tmp))
-        if calib is not None:
-            calib["ffn_in/kernel"] = _amax(tmp)
-            calib["ffn_out/kernel"] = _amax(h)
+        calib["ffn_in/kernel"] = _amax(tmp)
+        calib["ffn_out/kernel"] = _amax(h)
         y = _linear(p["ffn_out"], h)
         # the [rows, ffn_dim] hidden (1.69 GiB at the 14B's 65,520 rows)
         # must not stay alive through the fp32 residual below
         del h
     return (x.float() + y.float() * e[:, 5][:, None]).to(dtype)
+
+
+def _gathered_tree(p):
+    if isinstance(p, dict):
+        return {k: _gathered_tree(v) for k, v in p.items()}
+    return shd.gathered(p)
 
 
 def wan_dit_e0(params: Params, cfg: WanDiTConfig, t: torch.Tensor):
@@ -555,7 +628,16 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     to."""
     if calibrate and remat:
         raise ValueError("calibrate is inference-only (stats escape remat)")
-    rope_i = prepare_fused_rope_tables(cos, sin)
+    if shd.active_mesh() is not None:
+        # x is this rank's token slice: the per-row inputs and the RoPE
+        # tables follow it
+        if calibrate:
+            raise ValueError("calibrate runs on one rank, not under a mesh")
+        e0, context, context_img = (shd.local_rows(t) for t in (e0, context, context_img))
+        cos, sin = shd.local_seq(cos), shd.local_seq(sin)
+        rope_i = None
+    else:
+        rope_i = prepare_fused_rope_tables(cos, sin)
     blocks = params["blocks"]
     bcals = [{} if calibrate else None for _ in blocks]
 
@@ -591,12 +673,14 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
 
 
 def wan_dit_head(params: Params, cfg: WanDiTConfig, x, e, grid):
-    """Final AdaLN head + unpatchify."""
+    """Final AdaLN head + unpatchify. Under a mesh x is this rank's token
+    slice: the head runs on it and its output is gathered whole."""
     hp = params["head"]
-    em = hp["modulation"][None].float() + e[:, None].float()
+    em = hp["modulation"][None].float() + shd.local_rows(e)[:, None].float()
     xn = layer_norm(x, eps=cfg.eps).float()
     xn = (xn * (1.0 + em[:, 1][:, None]) + em[:, 0][:, None]).to(x.dtype)
-    return unpatchify(_linear(hp["head"], xn), grid, cfg.patch_size, cfg.out_dim)
+    out = shd.gather_tokens(_linear(hp["head"], xn))
+    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
 
 @torch.no_grad()
@@ -615,7 +699,8 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
                                                       clip_fea, y_camera)
     gtokens = None
     if geoada_context is not None and cfg.has_geoadapter:
-        gtokens = geoada_patch_embedding(params, cfg, geoada_context)
+        gtokens = shd.constrain_tokens(geoada_patch_embedding(params, cfg, geoada_context))
+    tokens = shd.constrain_tokens(tokens)
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos.to(x.device),
                             sin.to(x.device), ctx,
                             geoada_tokens=gtokens, geoada_scale=geoada_scale,

@@ -1,7 +1,7 @@
-"""Flow-matching training step for the Wan DiT + GeoAdapter on one device.
+"""Flow-matching training step for the Wan DiT + GeoAdapter.
 
-The counterpart of the JAX package's parallel/train_step.py without the
-mesh: rectified-flow loss, a frozen Wan backbone with a trainable GeoAdapter
+The counterpart of the JAX package's parallel/train_step.py: rectified-flow
+loss, a frozen Wan backbone with a trainable GeoAdapter
 branch (or the whole model), block rematerialisation, and
 torch.optim.AdamW, whose update equals optax.adamw's (decoupled weight decay
 on the pre-update parameter, bias-corrected moments, eps outside the square
@@ -10,6 +10,13 @@ JAX loss does (utils/prng.py: split, then uniform and normal), so the same
 key gives both packages the same draws; a test may pass them explicitly.
 make_lora_train_step trains LoRA factors (utils/lora.py) over a frozen
 base tree instead.
+
+Under a mesh (called inside parallel/sharding.mesh_context, the tree from
+shard_dit_params) every rank draws the whole sig and noise from the key,
+embeds the whole batch and keeps its [B/dp, S/sp] token slice; the head
+gathers the prediction, so the loss is the global mean on every rank. The
+gradients are summed over dp and sp (sharding.sync_grads) and the
+optimizer updates each rank's own slices.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 from versecrafter_tpu_torch.core.config import WanDiTConfig
 from versecrafter_tpu_torch.models.wan_dit import (
     geoada_patch_embedding, wan_dit_blocks, wan_dit_embed, wan_dit_head)
+from versecrafter_tpu_torch.parallel.sharding import constrain_tokens, sync_grads
 from versecrafter_tpu_torch.utils import prng
 
 Params = Dict[str, Any]
@@ -48,9 +56,10 @@ def flow_matching_loss(params: Params, cfg: WanDiTConfig, x0, context, cos, sin,
     x_sig = (1.0 - sb) * x0 + sb * noise
     target = noise - x0
     tokens, e, e0, ctx, _, grid = wan_dit_embed(params, cfg, x_sig, sig * 1000.0, context)
+    tokens = constrain_tokens(tokens)
     gtok = None
     if geoada_context is not None and cfg.has_geoadapter:
-        gtok = geoada_patch_embedding(params, cfg, geoada_context)
+        gtok = constrain_tokens(geoada_patch_embedding(params, cfg, geoada_context))
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos, sin, ctx,
                             geoada_tokens=gtok, remat=remat, lora=lora)
     pred = wan_dit_head(params, cfg, tokens, e, grid)
@@ -98,6 +107,10 @@ def _sig_noise(key, sig, noise, x0):
     return sig.to(x0.device), noise.to(x0.device)
 
 
+def _optimized(optimizer):
+    return [t for g in optimizer.param_groups for t in g["params"]]
+
+
 def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
     """train_step(params, x0, context, cos, sin, geoada_context=None,
     key=None, sig=None, noise=None) -> loss: one optimizer step on the
@@ -112,6 +125,7 @@ def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
         loss = flow_matching_loss(params, cfg, x0, context, cos, sin,
                                   geoada_context, sig, noise)
         loss.backward()
+        sync_grads(_optimized(optimizer))
         optimizer.step()
         return loss.detach()
 
@@ -139,6 +153,7 @@ def make_lora_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
         loss = flow_matching_loss(base_params, cfg, x0, context, cos, sin,
                                   geoada_context, sig, noise, lora=(lora, lora_scale))
         loss.backward()
+        sync_grads(_optimized(optimizer))
         optimizer.step()
         return loss.detach()
 

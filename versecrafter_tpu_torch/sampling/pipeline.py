@@ -19,12 +19,20 @@ held. The base-Wan conditioning: i2v `y` latents, CLIP image tokens
 camera maps (`camera_video`), subject reference frames prepended on the
 time axis, and a masked init video (`video=`).
 
-Not ported yet: the device mesh (ROADMAP queue 1, item 11).
+Under a mesh (core/mesh.make_mesh; set_mesh) each rank is one process of a
+torchrun world: the DiT is sharded over (fsdp, tp), umT5 FSDP-sharded over
+every axis and gathered at use, the VAE and CLIP tower whole on every rank,
+and the DiT's tokens split over (dp, sp) (parallel/sharding.py). Each rank
+draws the whole noise from the seed and ends every step with the whole
+prediction, so the scheduler, the CFG combine and TeaCache's decision (from
+the replicated e0) run the same on every rank; only the cached residual is
+split like the tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import math
 import queue
@@ -44,6 +52,7 @@ from versecrafter_tpu_torch.models.vae import vae_decode, vae_encode
 from versecrafter_tpu_torch.models.vae_stream import vae_decode_stream, vae_encode_chunked
 from versecrafter_tpu_torch.models.wan_dit import (
     geoada_patch_embedding, wan_dit_blocks, wan_dit_e0, wan_dit_embed, wan_dit_head)
+from versecrafter_tpu_torch.parallel import sharding as shd
 from versecrafter_tpu_torch.sampling import teacache as tc
 from versecrafter_tpu_torch.sampling.schedulers import make_scheduler
 from versecrafter_tpu_torch.utils import lora as lora_utils
@@ -74,6 +83,15 @@ def cfg_combine(uncond: torch.Tensor, cond: torch.Tensor,
     predictions' difference unrounded)."""
     g = float(np.float32(guidance_scale))
     return uncond.float() + g * (cond.float() - uncond.float())
+
+
+def _under_mesh(fn):
+    """Run a pipeline method inside the pipeline's mesh context."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with self._mesh_ctx():
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 def _to_device(tree, device):
@@ -129,6 +147,8 @@ class VerseCrafterPipeline:
     # that ran the blocks); teacache_record: set by record_teacache_stats
     teacache_debug: bool = False
     teacache_record: Any = None
+    # a core.mesh.Mesh over the torchrun world (set_mesh), or None
+    mesh: Any = None
 
     # above this many voxels a video goes through the streaming VAE
     VAE_STREAM_THRESHOLD = 1 << 24
@@ -146,6 +166,33 @@ class VerseCrafterPipeline:
                                       self.dit_cfg.rope_theta)
         self.teacache_accum_history = []
         self.last_wall_profile: Dict[str, float] = {}
+        if self.mesh is not None:
+            self.set_mesh(self.mesh)
+
+    def set_mesh(self, mesh):
+        """Shard the pipeline onto a mesh: the DiT (each expert) over (fsdp,
+        tp), umT5 over every axis, the VAE and CLIP whole; the DiT's
+        attention then takes the sequence-parallel path. A mesh of one rank
+        (or None) is the single-device pipeline."""
+        self.mesh = mesh
+        if mesh is None or mesh.size == 1:
+            return
+        shd.check_dit_mesh(self.dit_cfg, mesh, self.dit_params, self.dit_params_high)
+        for name in ("dit_params", "dit_params_high"):
+            if getattr(self, name) is not None:
+                setattr(self, name, shd.shard_dit_params(getattr(self, name), mesh))
+        if self.t5_params is not None:
+            self.t5_params = shd.shard_t5_params(self.t5_params, mesh)
+
+    def _mesh_ctx(self):
+        return shd.mesh_context(self.mesh if self.mesh is not None and self.mesh.size > 1
+                                else None)
+
+    @_under_mesh
+    def _shard_tea_state(self, state: tc.TeaCacheState) -> tc.TeaCacheState:
+        """This rank's TeaCache state: the residual split like the tokens,
+        the per-row statistics whole."""
+        return state._replace(prev_residual=shd.constrain_tokens(state.prev_residual))
 
     # -- runtime toggles (the JAX pipeline's enable_* surface) -------------
     def enable_teacache(self, threshold: float, skip_start: int = 5,
@@ -228,6 +275,8 @@ class VerseCrafterPipeline:
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
                 self.dit_params = _to_device(self.expert_swap(want), self.device)
+                if self.mesh is not None and self.mesh.size > 1:
+                    self.dit_params = shd.shard_dit_params(self.dit_params, self.mesh)
                 self._resident_expert = want
         if self.dit_params_high is not None and sigma >= self.moe_boundary:
             return self.dit_params_high
@@ -248,6 +297,8 @@ class VerseCrafterPipeline:
         rel_residual that of the blocks residual. Under sequential CFG only
         the cond branch is recorded. Takes __call__'s arguments; the latents
         it produced are kept as last_record_latents."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError("record_teacache_stats runs on one rank, not under a mesh")
         self.teacache_record = []
         old_thresh, old_skip = self.teacache_threshold, self.cfg_skip_ratio
         self.teacache_threshold = 0.0
@@ -279,6 +330,7 @@ class VerseCrafterPipeline:
         return self.encode_texts(negs + prompts)
 
     @torch.no_grad()
+    @_under_mesh
     def encode_texts(self, texts) -> torch.Tensor:
         """-> [len(texts), text_len, text_dim], one T5 pass."""
         toks = self.tokenizer(list(texts), max_length=self.t5_cfg.text_length)
@@ -332,6 +384,7 @@ class VerseCrafterPipeline:
         return torch.cat([zs, m], dim=1), n_ref
 
     @torch.no_grad()
+    @_under_mesh
     def denoise_step(self, latents, t: float, context, geoada_context, cos, sin,
                      guidance_scale: float, geoada_scale: float, use_cfg: bool,
                      blocks: Optional[Callable] = None, extras=None, params=None):
@@ -343,7 +396,8 @@ class VerseCrafterPipeline:
         and the head. extras: the step-invariant conditioning {"y",
         "clip_fea", "y_camera"} of the batch (duplicated over both CFG
         halves: CFG applies to the text only). params: the expert to run
-        (default dit_params)."""
+        (default dit_params). Under a mesh the blocks run on this rank's
+        token slice and the prediction comes back whole."""
         extras = extras or {}
         if use_cfg:
             x = torch.cat([latents, latents], dim=0)
@@ -360,6 +414,7 @@ class VerseCrafterPipeline:
         tokens, e, e0, ctx_e, ctx_img, grid = wan_dit_embed(
             p, cfg, x, tvec, ctx, extras.get("clip_fea"), extras.get("y_camera"))
         gtok = geoada_patch_embedding(p, cfg, g) if cfg.has_geoadapter else None
+        tokens, gtok = shd.constrain_tokens(tokens), shd.constrain_tokens(gtok)
         cos, sin = cos.to(x.device), sin.to(x.device)
 
         def run(tk):
@@ -374,6 +429,7 @@ class VerseCrafterPipeline:
         return pred
 
     @torch.no_grad()
+    @_under_mesh
     def __call__(
         self,
         prompt=None,
@@ -649,9 +705,11 @@ class Denoiser:
             seq = -(-seq_len // tc.RECORD_SUBSAMPLE_STRIDE)
         self.states = {}
         if self.tea:
-            self.states["c"] = tc.init_state(rows, seq, dim, dtype, device=pipe.device)
+            self.states["c"] = pipe._shard_tea_state(
+                tc.init_state(rows, seq, dim, dtype, device=pipe.device))
             if self.seq_cfg:
-                self.states["u"] = tc.init_state(batch, seq, dim, dtype, device=pipe.device)
+                self.states["u"] = pipe._shard_tea_state(
+                    tc.init_state(batch, seq, dim, dtype, device=pipe.device))
         self.hosts = ({"c": tc.HostTeaState(batch, dim), "u": tc.HostTeaState(batch, dim)}
                       if self.host_gated else None)
 

@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from versecrafter_tpu_torch.parallel.sharding import local_rows
+
 # rescale polynomial for Wan / VerseCrafter 14B, highest power first
 VERSECRAFTER_COEFFS = (
     8.10705460e03, 2.13393892e03, -3.72934672e02, 1.66203073e01, -4.17769401e-02
@@ -159,7 +161,8 @@ def apply_gate(run_blocks: Callable[[torch.Tensor], torch.Tensor],
     del diff
     if bool(calc.all()):
         return fresh, new_res
-    sel = should_calc.to(tokens.device)[:, None, None]
+    # the decision is over every row; under a mesh tokens hold this rank's
+    sel = local_rows(should_calc.to(tokens.device))[:, None, None]
     out = torch.where(sel, fresh, tokens + _load_residual(prev_residual, tokens.dtype))
     if quantized:
         return out, {k: torch.where(sel, new_res[k], prev_residual[k]) for k in new_res}

@@ -83,6 +83,11 @@ class ApiServer:
         self.device = device
         self._pipeline = None
         self._pipeline_factory = pipeline_factory
+        # a torchrun world's in-process model: the other ranks run what this
+        # one announces (serve.model_server.RankTasks)
+        from versecrafter_tpu_torch.serve.model_server import RankTasks
+        self.ranks = RankTasks(loaded=lambda: self._pipeline is not None,
+                               drop=self._drop_pipeline)
         self._loading_lock = threading.Lock()
         self._model_loading = False
         self._model_load_error: Optional[str] = None
@@ -91,7 +96,11 @@ class ApiServer:
     def _load_pipeline_locked(self):
         from versecrafter_tpu_torch.serve.model_server import default_pipeline_factory
         factory = self._pipeline_factory or default_pipeline_factory(device=self.device)
-        self._pipeline = factory()
+        with self.ranks.task("load"):
+            self._pipeline = factory()
+
+    def _drop_pipeline(self):
+        self._pipeline = None
 
     def start_model_loading_async(self):
         """Loads the in-process pipeline on a background thread (progress in
@@ -125,7 +134,7 @@ class ApiServer:
     def unload_model(self) -> dict:
         """Drops the in-process pipeline and returns the device's cached
         blocks; the next generate loads it again."""
-        with self._loading_lock:
+        with self._loading_lock, self.ranks.task("unload"):
             was_loaded = self._pipeline is not None
             self._pipeline = None
             self._model_load_error = None
@@ -328,7 +337,8 @@ class ApiServer:
         def progress(i, n):
             self.tasks.update(task_id, progress=int(100 * i / n), message=f"step {i}/{n}")
 
-        video = run_generate_request(self._pipeline, params, progress)
+        with self.ranks.task("generate", params):
+            video = run_generate_request(self._pipeline, params, progress)
         out = save_generated_video(video, params, params["save_path"])
         self.tasks.update(task_id, status=COMPLETED, progress=100,
                           result={"video_path": os.path.relpath(out, self.workdir)})
@@ -614,7 +624,9 @@ def main(argv=None):
     p.add_argument("--model_path", default=None,
                    help="reference-layout model directory for the in-process tier")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--auto_mesh", action="store_true", help="not ported yet")
+    p.add_argument("--auto_mesh", action="store_true",
+                   help="shard the in-process model over the torchrun world "
+                        "(core.mesh.auto_mesh_spec of its size); rank 0 serves")
     p.add_argument("--preload_model", action="store_true",
                    help="load the in-process model in the background at start-up "
                         "(progress at /api/model_status)")
@@ -629,14 +641,18 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from versecrafter_tpu_torch import resolve_device
-    from versecrafter_tpu_torch.serve.model_server import (
-        check_ported_serving_flags, default_pipeline_factory)
-    check_ported_serving_flags(args)
-    resolve_device(args.device)
+    from versecrafter_tpu_torch.serve.model_server import RankTasks, default_pipeline_factory
+    from versecrafter_tpu_torch.utils.cache import maybe_init_distributed
+    maybe_init_distributed(resolve_device(args.device))
+    factory = default_pipeline_factory(args.model_path, device=args.device,
+                                       auto_mesh=args.auto_mesh)
+    ranks = RankTasks()
+    if ranks.rank > 0:  # the in-process model's other ranks
+        ranks.follow(factory)
+        return
     server = ApiServer(workdir=args.workdir,
                        model_server_url=args.model_server_url,
-                       pipeline_factory=default_pipeline_factory(args.model_path,
-                                                                 device=args.device),
+                       pipeline_factory=factory,
                        unload_after_generate=args.unload_after_generate,
                        subprocess_fallback=args.subprocess_fallback,
                        subprocess_model_args=shlex.split(args.subprocess_model_args),
@@ -646,7 +662,10 @@ def main(argv=None):
     httpd = make_server(build_router(server), args.host, args.port)
     print(f"api server on {args.host}:{args.port} (workdir {server.workdir}, "
           f"{args.device})", flush=True)
-    httpd.serve_forever()
+    try:
+        httpd.serve_forever()
+    finally:
+        server.ranks.shutdown()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,8 @@ Endpoints:
 
     python -m versecrafter_tpu_torch.serve.model_server --model_path <dir> --port 8191
     python -m versecrafter_tpu_torch.serve.model_server --staged --staged_scale 14b
+    torchrun --standalone --nproc_per_node 8 -m versecrafter_tpu_torch.serve.model_server \
+        --model_path <dir> --ulysses_degree 8
 
 A request names a control-map directory by the reference's file contract
 (load_request_inputs); reading its mp4s needs OpenCV (utils/video.py).
@@ -23,11 +25,21 @@ With --staged the host keeps a shell pipeline and builds and frees each
 component per request stage (sampling/staged.py: umT5, the VAE, the DiT in
 --quantize_bits with W8A8 / W4A8 compute); a request's `cfg_parallel` pins
 batched or sequential CFG, else the card's memory model picks.
+
+Under torchrun (one process per GPU, --ulysses_degree x --ring_degree x
+--tp ranks, or --auto_mesh) the pipeline is sharded over the world's mesh
+(resolve_mesh, sampling/pipeline.set_mesh). Rank 0 owns HTTP and the
+queue and announces each task (load, generate, unload, shutdown) to the
+other ranks before it runs it (RankTasks, on the world's control group, so
+the other ranks may wait for the next request however long the server sits
+idle); every rank runs it, the ranks agree on whether it succeeded, and
+rank 0 saves the video.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import os
@@ -42,12 +54,13 @@ import torch
 from versecrafter_tpu_torch import resolve_device
 from versecrafter_tpu_torch.core.config import (
     T5Config, VAEConfig, WAN21_1_3B, WanDiTConfig, versecrafter_14b)
+from versecrafter_tpu_torch.core.mesh import (
+    auto_mesh_spec, check_world, make_mesh, spec_from_degrees, world_size)
 from versecrafter_tpu_torch.serve.http import Router, make_server
 from versecrafter_tpu_torch.serve.tasks import COMPLETED, FAILED, RUNNING, TaskRegistry
 
 CONTROL_NAMES = ["background_RGB.mp4", "background_depth.mp4",
                  "3D_gaussian_RGB.mp4", "3D_gaussian_depth.mp4"]
-MESH = "(ROADMAP queue 1, item 11: parallelism)"
 # the model server's --resident_weights -> default_pipeline_factory's
 # quantize (bits, int8_compute)
 RESIDENT_WEIGHTS = {"bf16": None, "int8": (8, False), "int4": (4, False),
@@ -93,11 +106,25 @@ def build_dit(cfg: WanDiTConfig, seed: int, device=None, dtype=torch.bfloat16):
     return init_wan_dit(cfg, torch.Generator(device=dev).manual_seed(seed), dtype)
 
 
+def resolve_mesh(mesh_spec=None, auto: bool = False, num_heads: int = 40, device=None):
+    """The serving mesh over the torchrun world: mesh_spec, or with `auto`
+    auto_mesh_spec(world size, num_heads). None for one device. A world of
+    another size than the mesh raises ValueError (core.mesh.check_world),
+    as does a world of several ranks with no mesh to put them on."""
+    if auto and mesh_spec is None:
+        mesh_spec = auto_mesh_spec(world_size(), num_heads=num_heads)
+    check_world(mesh_spec)
+    if mesh_spec is None or mesh_spec.size == 1:
+        return None
+    return make_mesh(mesh_spec, resolve_device(device))
+
+
 def default_pipeline_factory(model_path: Optional[str] = None,
                              dtype_name: str = "bfloat16",
                              scale: str = "1.3b", device=None, seed: int = 0,
                              with_dit: bool = True, moe: bool = False,
-                             quantize: Optional[Tuple[int, bool]] = None):
+                             quantize: Optional[Tuple[int, bool]] = None,
+                             mesh_spec=None, auto_mesh: bool = False):
     """A factory of the pipeline, built on the device when called: from the
     reference-layout checkpoint directory `model_path`
     (core.convert.load_versecrafter, weights in `dtype_name`; an expert
@@ -111,7 +138,9 @@ def default_pipeline_factory(model_path: Optional[str] = None,
     next one is made (utils/quantize.quantize_dit, dynamic activation
     scales): the pipeline then serves that mode for its life, as after a
     request that asked for it (run_loaded_request). with_dit=False leaves
-    the DiT out (dit_params None: the shell an expert_swap fills)."""
+    the DiT out (dit_params None: the shell an expert_swap fills).
+    mesh_spec / auto_mesh shard the pipeline over the torchrun world
+    (resolve_mesh): every rank calls the factory."""
     if model_path:
         def load():
             from versecrafter_tpu_torch.core.convert import load_versecrafter
@@ -119,6 +148,7 @@ def default_pipeline_factory(model_path: Optional[str] = None,
                                      device=device, load_dit_params=with_dit,
                                      quantize=quantize)
             pipe._quantized = quantize
+            pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, pipe.dit_cfg.num_heads, device))
             return pipe
         return load
     cfg, vae_cfg, t5_cfg = pipeline_configs(scale)
@@ -154,6 +184,7 @@ def default_pipeline_factory(model_path: Optional[str] = None,
             device=dev,
         )
         pipe._quantized = quantize
+        pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, cfg.num_heads, dev))
         return pipe
     return factory
 
@@ -335,13 +366,116 @@ def save_generated_video(video: np.ndarray, params: dict,
     return path
 
 
+class RankTasks:
+    """The model's tasks in a torchrun world. Rank 0 announces each one,
+    (op, params) with op in load / generate / unload / shutdown, before it
+    runs it (task()), and the other ranks run the same ones in follow().
+    Announcements travel on utils/cache.control_group(), whose timeout
+    covers any idle time. After each task every rank reports whether it
+    succeeded and whether it holds the pipeline: rank 0 fails the task when
+    any rank failed, and where the ranks disagree on the pipeline each drops
+    its own, so the next task builds it on all of them. `lock` keeps one
+    announced task at a time on rank 0 (its collectives must not
+    interleave). loaded / drop: rank 0's pipeline, held by its server. One
+    process: no announcements."""
+
+    def __init__(self, loaded: Callable[[], bool] = lambda: False,
+                 drop: Callable[[], None] = lambda: None):
+        import torch.distributed as dist
+        self.world = world_size()
+        self.rank = dist.get_rank() if self.world > 1 else 0
+        self.lock = threading.RLock()
+        self._loaded, self._drop = loaded, drop
+
+    def _send(self, op: str, params: Optional[dict] = None) -> None:
+        import torch.distributed as dist
+        from versecrafter_tpu_torch.utils.cache import control_group
+        dist.broadcast_object_list([(op, params)], src=0, group=control_group())
+
+    def _receive(self):
+        import torch.distributed as dist
+        from versecrafter_tpu_torch.utils.cache import control_group
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=control_group())
+        return box[0]
+
+    def _agree(self, ok: bool, loaded: bool):
+        """Every rank's outcome of the last task -> (the ranks where it
+        failed, whether the ranks disagree on holding the pipeline)."""
+        import torch.distributed as dist
+        from versecrafter_tpu_torch.utils.cache import control_group
+        states = [None] * self.world
+        dist.all_gather_object(states, (ok, loaded), group=control_group())
+        return ([r for r, (good, _) in enumerate(states) if not good],
+                len({held for _, held in states}) > 1)
+
+    @contextlib.contextmanager
+    def task(self, op: str, params: Optional[dict] = None):
+        """Rank 0 runs the body as task `op`: announced first, agreed on
+        after. RuntimeError when it failed on another rank only."""
+        with self.lock:
+            if self.world == 1:
+                yield
+                return
+            self._send(op, params)
+            ok = False
+            try:
+                yield
+                ok = True
+            finally:
+                failed, mixed = self._agree(ok, self._loaded())
+                if mixed:
+                    self._drop()
+            if failed:
+                raise RuntimeError(f"task {op!r} failed on rank(s) {failed}")
+
+    def shutdown(self) -> None:
+        """Rank 0 ends every other rank's follow()."""
+        with self.lock:
+            if self.world > 1:
+                self._send("shutdown")
+
+    def follow(self, pipeline_factory: Callable[[], Any], staged_factories=None) -> None:
+        """A rank > 0: run rank 0's tasks until it announces shutdown."""
+        pipe = None
+        while True:
+            op, params = self._receive()
+            if op == "shutdown":
+                return
+            ok = False
+            try:
+                if op == "unload":
+                    pipe = None
+                    _free_device()
+                else:
+                    if pipe is None:
+                        pipe = pipeline_factory()
+                    if op == "generate":
+                        run_generate_request(pipe, params, None, staged_factories)
+                ok = True
+            except Exception:  # noqa: BLE001 — rank 0 reports the task's failure
+                traceback.print_exc()
+            _, mixed = self._agree(ok, pipe is not None)
+            if mixed:
+                pipe = None
+                _free_device()
+
+
+def _free_device():
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 class ModelServer:
     """pipeline_factory builds the pipeline on the first request; requests
     run one at a time, in order, on one worker thread. _generate and _save
     are the override points (what a request runs and where its frames go).
     staged_factories (sampling.staged.StageFactories): serve with staged
     residency, the pipeline a shell whose weights each request builds and
-    frees stage by stage (staged.staged_pipeline_factory makes both)."""
+    frees stage by stage (staged.staged_pipeline_factory makes both). In a
+    torchrun world this object lives on every rank: rank 0 serves (serve())
+    and the others follow its tasks."""
 
     def __init__(self, pipeline_factory: Callable[[], Any],
                  output_dir: str = "outputs/serve", staged_factories=None):
@@ -355,12 +489,19 @@ class ModelServer:
         self.last_stage_profile: dict = {}
         self._pipeline = None
         self._lock = threading.Lock()
-        self._worker = threading.Thread(target=self._work_loop, daemon=True)
-        self._worker.start()
+        self.ranks = RankTasks(loaded=lambda: self._pipeline is not None,
+                               drop=self._drop_pipeline)
+        if self.ranks.rank == 0:
+            self._worker = threading.Thread(target=self._work_loop, daemon=True)
+            self._worker.start()
 
     @property
     def model_loaded(self) -> bool:
         return self._pipeline is not None
+
+    def _drop_pipeline(self):
+        with self._lock:
+            self._pipeline = None
 
     def _get_pipeline(self):
         with self._lock:
@@ -380,8 +521,6 @@ class ModelServer:
 
         try:
             self.tasks.update(task_id, status=RUNNING, message="loading model")
-            pipe = self._get_pipeline()
-            self.tasks.update(task_id, status=RUNNING, message="generating")
             timer = StepTimer()
 
             def progress(i, n):
@@ -389,7 +528,10 @@ class ModelServer:
                 self.tasks.update(task_id, progress=int(100 * i / n),
                                   message=f"step {i}/{n}")
 
-            video = self._generate(pipe, params, progress)
+            with self.ranks.task("generate", params):
+                pipe = self._get_pipeline()
+                self.tasks.update(task_id, status=RUNNING, message="generating")
+                video = self._generate(pipe, params, progress)
             self.last_step_stats = timer.summary()
             self.last_wall_profile = dict(getattr(pipe, "last_wall_profile", {}))
             self.last_stage_profile = dict(getattr(pipe, "last_stage_profile", {}))
@@ -412,15 +554,28 @@ class ModelServer:
         return t.task_id
 
     def unload(self) -> bool:
-        """Drops the pipeline and returns the device's cached blocks; the
-        next request builds it again. True if one was loaded."""
-        with self._lock:
-            was = self._pipeline is not None
-            self._pipeline = None
-        gc.collect()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+        """Drops the pipeline and returns the device's cached blocks (on
+        every rank); the next request builds it again. True if one was
+        loaded."""
+        with self.ranks.task("unload"):
+            with self._lock:
+                was = self._pipeline is not None
+                self._pipeline = None
+            _free_device()
         return was
+
+    def serve(self, host: str, port: int) -> None:
+        """Rank 0 serves HTTP until interrupted, then tells the other ranks
+        to stop; every other rank follows rank 0's tasks."""
+        if self.ranks.rank > 0:
+            self.ranks.follow(self.pipeline_factory, self.staged_factories)
+            return
+        httpd = make_server(build_router(self), host, port)
+        print(f"model server on {host}:{port} ({self.ranks.world} rank(s))", flush=True)
+        try:
+            httpd.serve_forever()
+        finally:
+            self.ranks.shutdown()
 
 
 def build_router(server: ModelServer) -> Router:
@@ -458,16 +613,6 @@ def build_router(server: ModelServer) -> Router:
     return r
 
 
-def check_ported_serving_flags(args) -> None:
-    """The servers' and the generate CLI's mesh flags, which are not ported,
-    raise NotImplementedError naming their ROADMAP item."""
-    degrees = [getattr(args, k, 1) for k in ("ulysses_degree", "ring_degree", "tp")]
-    if max(degrees) > 1 or getattr(args, "auto_mesh", False) or getattr(
-            args, "auto_parallel", False):
-        raise NotImplementedError(
-            f"sequence / tensor parallel serving is not ported yet {MESH}")
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description="VerseCrafter model server (PyTorch)")
     p.add_argument("--host", default="0.0.0.0")
@@ -481,7 +626,9 @@ def main(argv=None):
     p.add_argument("--ulysses_degree", type=int, default=1)
     p.add_argument("--ring_degree", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--auto_mesh", action="store_true", help="not ported yet")
+    p.add_argument("--auto_mesh", action="store_true",
+                   help="factorise the torchrun world into (sp, tp) (core.mesh."
+                        "auto_mesh_spec)")
     p.add_argument("--staged", action="store_true",
                    help="staged weight residency: umT5, the VAE and the quantized DiT "
                         "built and freed per request stage instead of staying resident")
@@ -494,10 +641,14 @@ def main(argv=None):
                         "the next is read (a Wan2.2-A14B pair fits one 80 GB card as "
                         "int8 or w8a8, not as bf16)")
     args = p.parse_args(argv)
-    check_ported_serving_flags(args)
-    resolve_device(args.device)
+    from versecrafter_tpu_torch.utils.cache import maybe_init_distributed
+    maybe_init_distributed(resolve_device(args.device))
+    spec = spec_from_degrees(args.ulysses_degree, args.ring_degree, args.tp)
+    check_world(spec if spec.size > 1 else None, args.auto_mesh)  # before any build
 
     if args.staged:
+        if world_size() > 1:
+            raise ValueError("--staged serves on one device")
         from versecrafter_tpu_torch.sampling.staged import staged_pipeline_factory
         factory, staged_factories = staged_pipeline_factory(
             args.model_path, scale=args.staged_scale, bits=args.quantize_bits,
@@ -505,12 +656,14 @@ def main(argv=None):
         server = ModelServer(factory, output_dir=args.output_dir,
                              staged_factories=staged_factories)
     else:
+        mesh = {"mesh_spec": spec} if spec.size > 1 else {}
+        if args.auto_mesh:
+            mesh["auto_mesh"] = True
         server = ModelServer(default_pipeline_factory(
             args.model_path, device=args.device,
-            quantize=RESIDENT_WEIGHTS[args.resident_weights]), output_dir=args.output_dir)
-    httpd = make_server(build_router(server), args.host, args.port)
-    print(f"model server on {args.host}:{args.port} ({args.device})", flush=True)
-    httpd.serve_forever()
+            quantize=RESIDENT_WEIGHTS[args.resident_weights], **mesh),
+            output_dir=args.output_dir)
+    server.serve(args.host, args.port)
 
 
 if __name__ == "__main__":
