@@ -222,6 +222,23 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      1.3B at 480p, sp = 8 ([2, 12, 4,095, 128]) against the full
      attention's rows; the ring's backward hops (hop_backward) at its train
      point against the full fa_backward; the bytes a rank sends per layer.
+ 15. the VAE's width over 8 ranks at phase 13's 720x1280x81 point (latents
+     [1, 16, 21, 90, 160] bf16 from a seed, the Wan VAE from random
+     weights; 20 latent columns a shard), one rank's share at a time (one
+     card: no exchange): the whole streaming decode timed with its peak; a
+     second whole decode through a recording stand-in width shard (smoke
+     only) that keeps, call by call, the halo columns shards 0, 3 and 7
+     would receive and the attention block's whole frames; each of those
+     shards decoded on its slice with those columns replayed, timed with its
+     peak, held on the first 9 frames (the decode is causal in time) to the
+     exact fp32 decode within the whole bf16 decode's own distance from it +
+     2*2^-8*max (the bf16 decode's bar), and on all 81 to the whole
+     decode's slice within twice that bar (two decodes each within it of
+     the exact one); the bytes one rank sends per decode (its edge columns to
+     each neighbour at every conv, its slice of each attention frame to the
+     seven others), counted from the shapes. Then one --tiny train step
+     of the train CLI with --attn_impl xla on the card (no kernel launched)
+     against the default step on the CPU, the losses within 1e-4 * |loss|.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -3911,6 +3928,191 @@ def parallel_phase(fa, fab, dev, card):
     return records, launches
 
 
+# phase 15: the VAE's width over 8 ranks at phase 13's 720x1280x81 point
+VAE_SHARDS = 8
+VAE_SHARD_IDS = (0, 3, 7)  # both edges and an interior shard
+VAE_LATENT_720P = (1, 16, 21, 90, 160)
+VAE_EXACT_LATENT_FRAMES = 3  # the fp32 reference's length: 9 frames
+
+
+class HaloRecorder:
+    """A stand-in width shard (parallel/sharding.WidthShard's protocol) for
+    a whole decode: halo() pads with zeros, the whole tensor's global edges,
+    and keeps, call by call, the columns that shards `ids` of `count` would
+    receive from their neighbours; gather() keeps the whole frame. Lives in
+    the smoke only: one card cannot run the exchange."""
+
+    def __init__(self, ids, count):
+        self.ids, self.count, self.calls = ids, count, []
+
+    def halo(self, x, left, right):
+        ws = x.shape[4] // self.count
+        cols = {}
+        for s in self.ids:
+            lo = x[..., s * ws - left:s * ws].clone() if s > 0 else None
+            hi = x[..., (s + 1) * ws:(s + 1) * ws + right].clone() if s < self.count - 1 else None
+            cols[s] = (lo, hi)
+        self.calls.append(("halo", cols))
+        return torch.nn.functional.pad(x, (left, right))
+
+    def gather(self, x):
+        self.calls.append(("gather", x.clone()))
+        return x
+
+
+class HaloReplay:
+    """Shard `index` of `count` whose halo columns and gathered frames are a
+    HaloRecorder's, call by call; `sent` counts the bytes the rank would
+    send: its edge columns to each neighbour at every halo, its slice to
+    each other rank at every gather."""
+
+    def __init__(self, rec, index, count):
+        self.calls, self.index, self.count, self.sent = iter(rec.calls), index, count, 0
+
+    def halo(self, x, left, right):
+        kind, cols = next(self.calls)
+        if kind != "halo":
+            raise AssertionError("the shard's decode calls differ from the whole one's")
+        lo, hi = cols[self.index]
+        col = x[..., :1].numel() * x.element_size()
+        self.sent += col * ((right if self.index > 0 else 0)
+                            + (left if self.index < self.count - 1 else 0))
+        shape = list(x.shape[:4])
+        lo = x.new_zeros(shape + [left]) if lo is None else lo
+        hi = x.new_zeros(shape + [right]) if hi is None else hi
+        return torch.cat([lo, x, hi], dim=4)
+
+    def gather(self, x):
+        kind, whole = next(self.calls)
+        if kind != "gather":
+            raise AssertionError("the shard's decode calls differ from the whole one's")
+        self.sent += (self.count - 1) * x.numel() * x.element_size()
+        return whole
+
+
+def vae_width_phase(dev, card):
+    """Phase 15 (a): one rank's share of the width-sharded VAE decode at
+    720x1280x81 over 8 ranks, shards VAE_SHARD_IDS, against the whole
+    decode (module docstring). Returns the per-shard records."""
+    from versecrafter_tpu_torch.core.config import VAEConfig
+    from versecrafter_tpu_torch.models.vae import init_vae
+    from versecrafter_tpu_torch.models.vae_stream import vae_decode_chunked
+    cfg = VAEConfig()
+    params = init_vae(cfg, torch.Generator(device=dev).manual_seed(15), torch.bfloat16)
+    z = torch.randn(VAE_LATENT_720P, generator=torch.Generator(device=dev).manual_seed(16),
+                    device=dev).to(torch.bfloat16)
+    n = VAE_SHARDS
+    ws = z.shape[4] // n
+    px = ws * cfg.spatial_compression_ratio
+
+    def run(zz, width=None):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        y = vae_decode_chunked(params, cfg, zz, width=width)
+        torch.cuda.synchronize()
+        return (y, (time.perf_counter() - t1) * 1e3,
+                (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+    whole, whole_ms, whole_gib = run(z)
+    log(f"  [vae] whole streaming decode {tuple(z.shape)} -> {tuple(whole.shape)} bf16: "
+        f"{whole_ms:.1f} ms, peak +{whole_gib:.2f} GiB on {card}")
+    rec = HaloRecorder(VAE_SHARD_IDS, n)
+    recorded = run(z, rec)[0]
+    log(f"  [vae] the recording pass ({len(rec.calls)} halo / gather calls) equals the "
+        f"plain whole decode bit for bit: {torch.equal(recorded, whole)}, max_abs_err "
+        f"{(recorded.float() - whole.float()).abs().max().item():.4g}")
+    del recorded
+    k = VAE_EXACT_LATENT_FRAMES
+    exact = vae_decode_chunked(params, cfg, z[:, :, :k].float())
+    nf = exact.shape[2]
+    out = {}
+    for s in VAE_SHARD_IDS:
+        replay = HaloReplay(rec, s, n)
+        y, ms_, gib = run(z[..., s * ws:(s + 1) * ws].contiguous(), replay)
+        sl = slice(s * px, (s + 1) * px)
+        ref = whole[..., sl]
+        if y.shape != ref.shape or not torch.isfinite(y).all():
+            raise AssertionError(f"shard {s}: {tuple(y.shape)} != {tuple(ref.shape)} or "
+                                 f"not finite")
+        err = (y.float() - ref.float()).abs().max().item()
+        mx = ref.float().abs().max().item()
+        ex = exact[..., sl]
+        emx = ex.abs().max().item()
+        err_shard = (y[:, :, :nf].float() - ex).abs().max().item()
+        err_whole = (ref[:, :, :nf].float() - ex).abs().max().item()
+        # a bf16 decode is within err_whole + 2*2^-8*max of the exact one, so
+        # two of them within twice that of each other
+        bar = err_whole + BF16_BAR * emx
+        ok = err_shard <= bar and err <= 2 * bar
+        out[s] = {"ms": ms_, "peak_gib": gib, "sent_bytes": replay.sent,
+                  "max_abs_err": err}
+        log(f"  [vae] shard {s} of {n} {tuple(y.shape)}: {ms_:.1f} ms ({whole_ms / ms_:.2f}x "
+            f"faster than whole), peak +{gib:.2f} GiB ({whole_gib / gib:.2f}x below whole); "
+            f"against the whole decode's slice max_abs_err {err:.4g} = {err / mx:.4g} of max "
+            f"(bar {2 * bar:.4g}), correlation {correlation(y, ref):.6f}, bit-identical "
+            f"{torch.equal(y, ref)}; first {nf} frames against fp32: shard {err_shard:.4g}, "
+            f"whole {err_whole:.4g} (bar {bar:.4g}); sends {replay.sent / 1e6:.1f} MB a "
+            f"decode {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the width-sharded decode's shard {s} disagrees")
+        del y, ref, ex
+    del whole, exact, rec, params, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"whole_ms": whole_ms, "whole_peak_gib": whole_gib, "shards": out}
+
+
+def xla_train_step(fa, fab, dev, card):
+    """Phase 15 (b): one --tiny step of the train CLI with --attn_impl xla
+    on the card (the reference math: no kernel launched) against the
+    default step on the CPU (the kernels' plain versions), from the same
+    weights (the CLI's init drawn on the CPU: a CUDA generator draws
+    others), data and keys; the losses within 1e-4 * |loss|, fp32 with TF32
+    off."""
+    import tempfile
+
+    from versecrafter_tpu_torch.cli import train as tcli
+    flags = ["--tiny", "--synthetic", "2", "--steps", "1", "--sample_size", "64,64",
+             "--video_length", "9"]
+    build = tcli.build_model
+    cfg, params, _ = build(tcli.parse_args(flags + ["--device", "cpu"]), torch.device("cpu"))
+    tcli.build_model = lambda args, dev_: (cfg, tree_to(params, dev_), None)
+    with tempfile.TemporaryDirectory() as d:
+        fa.reset_launch_counts()
+        fab.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = tcli.run(tcli.parse_args(flags + ["--attn_impl", "xla", "--device", "cuda",
+                                                "--output_dir", os.path.join(d, "xla")]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launched = {k_: v for k_, v in {**fa.LAUNCHES, **fab.LAUNCHES}.items() if v}
+        want = tcli.run(tcli.parse_args(flags + ["--device", "cpu",
+                                                 "--output_dir", os.path.join(d, "cpu")]))
+    tcli.build_model = build
+    loss, ref = got["losses"][0], want["losses"][0]
+    ok = math.isfinite(loss) and abs(loss - ref) <= 1e-4 * abs(ref) and not launched
+    log(f"  [xla] --tiny --attn_impl xla train step on the card: loss {loss:.7g} in "
+        f"{dt:.1f} s (launches {launched or 'none'}); the default step on the CPU "
+        f"{ref:.7g}; |difference| {abs(loss - ref):.3g} (bar {1e-4 * abs(ref):.3g}) on "
+        f"{card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the --attn_impl xla train step disagrees or launched a kernel")
+
+
+def vae_phase(fa, fab, dev, card):
+    """Phase 15: the width-sharded VAE's per-rank decode and the xla train
+    step."""
+    t0 = time.perf_counter()
+    log(f"[vae-width] phase 15: one rank's share of the VAE decode over {VAE_SHARDS} width "
+        f"shards at 720x1280x81")
+    res = vae_width_phase(dev, card)
+    xla_train_step(fa, fab, dev, card)
+    log(f"[vae-width] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4169,6 +4371,9 @@ def main() -> int:
     recs, counts = parallel_phase(fa, fab, dev, card)
     records.update(recs)
     launches_main.update(counts)
+
+    # -- 15. the VAE's width over 8 ranks, one rank's share; --attn_impl xla
+    vae_phase(fa, fab, dev, card)
 
     if failures:
         raise AssertionError("; ".join(failures))

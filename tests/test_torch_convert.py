@@ -29,6 +29,7 @@ from versecrafter_tpu_torch.core import convert as tconvert
 from versecrafter_tpu_torch.models import t5 as tt5
 from versecrafter_tpu_torch.models import vae as tvae
 from versecrafter_tpu_torch.models import wan_dit as twan
+from tests.jax_prng import threefry_default  # noqa: F401
 
 T5_SMALL = jconfig.T5Config(vocab=64, dim=16, dim_attn=16, dim_ffn=32, num_heads=2,
                             num_layers=2, num_buckets=8, text_length=8)

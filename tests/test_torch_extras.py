@@ -26,6 +26,7 @@ from versecrafter_tpu_torch.models import wan_dit as twan
 from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.utils import quantize as tq
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+from tests.jax_prng import threefry_default  # noqa: F401
 
 # i2v (4 noise + 4 conditioning channels) + img_emb + SimpleAdapter +
 # GeoAdapter, tiny widths

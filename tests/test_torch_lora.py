@@ -31,6 +31,7 @@ from versecrafter_tpu_torch.parallel import train_step as tts
 from versecrafter_tpu_torch.serve import model_server as tserve
 from versecrafter_tpu_torch.utils import lora as tl
 from versecrafter_tpu_torch.utils import prng
+from tests.jax_prng import threefry_default  # noqa: F401
 
 SMALL = WanDiTConfig(in_dim=4, dim=48, ffn_dim=80, freq_dim=32, text_dim=24, out_dim=4,
                      num_heads=2, num_layers=4, text_len=8, geoada_layers=(),

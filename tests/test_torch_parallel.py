@@ -1,10 +1,13 @@
 """Port parity for sharded training and serving: gloo worlds of the port
 (tests/torch_mesh.py, one launch per MeshSpec) against the jitted JAX
 package on its virtual mesh. One GeoAdapter train step under (dp=2,
-fsdp=2): the loss, every trainable leaf's gradient and its update; and a
-request through the sharded pipeline under (sp=2, tp=2), where 2 heads put
-the ring on every self-attention, with TeaCache and cfg-skip: the latents,
-and every rank the JAX package's skip schedule. fp32, within 1e-4 * max."""
+fsdp=2): the loss, every trainable leaf's gradient and its update; and one
+(sp=2, tp=2) world for a request through the sharded pipeline, where 2
+heads put the ring on every self-attention, with TeaCache and cfg-skip (the
+latents, every rank the JAX package's skip schedule, and its frames against
+the unsharded request's), and for the width-sharded VAE's cases (encode and
+decode, full and streaming, against the JAX pipeline's on a width-sharded
+input; widths left whole). fp32, within 1e-4 * max."""
 
 import dataclasses
 import types
@@ -14,10 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 
-from test_torch_pipeline import DIT_CFG, T5_CFG, VAE_CFG, _inputs
+from test_torch_pipeline import DIT_CFG, T5_CFG, VAE_CFG, _inputs, _port
 from test_torch_teacache import (SHIFT, SKIP_START, STEPS, THRESHOLD, _expected_schedule,
                                  _tea_run)
+from tests.jax_prng import threefry_default  # noqa: F401
 from tests.torch_mesh import flatten, run_world
 from versecrafter_tpu.core.config import WanDiTConfig
 from versecrafter_tpu.core.mesh import MeshSpec, make_mesh
@@ -28,6 +33,9 @@ from versecrafter_tpu.models.wan_dit import init_wan_dit
 from versecrafter_tpu.parallel import sharding as jshd
 from versecrafter_tpu.parallel import train_step as jts
 from versecrafter_tpu.sampling import pipeline as jpipe
+from versecrafter_tpu_torch.core import config as tconfig
+from versecrafter_tpu_torch.core.convert import params_from_jax
+from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
 
 BAR = 1e-4
@@ -127,14 +135,37 @@ def trees():
                                  t5_params=init_t5(jax.random.key(2), T5_CFG, jnp.float32))
 
 
-def test_sharded_request_with_teacache_and_cfg_skip(trees, tmp_path):
-    """(sp=2, tp=2) with batched CFG, TeaCache and cfg-skip 0.34: the JAX
-    schedule (each decision 5 % clear of the threshold) on every rank, the
-    blocks run once a calculated step and never on a skipped one, and the
-    latents equal the JAX package's sharded pipeline's."""
+RATIO = 0.34  # the request's cfg-skip ratio
+
+# the width-sharded VAE's cases: (op, stream, input width) at 5 frames, 8
+# rows; the tiny VAE halves the width once (its one stride-2 stage) and the
+# width is cut over sp * tp = 4 ranks
+VAE_CASES = {
+    "encode": ("encode", False, 16), "decode": ("decode", False, 8),
+    "encode_stream": ("encode", True, 16), "decode_stream": ("decode", True, 8),
+    # 10 pixels / 5 latent columns do not divide over 4: whole on every rank
+    "encode_uneven": ("encode", False, 10), "decode_uneven": ("decode", True, 5),
+    # 12 pixels divide, but a shard's 3 columns go odd at the stride-2 stage
+    "encode_odd_stage": ("encode", False, 12),
+}
+
+
+def _vae_ref(jm, op, stream, x):
+    """The JAX pipeline's encode or decode (fp32 frames) of x on its mesh,
+    the input width-sharded (shard_vae_io); through its streaming path when
+    `stream`."""
+    jm.VAE_STREAM_THRESHOLD = 100 if stream else jpipe.VerseCrafterPipeline.VAE_STREAM_THRESHOLD
+    if op == "encode":
+        return np.asarray(jm._vae_encode_fn()(jnp.asarray(x)))
+    return jm.decode_latents(jnp.asarray(x))
+
+
+@pytest.fixture(scope="module")
+def sp2tp2(trees, tmp_path_factory):
+    """One (sp=2, tp=2) world: the request (and its frames) and the VAE
+    cases, beside the JAX package's results on the virtual mesh."""
     jp = trees
-    ratio = 0.34
-    calc = _expected_schedule(jp, ratio)
+    calc = _expected_schedule(jp, RATIO)
     spec = MeshSpec(sp=2, tp=2)
     jm = jpipe.VerseCrafterPipeline(
         dit_params=jp.dit_params, dit_cfg=DIT_CFG, vae_params=jp.vae_params,
@@ -143,7 +174,7 @@ def test_sharded_request_with_teacache_and_cfg_skip(trees, tmp_path):
         mesh=make_mesh(spec, devices=jax.devices()[:4]))
     assert jm.attn_impl == "sp"
     jm.enable_teacache(THRESHOLD, SKIP_START)
-    jm.enable_cfg_skip(ratio)
+    jm.enable_cfg_skip(RATIO)
     jm.teacache_debug = True
     ref = np.asarray(_tea_run(jm, jnp.float32))
     hist = [np.asarray(a) for a in jm.teacache_accum_history]
@@ -153,11 +184,31 @@ def test_sharded_request_with_teacache_and_cfg_skip(trees, tmp_path):
               "req.noise": noise}
     for name, tree in (("dit", jp.dit_params), ("vae", jp.vae_params), ("t5", jp.t5_params)):
         arrays.update(flatten(jax.tree.map(np.asarray, tree), f"req.{name}"))
-    case = {"kind": "pipeline", "name": "req", "dit_cfg": dataclasses.asdict(DIT_CFG),
-            "vae_cfg": dataclasses.asdict(VAE_CFG), "t5_cfg": dataclasses.asdict(T5_CFG),
-            "threshold": THRESHOLD, "skip_start": SKIP_START, "cfg_skip_ratio": ratio,
-            "steps": STEPS, "shift": SHIFT}
-    outs = run_world(4, {"spec": list(spec.shape), "cases": [case]}, arrays, tmp_path)
+    cfgs = {"dit_cfg": dataclasses.asdict(DIT_CFG), "vae_cfg": dataclasses.asdict(VAE_CFG),
+            "t5_cfg": dataclasses.asdict(T5_CFG)}
+    cases = [{"kind": "pipeline", "name": "req", **cfgs, "threshold": THRESHOLD,
+              "skip_start": SKIP_START, "cfg_skip_ratio": RATIO, "steps": STEPS,
+              "shift": SHIFT, "frames": True}]
+    rng = np.random.default_rng(4)
+    vae_refs = {}
+    for name, (op, stream, w) in VAE_CASES.items():
+        shape = (1, 3, 5, 8, w) if op == "encode" else (1, VAE_CFG.z_dim, 3, 4, w)
+        x = (rng.random(shape) * 2 - 1 if op == "encode" else rng.standard_normal(shape))
+        arrays[f"{name}.{'x' if op == 'encode' else 'z'}"] = x.astype(np.float32)
+        cases.append({"kind": "vae", "name": name, "trees": "req", "op": op,
+                      "stream": stream, **cfgs})
+        vae_refs[name] = _vae_ref(jm, op, stream, x.astype(np.float32))
+    tmp = tmp_path_factory.mktemp("sp2tp2")
+    outs = run_world(4, {"spec": list(spec.shape), "cases": cases}, arrays, tmp)
+    return types.SimpleNamespace(outs=outs, ref=ref, hist=hist, calc=calc, vae_refs=vae_refs)
+
+
+def test_sharded_request_with_teacache_and_cfg_skip(sp2tp2):
+    """(sp=2, tp=2) with batched CFG, TeaCache and cfg-skip 0.34: the JAX
+    schedule (each decision 5 % clear of the threshold) on every rank, the
+    blocks run once a calculated step and never on a skipped one, and the
+    latents equal the JAX package's sharded pipeline's."""
+    outs, ref, hist, calc = sp2tp2.outs, sp2tp2.ref, sp2tp2.hist, sp2tp2.calc
     assert len(hist) == STEPS
     for out in outs:
         assert _rel_err(out["req.latents"], ref) <= BAR
@@ -170,3 +221,41 @@ def test_sharded_request_with_teacache_and_cfg_skip(trees, tmp_path):
             np.testing.assert_array_equal(acc[i], outs[0][f"req.accum/{i}"])
         assert int(out["req.blocks_runs"]) == sum(calc)
         np.testing.assert_array_equal(out["req.latents"], outs[0]["req.latents"])
+
+
+def test_sharded_request_frames_equal_unsharded(sp2tp2, trees):
+    """The sharded request's frames (its latents decoded on width slices,
+    4 latent columns over 4 ranks) against the same request through the
+    port's pipeline on one process, on every rank."""
+    jp = trees
+    to_t = lambda tree: params_from_jax(jax.tree.map(np.asarray, tree))
+    tp = tpipe.VerseCrafterPipeline(
+        dit_params=to_t(jp.dit_params), dit_cfg=_port(DIT_CFG, tconfig.WanDiTConfig),
+        vae_params=to_t(jp.vae_params), vae_cfg=_port(VAE_CFG, tconfig.VAEConfig),
+        t5_params=to_t(jp.t5_params), t5_cfg=_port(T5_CFG, tconfig.T5Config),
+        scheduler_name="unipc", tokenizer=HashTokenizer(T5_CFG.vocab), device="cpu")
+    tp.enable_teacache(THRESHOLD, SKIP_START)
+    tp.enable_cfg_skip(RATIO)
+    want = tp.decode_latents(_tea_run(tp, torch.float32))
+    for out in sp2tp2.outs:
+        assert out["req.frames_sharded"].tolist() == [True]
+        got = out["req.frames"]
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= BAR
+
+
+@pytest.mark.parametrize("name", list(VAE_CASES))
+def test_width_sharded_vae_matches_jax(sp2tp2, name):
+    """The pipeline's VAE encode / decode under (sp=2, tp=2) on every rank
+    against the JAX pipeline's on its width-sharded input; run on width
+    slices where the width divides over the 4 ranks (and, to encode, a
+    slice stays even at the stride-2 stage), whole otherwise."""
+    op, stream, w = VAE_CASES[name]
+    sliced = w % 4 == 0 and (op == "decode" or (w // 4) % 2 == 0)
+    want = sp2tp2.vae_refs[name]
+    for out in sp2tp2.outs:
+        assert out[name + ".sharded"].tolist() == [sliced]
+        got = out[name + ".out"]
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= BAR, _rel_err(got, want)
+        np.testing.assert_array_equal(got, sp2tp2.outs[0][name + ".out"])

@@ -24,6 +24,7 @@ from versecrafter_tpu_torch.core.convert import params_from_jax
 from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.serve import model_server as tserve
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+from tests.jax_prng import threefry_default  # noqa: F401
 
 VAE_CFG = VAEConfig(base_dim=8, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
                     temporal_downsample=(True,), spatial_compression_ratio=2,

@@ -14,6 +14,7 @@ import torch
 
 from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.utils import prng
+from tests.jax_prng import threefry_default  # noqa: F401
 
 LATENT_SHAPE = (1, 16, 21, 60, 104)  # 480x832x81 latents
 SHAPES = [(1,), (7,), (3, 5, 7), (2, 4, 3, 5, 9), LATENT_SHAPE]

@@ -32,6 +32,7 @@ from versecrafter_tpu_torch.core.convert import params_from_jax
 from versecrafter_tpu_torch.models import wan_dit as twan
 from versecrafter_tpu_torch.serve import model_server as tserve
 from versecrafter_tpu_torch.utils import quantize as tq
+from tests.jax_prng import threefry_default  # noqa: F401
 
 SMALL = 1 << 10
 

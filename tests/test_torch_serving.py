@@ -39,6 +39,7 @@ from versecrafter_tpu_torch.serve import model_server as tserve
 from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
 from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+from tests.jax_prng import threefry_default  # noqa: F401
 
 # four control videos of z_dim 4 plus the 2x2 pixel-shuffled mask
 CFG = dataclasses.replace(DIT_CFG, geoada_in_dim=20)

@@ -34,6 +34,7 @@ from versecrafter_tpu_torch.sampling import pipeline as tpipe
 from versecrafter_tpu_torch.sampling import staged as tstaged
 from versecrafter_tpu_torch.utils import quantize as tq
 from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+from tests.jax_prng import threefry_default  # noqa: F401
 
 KW = dict(height=8, width=8, num_frames=5, num_inference_steps=3, guidance_scale=2.0,
           shift=3.0, seed=7)

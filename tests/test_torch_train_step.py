@@ -24,6 +24,7 @@ from versecrafter_tpu_torch.kernels import flash_attention as tfa
 from versecrafter_tpu_torch.kernels import flash_attention_bwd as tfab
 from versecrafter_tpu_torch.parallel import train_step as tts
 from versecrafter_tpu_torch.utils import prng
+from tests.jax_prng import threefry_default  # noqa: F401
 
 # head_dim 128 as on the card; GeoAdapter every 2nd of 4 layers
 CFG = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32,
@@ -246,14 +247,87 @@ def test_cli_trains_and_saves(tmp_path):
 @pytest.mark.parametrize("flags,raised", [
     (["--data_dir", "x"], SystemExit), (["--fsdp", "2"], ValueError),
     (["--dp", "2"], ValueError), (["--sp", "2"], ValueError),
-    (["--attn_impl", "xla"], NotImplementedError)])
+    (["--attn_impl", "pallas"], ValueError)])
 def test_cli_unported_options_raise(flags, raised, tmp_path):
     """--data_dir is ported and, as in the JAX CLI, needs --model_name to
     encode its clips; a mesh axis > 1 needs a world of its size (one
     process here: refused before the model is built; the gloo worlds are
-    in test_torch_parallel.py); the port has one attention path."""
+    in test_torch_parallel.py); --attn_impl pallas runs the CUDA kernels
+    and is refused on the CPU."""
     with pytest.raises(raised):
         tcli.main(["--tiny", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
+
+
+def test_cli_attn_impl_xla_matches_jax_cli(tmp_path, monkeypatch):
+    """One --tiny --attn_impl xla step of the port's CLI against the JAX
+    CLI's (tests/test_train_cli.py runs it): both start from the JAX CLI's
+    init, draw the same synthetic batch and threefry keys; the loss within
+    1e-4 * |loss|, every trained leaf within 1e-4 * max, and each
+    element's update within the bar AdamW's first step allows. The JAX
+    CLI's setup_runtime (which makes rbg the default impl) is skipped and
+    its checkpoint captured.
+
+    The update bar, per element: the first step moves a leaf by
+    -LR * g / (|g| + eps) (plus the same decay term in both), so a gradient
+    difference dg moves it by LR * eps * dg / (|g| + eps)^2, with dg the
+    1e-4 * max|g| the gradients are held to (test_trainable_grads_match_jax);
+    and optax takes 1 - b2^t in fp32 (9.9998713e-4 against its 1 - b2 =
+    1e-3), so its sqrt(nu_hat) is |g| * 1.0000064: 1e-5 * LR more. The
+    zero-initialised after_proj leaves (max |leaf| = LR after the step)
+    need it: there 1e-4 * max is 1e-8 while elements with |g| ~ 1e-6 move
+    by ~1e-8 for a dg of 3e-9. Each package rounds the new leaf to fp32:
+    one ulp more. The port's LR halved moves the elements of |g| >> eps by
+    LR / 2."""
+    from versecrafter_tpu.cli import train as jcli
+    from versecrafter_tpu.core import checkpoint as jckpt
+    from versecrafter_tpu.utils import cache as jcache
+
+    flags = ["--tiny", "--synthetic", "2", "--steps", "1", "--sample_size", "64,64",
+             "--video_length", "9", "--attn_impl", "xla"]
+    saved = {}
+    monkeypatch.setattr(jcache, "enable_persistent_cache", lambda *a, **k: None)
+    monkeypatch.setattr(jckpt, "save_checkpoint", lambda path, tree: saved.update(tree))
+    want = jcli.main(flags + ["--output_dir", str(tmp_path / "jax")])
+
+    seed = 0  # the CLIs' default --seed: the JAX CLI's init and head
+    jcfg = WanDiTConfig(in_dim=4, dim=64, ffn_dim=128, freq_dim=32, text_dim=48,
+                        out_dim=4, num_heads=4, num_layers=4, text_len=16,
+                        geoada_layers=(), geoada_in_dim=8)
+    jparams = jax.jit(lambda k: init_wan_dit(k, jcfg, jnp.float32))(jax.random.key(seed))
+    jparams["head"]["head"]["kernel"] = jax.random.normal(
+        jax.random.key(seed + 7), jparams["head"]["head"]["kernel"].shape) * 0.02
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    # the step updates the tree in place
+    init = {k.lstrip("/"): _np(v).copy() for k, v in _flat(tparams).items()}
+    monkeypatch.setattr(tcli, "build_model", lambda args, dev: (tcli.tiny_config(), tparams, None))
+    got = tcli.run(tcli.parse_args(flags + ["--device", "cpu",
+                                            "--output_dir", str(tmp_path / "port")]))
+    assert abs(got["losses"][0] - want[0]) <= 1e-4 * abs(want[0])
+    ref = {k.lstrip("/"): v for k, v in _flat(jax.tree.map(np.asarray, saved["params"])).items()}
+    trained = {k.lstrip("/"): v for k, v in _flat(got["train"]).items()}
+    assert len(trained) == sum(1 + k.startswith("geoada_blocks") for k in ref)
+    lr, eps = 1e-4, 1e-8  # the CLIs' default --lr; AdamW's eps in both
+    for k, t in trained.items():
+        parts = k.split("/")
+        r = (ref["/".join(parts[:1] + parts[2:])][int(parts[1])]
+             if parts[0] == "geoada_blocks" else ref[k])
+        new, old, g = _np(t), init[k], _np(t.grad)
+        dg = 1e-4 * np.abs(g).max()
+        # each package rounds old + update once to fp32: an ulp of the leaf
+        bar = lr * (1e-5 + eps * dg / (np.abs(g) + eps) ** 2) + np.spacing(np.abs(r))
+        assert np.all(np.abs((new - old) - (r - old)) <= bar), k
+        if np.abs(old).max() > 0:
+            assert np.abs(new - r).max() <= 1e-4 * np.abs(r).max(), k
+
+
+@pytest.mark.parametrize("sp,flag,want", [(1, "xla", "xla"), (1, "auto", "auto"),
+                                          (2, "xla", "auto"), (2, "pallas", "auto")])
+def test_cli_attn_impl_gives_way_to_sp(sp, flag, want):
+    """Under sp > 1 the sequence-parallel path runs whatever --attn_impl
+    says, as the JAX CLI sets attn_impl "sp" there (its local attention
+    then 'auto'); else the flag."""
+    args = tcli.parse_args(["--tiny", "--sp", str(sp), "--attn_impl", flag])
+    assert tcli.attention_impl(args, torch.device("cpu")) == want
 
 
 def _clip_dir(d, seed):

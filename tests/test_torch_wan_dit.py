@@ -67,6 +67,24 @@ def test_geoada_forward_matches_jax(impl, tol):
     assert _rel_err(got, ref) <= tol
 
 
+def test_attn_impl_xla_matches_jax_xla():
+    """attn_impl="xla" selects the reference attention math at every entry
+    point, as the JAX package's does: within 1e-4 * max of the JAX xla
+    forward (the default path above sits 1e-3 from it); "pallas" on CPU
+    tensors raises ValueError naming CUDA."""
+    params, (x, t, ctx, cos, sin, g) = _geo_setup()
+    ref = jax.jit(lambda p, x, t, c, cs, sn, g: wan_dit_forward(
+        p, GEO_CFG, x, t, c, cs, sn, geoada_context=g, geoada_scale=0.7,
+        attn_impl="xla"))(params, x, t, ctx, cos, sin, g)
+    tp = params_from_jax(jax.tree.map(np.asarray, params))
+    args = (tp, _port_cfg(GEO_CFG), *(torch.from_numpy(a) for a in (x, t, ctx, cos, sin)))
+    got = twan.wan_dit_forward(*args, geoada_context=torch.from_numpy(g), geoada_scale=0.7,
+                               attn_impl="xla")
+    assert _rel_err(got, ref) <= 1e-4
+    with pytest.raises(ValueError, match="CUDA"):
+        twan.wan_dit_forward(*args, geoada_context=torch.from_numpy(g), attn_impl="pallas")
+
+
 def test_plain_forward_matches_jax():
     cfg, params, (x, t, ctx, cos, sin) = tiny_wan_setup()
     ref = jax.jit(lambda p, *a: wan_dit_forward(p, cfg, *a, attn_impl="pallas"))(

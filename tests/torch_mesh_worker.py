@@ -81,6 +81,19 @@ def _count(name):
 for _name in ("ulysses_attention", "ring_sp_attention"):
     _count(_name)
 
+# whether each shard_vae_io call cut the width (False: left whole)
+VAE_SHARDED = []
+_real_shard_vae_io = shd.shard_vae_io
+
+
+def _shard_vae_io(*a, **k):
+    x, width = _real_shard_vae_io(*a, **k)
+    VAE_SHARDED.append(width is not None)
+    return x, width
+
+
+shd.shard_vae_io = _shard_vae_io
+
 
 def case_dit(c, arr, mesh, out):
     """The DiT forward; c['ffn_chunk_rows'] lowers wan_dit.FFN_CHUNK_ROWS
@@ -211,7 +224,8 @@ def case_train(c, arr, mesh, out):
 def case_pipeline(c, arr, mesh, out):
     """A request through the sharded pipeline with TeaCache and cfg-skip:
     the latents, the cond accumulator after every step and the count of
-    blocks passes."""
+    blocks passes; with c['frames'] also the latents decoded (fp32
+    frames), and whether that decode ran on width slices."""
     from versecrafter_tpu_torch.sampling import pipeline as tpipe
     from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
     n = c["name"]
@@ -238,6 +252,41 @@ def case_pipeline(c, arr, mesh, out):
     for i, a in enumerate(pipe.teacache_accum_history):
         out[f"{n}.accum/{i}"] = np.asarray(a)
     out[n + ".blocks_runs"] = np.int64(len(runs))
+    if c.get("frames"):
+        VAE_SHARDED.clear()
+        out[n + ".frames"] = pipe.decode_latents(lat)
+        out[n + ".frames_sharded"] = np.asarray(VAE_SHARDED)
+
+
+_VAE_PIPES = {}
+
+
+def case_vae(c, arr, mesh, out):
+    """The pipeline's VAE entry points under the mesh on the tiny fp32 trees
+    of c['trees'] (a pipeline case's): 'encode' (_vae_encode of c's x) or
+    'decode' (decode_latents of c's z, fp32 frames), through the streaming
+    path when c['stream'] (VAE_STREAM_THRESHOLD lowered below the input);
+    and whether each shard_vae_io call cut the width."""
+    from versecrafter_tpu_torch.sampling import pipeline as tpipe
+    from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+    n, t = c["name"], c["trees"]
+    if t not in _VAE_PIPES:
+        cfgs = {k: _cfg(getattr(tconfig, cls), c[k]) for k, cls in (
+            ("dit_cfg", "WanDiTConfig"), ("vae_cfg", "VAEConfig"), ("t5_cfg", "T5Config"))}
+        _VAE_PIPES[t] = tpipe.VerseCrafterPipeline(
+            dit_params=params_from_jax(unflatten(arr, t + ".dit")),
+            vae_params=params_from_jax(unflatten(arr, t + ".vae")),
+            t5_params=params_from_jax(unflatten(arr, t + ".t5")),
+            tokenizer=HashTokenizer(cfgs["t5_cfg"].vocab), device="cpu", mesh=mesh, **cfgs)
+    pipe = _VAE_PIPES[t]
+    pipe.VAE_STREAM_THRESHOLD = 100 if c["stream"] else tpipe.VerseCrafterPipeline.VAE_STREAM_THRESHOLD
+    VAE_SHARDED.clear()
+    with torch.no_grad():
+        if c["op"] == "encode":
+            out[n + ".out"] = _np(pipe._vae_encode(_t(arr[n + ".x"])))
+        else:
+            out[n + ".out"] = pipe.decode_latents(_t(arr[n + ".z"]))
+    out[n + ".sharded"] = np.asarray(VAE_SHARDED)
 
 
 def case_init(c, arr, mesh, out):
@@ -249,7 +298,7 @@ def case_init(c, arr, mesh, out):
 
 CASES = {"dit": case_dit, "ring": case_ring, "ulysses": case_ulysses,
          "dispatch": case_dispatch, "t5": case_t5, "train": case_train,
-         "pipeline": case_pipeline, "init": case_init}
+         "pipeline": case_pipeline, "vae": case_vae, "init": case_init}
 
 
 def serve(job, arr):

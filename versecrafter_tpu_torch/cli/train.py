@@ -14,7 +14,9 @@ is Wan2.1-1.3B + GeoAdapter (15 blocks, 128 control channels) from a random
 init with an un-zeroed head, in bf16; --model_name starts from the DiT of a
 reference-layout model directory (core.convert.load_versecrafter, 128
 control channels); --tiny is a small fp32 model (head_dim 16, so it runs on
-the CPU only: the kernels take head_dim 128). The trainable tree is saved
+the CPU, or on the card with --attn_impl xla: the kernels take head_dim
+128). --attn_impl picks the attention path as the JAX CLI's does (auto,
+pallas: the kernels, xla: the reference math). The trainable tree is saved
 through core/checkpoint.py as <output_dir>/step_%06d.pt ({"params": tree}).
 
 --lora_rank r > 0 trains LoRA factors (utils/lora.py) of rank r over every
@@ -76,8 +78,12 @@ def parse_args(argv=None):
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--attn_impl", type=str, default="auto",
-                   help="only 'auto': the kernels on the card, their plain "
-                        "versions on the CPU")
+                   choices=("auto", "pallas", "xla"),
+                   help="auto: the kernels on the card, their plain versions "
+                        "on the CPU; pallas: the kernels (the card only); "
+                        "xla: the reference attention math on any device. "
+                        "Under --sp > 1 the sequence-parallel path runs, "
+                        "as in the JAX CLI")
     p.add_argument("--save_every", type=int, default=500)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0,
@@ -91,10 +97,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_ported(args):
-    if args.attn_impl != "auto":
-        raise NotImplementedError(f"--attn_impl {args.attn_impl}: the port has "
-                                  "one attention path ('auto')")
+def attention_impl(args, dev) -> str:
+    """The blocks' attn_impl: the JAX CLI's "sp" under sp > 1 (the port's
+    mesh path, whose local attention is then 'auto'), else --attn_impl;
+    ValueError for 'pallas' off the card."""
+    if args.sp > 1:
+        return "auto"
+    if args.attn_impl == "pallas" and dev.type != "cuda":
+        raise ValueError(f"--attn_impl pallas runs the CUDA kernels, not on {dev.type}")
+    return args.attn_impl
 
 
 def tiny_config():
@@ -195,8 +206,6 @@ def run(args):
     """The training run of parsed args -> {"losses", "step_s" (each step's
     seconds, its batch upload included), "params" (the whole tree), "train"
     (the trained tree: GeoAdapter / all params, or the LoRA factors)}."""
-    _check_ported(args)
-
     import numpy as np
     import torch
 
@@ -217,6 +226,7 @@ def run(args):
     maybe_init_distributed(dev)
     spec = MeshSpec(dp=args.dp, fsdp=args.fsdp, sp=args.sp, tp=args.tp)
     check_world(spec)  # before any build
+    attn = attention_impl(args, dev)
     h, w = (int(x) for x in args.sample_size.split(","))
     n_frames = args.video_length
     cfg, params, pipe = build_model(args, dev)
@@ -239,14 +249,15 @@ def run(args):
         lora_scale = (args.lora_alpha or args.lora_rank) / args.lora_rank
         train = lora
         opt = make_optimizer(train, args.lr, args.weight_decay)
-        lora_step = make_lora_train_step(cfg, opt, lora_scale)
+        lora_step = make_lora_train_step(cfg, opt, lora_scale, attn_impl=attn)
 
         def step_fn(params, *a, **kw):
             return lora_step(train, params, *a, **kw)
         mode = f"LoRA rank {args.lora_rank} (scale {lora_scale:g})"
     else:
         train, _frozen = split_trainable(params, geoadapter_only=not args.train_full)
-        step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay))
+        step_fn = make_train_step(cfg, make_optimizer(train, args.lr, args.weight_decay),
+                                  attn_impl=attn)
         mode = "full model" if args.train_full else "GeoAdapter only"
     log = print if lead else (lambda *a, **k: None)
     n_train = sum(t.numel() for t in tree_leaves(train))

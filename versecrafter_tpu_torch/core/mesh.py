@@ -11,7 +11,9 @@ axes
 laid out row-major over the global ranks, as the JAX package reshapes its
 device list: rank r sits at np.unravel_index(r, (dp, fsdp, sp, tp)). Each
 axis has a process group of the ranks that differ only in that coordinate
-(torch.distributed.device_mesh builds them). The world must be exactly the
+(torch.distributed.device_mesh builds them), and the joint (sp, tp) group,
+the ranks that share dp and fsdp (the VAE's width shards, in sp-major
+order), has one too. The world must be exactly the
 mesh: the JAX package takes a subset of the devices when the spec is
 smaller, but a rank outside the mesh would have nothing to run.
 """
@@ -60,19 +62,27 @@ class Mesh:
             r //= n
         self.coord: Dict[str, int] = dict(zip(AXES, reversed(coords)))
         self._groups = {a: device_mesh.get_group(a) for a in AXES}
+        # every rank creates every (sp, tp) block's group, in the same order
+        n = spec.sp * spec.tp
+        if n > 1:
+            for start in range(0, spec.size, n):
+                g = dist.new_group(list(range(start, start + n)))
+                if start <= self.rank < start + n:
+                    self._groups[("sp", "tp")] = g
 
     @property
     def size(self) -> int:
         return self.spec.size
 
-    def group(self, axis: str):
-        """The process group of `axis`; every axis at once is the world."""
+    def group(self, axis):
+        """The process group of `axis`; every axis at once is the world;
+        ("sp", "tp") the joint group of this rank's (dp, fsdp) block."""
         if axis == AXES:
             import torch.distributed as dist
             return dist.group.WORLD
         return self._groups[axis]
 
-    def global_ranks(self, axis: str):
+    def global_ranks(self, axis):
         """The global ranks of this rank's `axis` group, in coordinate
         order."""
         import torch.distributed as dist

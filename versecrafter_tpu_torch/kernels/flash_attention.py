@@ -29,6 +29,12 @@ flavor and whose backward is kernels/flash_attention_bwd.fa_backward.
 On a CUDA tensor every wrapper launches its kernel or raises; only a CPU
 tensor takes the plain version. Outputs are fresh tensors; inputs are never
 written.
+
+The entry points (flash_attention and the two fused functions) take
+`impl`, the JAX package's attn_impl: 'auto' (the above), 'pallas' (the
+hand-written kernels, ValueError on a CPU tensor) or 'xla' (the reference
+math, attention_reference behind unfused norm and RoPE passes, on any
+device, differentiable through autograd).
 """
 
 from __future__ import annotations
@@ -57,6 +63,19 @@ FUSED_TILE = 128        # the fused kernel's q rows and keys per tile (int8
 # has a count of its own.
 LAUNCHES = {"fused_rope_rms_attention": 0, "fused_rope_rms_attention_int8": 0,
             "fused_rms_cross_attention": 0, "flash_attention": 0}
+
+
+ATTN_IMPLS = ("auto", "pallas", "xla")
+
+
+def check_impl(impl: str, t: torch.Tensor) -> None:
+    """ValueError for an unknown attn_impl, or 'pallas' on a tensor the
+    CUDA kernels cannot take."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {impl!r}: expected one of {ATTN_IMPLS}")
+    if impl == "pallas" and not t.is_cuda:
+        raise ValueError(f"attn_impl 'pallas' runs the CUDA kernels, but the tensors "
+                         f"are on {t.device.type}")
 
 
 def reset_launch_counts() -> None:
@@ -254,13 +273,18 @@ def _fa_args(q, k, k_lens, sm_scale, window_size):
 
 
 def flash_attention(q, k, v, k_lens: Optional[torch.Tensor] = None,
-                    sm_scale: Optional[float] = None, window_size=(-1, -1)):
+                    sm_scale: Optional[float] = None, window_size=(-1, -1),
+                    impl: str = "auto"):
     """Attention over head-major [B, N, S, D] with optional per-batch KV
     lengths and a (left, right) window (-1 = unbounded; causal is (-1, 0)).
     Differentiable: with grad enabled and an input that needs a gradient it
     runs the stats flavor and the FA2 backward; otherwise the exp2 inference
-    flavor, as the JAX package's `_fa_diff` primal does."""
+    flavor, as the JAX package's `_fa_diff` primal does. impl 'xla' runs
+    attention_reference instead (autograd differentiates it)."""
+    check_impl(impl, q)
     k_lens, sm_scale, window_size = _fa_args(q, k, k_lens, sm_scale, window_size)
+    if impl == "xla":
+        return attention_reference(q, k, v, k_lens, sm_scale, window_size)
     if _needs_grad(q, k, v):
         return _FlashAttentionFn.apply(q, k, v, k_lens, sm_scale, window_size)[0]
     return _fa_forward(q, k, v, k_lens, sm_scale, window_size, False)
@@ -516,7 +540,7 @@ def _merge_heads(x):
 
 
 def _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads, eps,
-                                sm_scale, window_size):
+                                sm_scale, window_size, impl="auto"):
     """The separate-passes math the fused self-attention kernel replaces:
     full-dim RMSNorm, pairwise RoPE on the half-width tables, head split,
     flash attention. The differentiable path of fused_rope_rms_attention."""
@@ -528,18 +552,19 @@ def _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads, eps,
     k = apply_rope(k.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
     out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
                           _heads(v, num_heads), sm_scale=sm_scale,
-                          window_size=window_size)
+                          window_size=window_size, impl=impl)
     return _merge_heads(out)
 
 
-def _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps, sm_scale):
+def _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps, sm_scale,
+                                 impl="auto"):
     """The separate-passes math the fused cross-attention kernel replaces:
     full-dim RMSNorm on q and k, head split, flash attention."""
     if gq is not None:
         q = rms_norm(q, gq, eps)
         k = rms_norm(k, gk, eps)
     out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
-                          _heads(v, num_heads), sm_scale=sm_scale)
+                          _heads(v, num_heads), sm_scale=sm_scale, impl=impl)
     return _merge_heads(out)
 
 
@@ -551,7 +576,7 @@ def _rms_apply(x, rstat, g):
 
 
 def _unfused_rope_rms_attention_rs(q, k, v, rq, rk, cos, sin, gq, gk,
-                                   num_heads, sm_scale, window_size):
+                                   num_heads, sm_scale, window_size, impl="auto"):
     """_unfused_rope_rms_attention with the producer's row statistics
     (linear_rstat) in place of the reduces over the model dim."""
     b, s, _ = q.shape
@@ -561,19 +586,19 @@ def _unfused_rope_rms_attention_rs(q, k, v, rq, rk, cos, sin, gq, gk,
     k = apply_rope(k.reshape(b, s, num_heads, -1), cos, sin).flatten(2)
     out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
                           _heads(v, num_heads), sm_scale=sm_scale,
-                          window_size=window_size)
+                          window_size=window_size, impl=impl)
     return _merge_heads(out)
 
 
 def _unfused_rms_cross_attention_rs(q, k, v, rq, gq, gk, num_heads, eps,
-                                    sm_scale):
+                                    sm_scale, impl="auto"):
     """_unfused_rms_cross_attention with the producer's q statistic; the k
     statistic spans only the short context axis and stays a plain
     rms_norm."""
     q = _rms_apply(q, rq, gq)
     k = rms_norm(k, gk, eps)
     out = flash_attention(_heads(q, num_heads), _heads(k, num_heads),
-                          _heads(v, num_heads), sm_scale=sm_scale)
+                          _heads(v, num_heads), sm_scale=sm_scale, impl=impl)
     return _merge_heads(out)
 
 
@@ -581,7 +606,8 @@ def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
                              num_heads: int, eps: float = 1e-6,
                              sm_scale: Optional[float] = None,
                              window_size=(-1, -1), tables_i=None,
-                             rstats=None, int8_score: bool = False):
+                             rstats=None, int8_score: bool = False,
+                             impl: str = "auto"):
     """Self-attention over RAW q/k/v projections [B, S, D] with qk-RMSNorm
     (scales gq/gk [D], optional) and RoPE (half-width cos/sin [S, hd/2], or
     pre-built interleaved `tables_i` from prepare_fused_rope_tables) fused
@@ -595,20 +621,22 @@ def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
     With grad enabled and an input that needs a gradient it runs the unfused
     math through the differentiable flash_attention instead (as the JAX
     package's custom_vjp does), which needs the half-width cos/sin; there
-    int8_score is a no-op and the exact math runs."""
+    int8_score is a no-op and the exact math runs. impl 'xla' runs that
+    unfused math over attention_reference, with or without grad."""
+    check_impl(impl, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     rq, rk = rstats if rstats is not None and gq is not None else (None, None)
-    if _needs_grad(q, k, v, gq, gk, rq, rk):
+    if impl == "xla" or _needs_grad(q, k, v, gq, gk, rq, rk):
         if cos is None or sin is None:
             raise ValueError("the differentiable path needs the half-width "
                              "cos/sin tables")
         if rq is not None:
             return _unfused_rope_rms_attention_rs(q, k, v, rq, rk, cos, sin, gq,
                                                   gk, num_heads, sm_scale,
-                                                  window_size)
+                                                  window_size, impl)
         return _unfused_rope_rms_attention(q, k, v, cos, sin, gq, gk, num_heads,
-                                           eps, sm_scale, window_size)
+                                           eps, sm_scale, window_size, impl)
     rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq, rk)
     cos_i, sin_i = tables_i if tables_i is not None else prepare_fused_rope_tables(cos, sin)
     return fused_attention(q, k, v, rq, rk, gqv, gkv, cos_i, sin_i,
@@ -618,21 +646,23 @@ def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
 
 def fused_rms_cross_attention(q, k, v, gq=None, gk=None, *, num_heads: int,
                               eps: float = 1e-6,
-                              sm_scale: Optional[float] = None, rq=None):
+                              sm_scale: Optional[float] = None, rq=None,
+                              impl: str = "auto"):
     """Cross-attention over RAW projections q [B, S, D] (video tokens) and
     k/v [B, Skv, D] (context tokens) with qk-RMSNorm fused into the kernel.
     rq: optional [B, S, 1] fp32 raw q statistic from the projection (used
     only with gq); the k statistic spans each context row and is always
-    reduced here. Under grad (an input needs a gradient) it runs the unfused
-    math through flash_attention."""
+    reduced here. Under grad (an input needs a gradient), or with impl
+    'xla', it runs the unfused math through flash_attention."""
+    check_impl(impl, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     rq = rq if gq is not None else None
-    if _needs_grad(q, k, v, gq, gk, rq):
+    if impl == "xla" or _needs_grad(q, k, v, gq, gk, rq):
         if rq is not None:
             return _unfused_rms_cross_attention_rs(q, k, v, rq, gq, gk, num_heads,
-                                                   eps, sm_scale)
+                                                   eps, sm_scale, impl)
         return _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps,
-                                            sm_scale)
+                                            sm_scale, impl)
     rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq)
     return fused_attention(q, k, v, rq, rk, gqv, gkv, num_heads=num_heads)

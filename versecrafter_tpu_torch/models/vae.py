@@ -6,6 +6,15 @@ mode() semantics and the Wan2.1 per-channel latent statistics; the decoder
 mirrors it with temporal upsampling to 2t-1 frames per stage. Parameters use
 the JAX package's tree with OIDHW / OIHW conv kernels; weights are cast to
 the activation dtype at use.
+
+Every op takes `width`: None for a whole tensor, or a width shard
+(parallel/sharding.WidthShard) when the tensor is this rank's slice of the
+width under a mesh (sharding.shard_vae_io). Then each conv wider than one
+column pads its slice with the neighbours' edge columns (width.halo, zeros
+only past the global edges) instead of zeros, the attention block's keys
+and values come from the whole frame (width.gather), and the rest (norms,
+SiLU, 1x1 convs, the temporal convs and padding) is per column and runs on
+the slice as it is.
 """
 
 from __future__ import annotations
@@ -33,23 +42,44 @@ def _stat(values, like: torch.Tensor) -> torch.Tensor:
         like.dtype)[None, :, None, None, None]
 
 
-def causal_conv3d(x, kernel, bias: Optional[torch.Tensor], stride=(1, 1, 1)):
+def pad_w(x, left: int, right: int, width=None):
+    """[B, C, T, H, W] with `left` / `right` columns on its width: zeros, or
+    under a width shard the neighbours' edge columns."""
+    if left == right == 0:
+        return x
+    if width is None:
+        return F.pad(x, (left, right))
+    return width.halo(x, left, right)
+
+
+def causal_conv3d(x, kernel, bias: Optional[torch.Tensor], stride=(1, 1, 1),
+                  width=None):
     """Conv3d NCDHW with causal temporal padding (2*(kT//2) frames on the
-    past side only) and symmetric spatial padding."""
+    past side only) and symmetric spatial padding (the width's from the
+    neighbours under a width shard)."""
     kt, kh, kw = kernel.shape[2:]
-    x = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2, 2 * (kt // 2), 0))
+    if width is None:
+        x = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2, 2 * (kt // 2), 0))
+    else:
+        x = F.pad(pad_w(x, kw // 2, kw // 2, width), (0, 0, kh // 2, kh // 2, 2 * (kt // 2), 0))
     return F.conv3d(x, kernel.to(x.dtype),
                     None if bias is None else bias.to(x.dtype), stride=stride)
 
 
 def conv2d_spatial(x, kernel, bias: Optional[torch.Tensor], stride: int = 1,
-                   asym_pad: bool = False):
+                   asym_pad: bool = False, width=None):
     """Per-frame 2D conv on [B, C, T, H, W]; asym_pad zero-pads (0,1,0,1)
-    before a stride-2 downsample."""
-    b, c, t, h, w = x.shape
+    before a stride-2 downsample (under a width shard the right column is
+    the right neighbour's first)."""
     kh, kw = kernel.shape[2:]
-    pad = (0, 1, 0, 1) if asym_pad else (kw // 2, kw // 2, kh // 2, kh // 2)
-    xb = F.pad(x.permute(0, 2, 1, 3, 4).reshape(b * t, c, h, w), pad)
+    if asym_pad:
+        lw, rw, hpad = 0, 1, (0, 1)
+    else:
+        lw, rw, hpad = kw // 2, kw // 2, (kh // 2, kh // 2)
+    if width is not None:
+        x, lw, rw = pad_w(x, lw, rw, width), 0, 0
+    b, c, t, h, w = x.shape
+    xb = F.pad(x.permute(0, 2, 1, 3, 4).reshape(b * t, c, h, w), (lw, rw, *hpad))
     y = F.conv2d(xb, kernel.to(x.dtype),
                  None if bias is None else bias.to(x.dtype), stride=stride)
     _, co, ho, wo = y.shape
@@ -63,24 +93,36 @@ def channel_rms_norm(x, gamma):
     return (xf * scale * gamma.float()[None, :, None, None, None]).to(x.dtype)
 
 
-def _res_block(p: Params, x):
+def _res_block(p: Params, x, width=None):
     h = channel_rms_norm(x, p["norm1"]["gamma"])
-    h = causal_conv3d(F.silu(h), p["conv1"]["kernel"], p["conv1"]["bias"])
+    h = causal_conv3d(F.silu(h), p["conv1"]["kernel"], p["conv1"]["bias"], width=width)
     h = channel_rms_norm(h, p["norm2"]["gamma"])
-    h = causal_conv3d(F.silu(h), p["conv2"]["kernel"], p["conv2"]["bias"])
+    h = causal_conv3d(F.silu(h), p["conv2"]["kernel"], p["conv2"]["bias"], width=width)
     if "shortcut" in p:
         x = causal_conv3d(x, p["shortcut"]["kernel"], p["shortcut"]["bias"])
     return x + h
 
 
-def _attn_block(p: Params, x):
-    """Single-head self-attention over spatial positions, per frame."""
+def _positions(x):
+    """[B, C, T, H, W] -> [B*T, H*W, C]."""
+    b, c, t, h, w = x.shape
+    return x.permute(0, 2, 3, 4, 1).reshape(b * t, h * w, c)
+
+
+def _attn_block(p: Params, x, width=None):
+    """Single-head self-attention over spatial positions, per frame. Under
+    a width shard the queries are this slice's positions and the keys and
+    values the whole frame's (the normed activations gathered)."""
     b, c, t, h, w = x.shape
     xn = channel_rms_norm(x, p["norm"]["gamma"])
-    flat = xn.permute(0, 2, 3, 4, 1).reshape(b * t, h * w, c)
-    qkv = (torch.matmul(flat, p["qkv"]["kernel"].to(flat.dtype))
-           + p["qkv"]["bias"].to(flat.dtype))
-    q, k, v = qkv.chunk(3, dim=-1)
+    flat = _positions(xn)
+    kernel, bias = p["qkv"]["kernel"].to(flat.dtype), p["qkv"]["bias"].to(flat.dtype)
+    if width is None:
+        q, k, v = (torch.matmul(flat, kernel) + bias).chunk(3, dim=-1)
+    else:
+        q = torch.matmul(flat, kernel[:, :c]) + bias[:c]
+        k, v = (torch.matmul(_positions(width.gather(xn)), kernel[:, c:])
+                + bias[c:]).chunk(2, dim=-1)
     s = torch.einsum("bqc,bkc->bqk", q.float(), k.float())
     s = torch.softmax(s / math.sqrt(c), dim=-1)
     o = torch.einsum("bqk,bkc->bqc", s, v.float()).to(flat.dtype)
@@ -88,16 +130,23 @@ def _attn_block(p: Params, x):
     return x + o.reshape(b, t, h, w, c).permute(0, 4, 1, 2, 3)
 
 
-def _downsample(p: Params, x, temporal: bool):
+def _downsample(p: Params, x, temporal: bool, width=None):
     x = conv2d_spatial(x, p["conv"]["kernel"], p["conv"]["bias"], stride=2,
-                       asym_pad=True)
+                       asym_pad=True, width=width)
     if temporal:
         x = causal_conv3d(x, p["time_conv"]["kernel"], p["time_conv"]["bias"],
                           stride=(2, 1, 1))
     return x
 
 
-def _upsample(p: Params, x, temporal: bool):
+def up_spatial(p: Params, x, width=None):
+    """Nearest-2x spatial + the 3x3 conv that halves the channels (its halo
+    the neighbours' edge columns after the repeat)."""
+    x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+    return conv2d_spatial(x, p["conv"]["kernel"], p["conv"]["bias"], width=width)
+
+
+def _upsample(p: Params, x, temporal: bool, width=None):
     """Temporal interleave (T -> 2T-1) then nearest-2x spatial + a conv that
     halves the channels."""
     if temporal:
@@ -105,8 +154,7 @@ def _upsample(p: Params, x, temporal: bool):
         y = causal_conv3d(x, p["time_conv"]["kernel"], p["time_conv"]["bias"])
         y = y.reshape(b, 2, c, t, h, w).permute(0, 2, 3, 1, 4, 5).reshape(b, c, 2 * t, h, w)
         x = y[:, :, 1:]
-    x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
-    return conv2d_spatial(x, p["conv"]["kernel"], p["conv"]["bias"])
+    return up_spatial(p, x, width)
 
 
 # ---------------------------------------------------------------------------
@@ -197,21 +245,22 @@ def init_vae(cfg: VAEConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def vae_encode(params: Params, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
+def vae_encode(params: Params, cfg: VAEConfig, x: torch.Tensor, width=None) -> torch.Tensor:
     """[B, 3, T, H, W] in [-1, 1] -> the distribution mean (mode()),
-    standardized by the Wan latent statistics when cfg says so."""
+    standardized by the Wan latent statistics when cfg says so. width: x is
+    that shard's slice of the width (its latents' slice comes back)."""
     p = params["encoder"]
-    h = causal_conv3d(x, p["conv_in"]["kernel"], p["conv_in"]["bias"])
+    h = causal_conv3d(x, p["conv_in"]["kernel"], p["conv_in"]["bias"], width=width)
     for st in p["stages"]:
         for rp in st["res"]:
-            h = _res_block(rp, h)
+            h = _res_block(rp, h, width)
         if "down" in st:
-            h = _downsample(st["down"], h, temporal="time_conv" in st["down"])
-    h = _res_block(p["mid"]["res1"], h)
-    h = _attn_block(p["mid"]["attn"], h)
-    h = _res_block(p["mid"]["res2"], h)
+            h = _downsample(st["down"], h, temporal="time_conv" in st["down"], width=width)
+    h = _res_block(p["mid"]["res1"], h, width)
+    h = _attn_block(p["mid"]["attn"], h, width)
+    h = _res_block(p["mid"]["res2"], h, width)
     h = channel_rms_norm(h, p["norm_out"]["gamma"])
-    h = causal_conv3d(F.silu(h), p["conv_out"]["kernel"], p["conv_out"]["bias"])
+    h = causal_conv3d(F.silu(h), p["conv_out"]["kernel"], p["conv_out"]["bias"], width=width)
     h = causal_conv3d(h, p["quant_conv"]["kernel"], p["quant_conv"]["bias"])
     mean = h[:, : h.shape[1] // 2]
     if cfg.use_latent_stats:
@@ -220,24 +269,26 @@ def vae_encode(params: Params, cfg: VAEConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def vae_decode(params: Params, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
+def vae_decode(params: Params, cfg: VAEConfig, z: torch.Tensor, width=None) -> torch.Tensor:
     """latents [B, z, T', H', W'] -> video [B, 3, 4*(T'-1)+1, 8H', 8W']
-    (linear output head; the pipeline maps it to [0, 1])."""
+    (linear output head; the pipeline maps it to [0, 1]). width: z is that
+    shard's slice of the width (its frames' slice comes back)."""
     p = params["decoder"]
     if cfg.use_latent_stats:
         z = z * _stat(WAN21_LATENT_STD, z) + _stat(WAN21_LATENT_MEAN, z)
     h = causal_conv3d(z, p["post_quant_conv"]["kernel"], p["post_quant_conv"]["bias"])
-    h = causal_conv3d(h, p["conv_in"]["kernel"], p["conv_in"]["bias"])
-    h = _res_block(p["mid"]["res1"], h)
-    h = _attn_block(p["mid"]["attn"], h)
-    h = _res_block(p["mid"]["res2"], h)
+    h = causal_conv3d(h, p["conv_in"]["kernel"], p["conv_in"]["bias"], width=width)
+    h = _res_block(p["mid"]["res1"], h, width)
+    h = _attn_block(p["mid"]["attn"], h, width)
+    h = _res_block(p["mid"]["res2"], h, width)
     for st in p["stages"]:
         for rp in st["res"]:
-            h = _res_block(rp, h)
+            h = _res_block(rp, h, width)
         if "up" in st:
-            h = _upsample(st["up"], h, temporal="time_conv" in st["up"])
+            h = _upsample(st["up"], h, temporal="time_conv" in st["up"], width=width)
     h = channel_rms_norm(h, p["norm_out"]["gamma"])
-    return causal_conv3d(F.silu(h), p["conv_out"]["kernel"], p["conv_out"]["bias"])
+    return causal_conv3d(F.silu(h), p["conv_out"]["kernel"], p["conv_out"]["bias"],
+                         width=width)
 
 
 def latent_frames(num_frames: int, cfg: VAEConfig = VAEConfig()) -> int:

@@ -339,7 +339,7 @@ def _heads_local(x, hd: int):
     return _heads(x, x.shape[-1] // hd)
 
 
-def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig):
+def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig, impl: str = "auto"):
     """The sequence-parallel self-attention of this rank's token slice
     and tp slice of heads: separate norm and RoPE passes (cos / sin are the
     slice's rows), then Ulysses or the ring."""
@@ -354,11 +354,12 @@ def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig):
     q = apply_rope(q.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
     k = apply_rope(k.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
     out = shd.sequence_parallel_attention(q, k, _heads_local(v, hd),
-                                          window_size=cfg.window_size)
+                                          window_size=cfg.window_size, impl=impl)
     return shd.tp_linear(p["o"], _merge_heads(out), "row")
 
 
-def _sp_cross_attention(p: Params, x, context, cfg: WanDiTConfig, context_img=None):
+def _sp_cross_attention(p: Params, x, context, cfg: WanDiTConfig, context_img=None,
+                        impl: str = "auto"):
     """The sequence-parallel cross-attention: each token slice against the
     whole context (and the i2v image tokens), tp slices of heads."""
     hd = cfg.head_dim
@@ -369,20 +370,21 @@ def _sp_cross_attention(p: Params, x, context, cfg: WanDiTConfig, context_img=No
         q = shd.tp_rms_norm(q, p["norm_q"]["scale"], cfg.eps, cfg.dim)
         k = shd.tp_rms_norm(k, p["norm_k"]["scale"], cfg.eps, cfg.dim)
     qh = _heads_local(q, hd)
-    out = shd.sp_cross_attention(qh, _heads_local(k, hd), _heads_local(v, hd))
+    out = shd.sp_cross_attention(qh, _heads_local(k, hd), _heads_local(v, hd), impl)
     if context_img is not None:
         k_img = shd.tp_linear(p["k_img"], context_img, "col")
         if cfg.qk_norm:
             k_img = shd.tp_rms_norm(k_img, p["norm_k_img"]["scale"], cfg.eps, cfg.dim)
         v_img = shd.tp_linear(p["v_img"], context_img, "col")
         out = out + shd.sp_cross_attention(qh, _heads_local(k_img, hd),
-                                           _heads_local(v_img, hd))
+                                           _heads_local(v_img, hd), impl)
     return shd.tp_linear(p["o"], _merge_heads(out), "row")
 
 
-def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=None):
+def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=None,
+                    impl: str = "auto"):
     if shd.active_mesh() is not None:
-        return _sp_self_attention(p, x, cos, sin, cfg)
+        return _sp_self_attention(p, x, cos, sin, cfg, impl)
     if calib is not None:
         calib["self_attn/q/kernel"] = calib["self_attn/k/kernel"] = \
             calib["self_attn/v/kernel"] = _amax(x)
@@ -402,16 +404,16 @@ def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=Non
         p["norm_q"]["scale"] if cfg.qk_norm else None,
         p["norm_k"]["scale"] if cfg.qk_norm else None,
         num_heads=cfg.num_heads, eps=cfg.eps, window_size=cfg.window_size,
-        tables_i=rope_i, rstats=rstats, int8_score=INT8_QK_SCORE)
+        tables_i=rope_i, rstats=rstats, int8_score=INT8_QK_SCORE, impl=impl)
     if calib is not None:
         calib["self_attn/o/kernel"] = _amax(out)
     return _linear(p["o"], out)
 
 
 def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
-                     context_img=None):
+                     context_img=None, impl: str = "auto"):
     if shd.active_mesh() is not None:
-        return _sp_cross_attention(p, x, context, cfg, context_img)
+        return _sp_cross_attention(p, x, context, cfg, context_img, impl)
     if calib is not None:
         calib["cross_attn/q/kernel"] = _amax(x)
         calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
@@ -430,7 +432,7 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
             q, k, v,
             p["norm_q"]["scale"] if cfg.qk_norm else None,
             p["norm_k"]["scale"] if cfg.qk_norm else None,
-            num_heads=cfg.num_heads, eps=cfg.eps, rq=rq)
+            num_heads=cfg.num_heads, eps=cfg.eps, rq=rq, impl=impl)
     else:
         # i2v: the plain path, as the JAX package runs it (its fused cross
         # kernel takes one key set): separate norm passes, head-major
@@ -441,7 +443,7 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
             q = rms_norm(q, p["norm_q"]["scale"], cfg.eps)
             k = rms_norm(k, p["norm_k"]["scale"], cfg.eps)
         qh = _heads(q, n)
-        out = flash_attention(qh, _heads(k, n), _heads(v, n))
+        out = flash_attention(qh, _heads(k, n), _heads(v, n), impl=impl)
         if calib is not None:
             calib["cross_attn/k_img/kernel"] = calib["cross_attn/v_img/kernel"] = \
                 _amax(context_img)
@@ -449,14 +451,16 @@ def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
         if cfg.qk_norm:
             k_img = rms_norm(k_img, p["norm_k_img"]["scale"], cfg.eps)
         v_img = _linear(p["v_img"], context_img)
-        out = _merge_heads(out + flash_attention(qh, _heads(k_img, n), _heads(v_img, n)))
+        out = _merge_heads(out + flash_attention(qh, _heads(k_img, n), _heads(v_img, n),
+                                                 impl=impl))
     if calib is not None:
         calib["cross_attn/o/kernel"] = _amax(out)
     return _linear(p["o"], out)
 
 
 def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-                      rope_i=None, calib=None, lora=None, context_img=None):
+                      rope_i=None, calib=None, lora=None, context_img=None,
+                      attn_impl: str = "auto"):
     """One Wan attention block. x [B, S, D]; e0 [B, 6, D] fp32 modulation;
     cos/sin the half-width RoPE tables (the differentiable attention path
     uses them) and rope_i the interleaved tables from
@@ -464,7 +468,9 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     calib: a dict that receives the absmax at each W8A8 site (keys as in
     utils/quantize.COMPUTE_SITES). lora: (this block's factors, scale), whose
     effective kernels are formed here, inside any rematerialisation.
-    context_img: the i2v image tokens [B, N_img, D] of a base block."""
+    context_img: the i2v image tokens [B, N_img, D] of a base block.
+    attn_impl: the attention entry points' `impl` (kernels/flash_attention:
+    'auto', 'pallas' or 'xla')."""
     mesh = shd.active_mesh()
     if lora is not None:
         # the LoRA delta applies to the whole kernels
@@ -473,12 +479,13 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     e = p["modulation"][None].float() + e0
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 1][:, None]) + e[:, 0][:, None]).to(dtype)
-    y = _self_attention(p["self_attn"], tmp, cos, sin, rope_i, cfg, calib)
+    y = _self_attention(p["self_attn"], tmp, cos, sin, rope_i, cfg, calib, attn_impl)
     x = (x.float() + y.float() * e[:, 2][:, None]).to(dtype)
 
     xn = (layer_norm(x, p["norm3"]["scale"], p["norm3"]["bias"], eps=cfg.eps)
           if cfg.cross_attn_norm else x)
-    x = x + _cross_attention(p["cross_attn"], xn, context, cfg, calib, context_img)
+    x = x + _cross_attention(p["cross_attn"], xn, context, cfg, calib, context_img,
+                             attn_impl)
 
     tmp = layer_norm(x, eps=cfg.eps).float()
     tmp = (tmp * (1.0 + e[:, 4][:, None]) + e[:, 3][:, None]).to(dtype)
@@ -599,14 +606,14 @@ def geoada_patch_embedding(params: Params, cfg: WanDiTConfig, geoada_context):
 
 
 def _block(remat: bool, p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
-           rope_i, calib=None, lora=None, context_img=None):
+           rope_i, calib=None, lora=None, context_img=None, attn_impl: str = "auto"):
     """wan_block_forward, rematerialised in the backward pass when `remat`
     and grad is enabled (the counterpart of jax.checkpoint on the block)."""
     if remat and torch.is_grad_enabled():
         return checkpoint(wan_block_forward, p, cfg, x, e0, cos, sin, context,
-                          rope_i, None, lora, context_img, use_reentrant=False)
+                          rope_i, None, lora, context_img, attn_impl, use_reentrant=False)
     return wan_block_forward(p, cfg, x, e0, cos, sin, context, rope_i, calib, lora,
-                             context_img)
+                             context_img, attn_impl)
 
 
 def _stack_stats(cals):
@@ -616,7 +623,8 @@ def _stack_stats(cals):
 def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
                    geoada_tokens: Optional[torch.Tensor] = None,
                    geoada_scale: float = 1.0, remat: bool = False,
-                   calibrate: bool = False, lora=None, context_img=None):
+                   calibrate: bool = False, lora=None, context_img=None,
+                   attn_impl: str = "auto"):
     """All transformer blocks, with the GeoAdapter superstep when present.
     cos/sin: half-width RoPE tables [S, head_dim/2]. remat: recompute each
     block (and each GeoAdapter block) in the backward pass instead of
@@ -625,7 +633,10 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     {"blocks": {site: [L]}, "geoada_blocks": {site: [G]}} (inference only).
     lora: (factors of utils/lora.init_lora, scale), applied block by block.
     context_img: the i2v image tokens, which only the base blocks attend
-    to."""
+    to. attn_impl: 'auto' (the kernels on CUDA tensors, their plain
+    versions on the CPU), 'pallas' (the kernels; ValueError on the CPU) or
+    'xla' (the reference math on any device), as the JAX package's
+    attn_impl; under a mesh the sequence-parallel path runs either way."""
     if calibrate and remat:
         raise ValueError("calibrate is inference-only (stats escape remat)")
     if shd.active_mesh() is not None:
@@ -643,7 +654,7 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
 
     def base(b, x):
         return _block(remat, blocks[b], cfg, x, e0, cos, sin, context, rope_i, bcals[b],
-                      block_factors(lora, "blocks", b), context_img)
+                      block_factors(lora, "blocks", b), context_img, attn_impl)
 
     if not cfg.has_geoadapter or geoada_tokens is None:
         for i in range(len(blocks)):
@@ -661,7 +672,7 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     gcals = [{} if calibrate else None for _ in params["geoada_blocks"]]
     for i, gp in enumerate(params["geoada_blocks"]):
         c = _block(remat, gp, cfg, c, e0, cos, sin, context, rope_i, gcals[i],
-                   block_factors(lora, "geoada_blocks", i))
+                   block_factors(lora, "geoada_blocks", i), attn_impl=attn_impl)
         for j in range(stride):
             x = base(stride * i + j, x)
             if j == 0:
@@ -686,13 +697,15 @@ def wan_dit_head(params: Params, cfg: WanDiTConfig, x, e, grid):
 @torch.no_grad()
 def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
                     geoada_context=None, geoada_scale: float = 1.0, y=None,
-                    clip_fea=None, y_camera=None, calibrate: bool = False):
+                    clip_fea=None, y_camera=None, calibrate: bool = False,
+                    attn_impl: str = "auto"):
     """Full denoiser forward: x [B, C_in, F, H, W] latents, t [B] timesteps,
     context [B, text_len, text_dim], cos/sin [S, head_dim/2] RoPE tables,
     geoada_context [B, geoada_in_dim, F, H, W]; y [B, C_y, F, H, W] i2v
     latents concatenated on channels, clip_fea and y_camera as in
     wan_dit_embed -> velocity [B, C_out, F, H, W]; with calibrate,
-    (velocity, the activation absmax stats of wan_dit_blocks)."""
+    (velocity, the activation absmax stats of wan_dit_blocks). attn_impl as
+    in wan_dit_blocks."""
     if y is not None:
         x = torch.cat([x, y.to(x.dtype)], dim=1)
     tokens, e, e0, ctx, ctx_img, grid = wan_dit_embed(params, cfg, x, t, context,
@@ -704,7 +717,8 @@ def wan_dit_forward(params: Params, cfg: WanDiTConfig, x, t, context, cos, sin,
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos.to(x.device),
                             sin.to(x.device), ctx,
                             geoada_tokens=gtokens, geoada_scale=geoada_scale,
-                            calibrate=calibrate, context_img=ctx_img)
+                            calibrate=calibrate, context_img=ctx_img,
+                            attn_impl=attn_impl)
     if calibrate:
         tokens, stats = tokens
         return wan_dit_head(params, cfg, tokens, e, grid), stats

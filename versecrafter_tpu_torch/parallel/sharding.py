@@ -21,7 +21,13 @@ per GPU with explicit collectives over the mesh's groups (core/mesh.py):
   the plain flash kernel over the whole sequence on N / (tp * sp) heads,
   all_to_all back) when the local head count divides by sp, else the ring
   (kernels/ring_attention.py); sp_cross_attention attends each sequence
-  shard to the whole (short) context without a collective.
+  shard to the whole (short) context without a collective;
+- the VAE: shard_vae_io cuts a [B, C, T, H, W] video or latent to this
+  rank's slice of the width over the joint (sp, tp) group (the JAX spec
+  P(None, None, None, None, ("sp", "tp"))), or leaves it whole where the
+  width does not divide; its WidthShard exchanges the conv halos
+  (batch_isend_irecv with both neighbours) and gathers the attention
+  block's frame, and gather_vae_io makes the result whole again.
 
 Gradients follow one rule: each rank's backward gives the gradient of the
 (replicated) loss through its own tokens, and sync_grads sums every
@@ -452,15 +458,15 @@ def tp_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, dim: int) -> 
 # sequence-parallel attention
 # ---------------------------------------------------------------------------
 
-def ulysses_attention(q, k, v, window_size=(-1, -1)) -> torch.Tensor:
+def ulysses_attention(q, k, v, window_size=(-1, -1), impl: str = "auto") -> torch.Tensor:
     """Self-attention of this rank's [B, N/tp, S/sp, D] shards: all_to_all
-    over sp to [B, N/(tp*sp), S, D], the flash kernel over the whole
-    sequence (a window applies unchanged), all_to_all back. Needs
-    (N/tp) % sp == 0."""
+    over sp to [B, N/(tp*sp), S, D], the flash kernel (or `impl`'s
+    attention) over the whole sequence (a window applies unchanged),
+    all_to_all back. Needs (N/tp) % sp == 0."""
     mesh = active_mesh()
     n = 1 if mesh is None else mesh.shape["sp"]
     if n == 1:
-        return flash_attention(q, k, v, window_size=window_size)
+        return flash_attention(q, k, v, window_size=window_size, impl=impl)
     group = mesh.group("sp")
     b, nh, sl, d = q.shape
 
@@ -470,7 +476,7 @@ def ulysses_attention(q, k, v, window_size=(-1, -1)) -> torch.Tensor:
             b, nh // n, n * sl, d)
 
     o = flash_attention(scatter_heads(q), scatter_heads(k), scatter_heads(v),
-                        window_size=window_size)
+                        window_size=window_size, impl=impl)
     o = o.reshape(b, nh // n, n, sl, d).permute(2, 0, 1, 3, 4)
     return _AllToAll.apply(o.contiguous(), group).permute(1, 0, 2, 3, 4).reshape(b, nh, sl, d)
 
@@ -485,18 +491,21 @@ def ring_sp_attention(q, k, v) -> torch.Tensor:
     return ring_attention(q, k, v, mesh.group("sp"), mesh.global_ranks("sp"))
 
 
-def sequence_parallel_attention(q, k, v, window_size=(-1, -1)) -> torch.Tensor:
+def sequence_parallel_attention(q, k, v, window_size=(-1, -1),
+                                impl: str = "auto") -> torch.Tensor:
     """Ulysses when this rank's head count divides by sp, else the ring. A
     window needs the Ulysses path (the ring's merge has no per-shard window
-    offsets)."""
+    offsets). `impl` reaches the local attention of Ulysses; the ring's
+    hops are the kernels' (the train CLI, as the JAX one, sets 'sp' for
+    sp > 1)."""
     mesh = active_mesh()
     if mesh is None:
-        return flash_attention(q, k, v, window_size=window_size)
+        return flash_attention(q, k, v, window_size=window_size, impl=impl)
     sp = mesh.shape["sp"]
     heads_local = q.shape[1]
     windowed = tuple(window_size) != (-1, -1)
     if heads_local % sp == 0:
-        return ulysses_attention(q, k, v, window_size=window_size)
+        return ulysses_attention(q, k, v, window_size=window_size, impl=impl)
     if windowed:
         raise NotImplementedError(
             f"window_size={tuple(window_size)} with sp={sp} needs "
@@ -505,10 +514,80 @@ def sequence_parallel_attention(q, k, v, window_size=(-1, -1)) -> torch.Tensor:
     return ring_sp_attention(q, k, v)
 
 
-def sp_cross_attention(q, k, v) -> torch.Tensor:
+def sp_cross_attention(q, k, v, impl: str = "auto") -> torch.Tensor:
     """Cross-attention of a query sequence shard against the whole short
     context: no collective, each shard attends locally."""
-    return flash_attention(q, k, v)
+    return flash_attention(q, k, v, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# the VAE's width
+# ---------------------------------------------------------------------------
+
+VAE_WIDTH_AXES = ("sp", "tp")
+
+
+class WidthShard:
+    """Shard `index` of `count` of a [B, C, T, H, W] tensor's width: the
+    ranks of `group` (global `ranks`, in shard order) each hold one
+    contiguous slice. models/vae.py calls halo() before each conv wider than
+    one column and gather() in the attention block."""
+
+    def __init__(self, group, ranks, index: int):
+        self.group, self.ranks, self.index, self.count = group, list(ranks), index, len(ranks)
+
+    def halo(self, x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+        """x with the left neighbour's last `left` columns before it and the
+        right neighbour's first `right` after it (zeros past the global
+        edges): one batch of point-to-point ops with both neighbours."""
+        ops, lo, hi = [], None, None
+        shape = list(x.shape)
+        if self.index > 0:
+            prv = self.ranks[self.index - 1]
+            if right:
+                ops.append(dist.P2POp(dist.isend, x[..., :right].contiguous(), prv, self.group))
+            if left:
+                lo = x.new_empty(shape[:4] + [left])
+                ops.append(dist.P2POp(dist.irecv, lo, prv, self.group))
+        if self.index < self.count - 1:
+            nxt = self.ranks[self.index + 1]
+            if left:
+                ops.append(dist.P2POp(dist.isend, x[..., -left:].contiguous(), nxt, self.group))
+            if right:
+                hi = x.new_empty(shape[:4] + [right])
+                ops.append(dist.P2POp(dist.irecv, hi, nxt, self.group))
+        for w in dist.batch_isend_irecv(ops) if ops else ():
+            w.wait()
+        lo = x.new_zeros(shape[:4] + [left]) if lo is None else lo
+        hi = x.new_zeros(shape[:4] + [right]) if hi is None else hi
+        return torch.cat([lo, x, hi], dim=4)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole width: every shard's x, concatenated in order."""
+        return _all_gather(x, self.group, dim=4)
+
+
+def shard_vae_io(x: torch.Tensor, mesh: Optional[Mesh], halvings: int = 0):
+    """(this rank's width slice of a [B, C, T, H, W] tensor, its WidthShard)
+    over the joint (sp, tp) group, shard sp_coord * tp + tp_coord; or (x,
+    None), x whole, without a mesh of more than one rank, where the group
+    has one rank, where the width does not divide (the JAX package then
+    replicates it), or where a slice would go odd at one of `halvings`
+    stride-2 stages (the encoder's downsamples)."""
+    if mesh is None or mesh.size == 1:
+        return x, None
+    n = _axis_size(mesh, VAE_WIDTH_AXES)
+    w = x.shape[4]
+    if n == 1 or w % n or (w // n) % (1 << halvings):
+        return x, None
+    i = _axis_index(mesh, VAE_WIDTH_AXES)
+    shard = WidthShard(mesh.group(VAE_WIDTH_AXES), mesh.global_ranks(VAE_WIDTH_AXES), i)
+    return x.narrow(4, i * (w // n), w // n).contiguous(), shard
+
+
+def gather_vae_io(y: torch.Tensor, width: Optional[WidthShard]) -> torch.Tensor:
+    """The whole width of a shard's VAE output (y itself when whole)."""
+    return y if width is None else width.gather(y)
 
 
 # ---------------------------------------------------------------------------

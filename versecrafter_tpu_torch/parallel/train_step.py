@@ -47,11 +47,13 @@ def tree_leaves(tree) -> Iterator[torch.Tensor]:
 
 
 def flow_matching_loss(params: Params, cfg: WanDiTConfig, x0, context, cos, sin,
-                       geoada_context, sig, noise, remat: bool = True, lora=None):
+                       geoada_context, sig, noise, remat: bool = True, lora=None,
+                       attn_impl: str = "auto"):
     """Rectified-flow loss: x_sig = (1 - sig) x0 + sig * noise, target
     noise - x0, timestep 1000 * sig, mean squared error in fp32.
     x0 [B, C, F, H, W] latents, sig [B] in [0, 1), noise like x0.
-    lora: (factors, scale) applied to the blocks' kernels."""
+    lora: (factors, scale) applied to the blocks' kernels. attn_impl as in
+    models/wan_dit.wan_dit_blocks."""
     sb = sig[:, None, None, None, None].to(x0.dtype)
     x_sig = (1.0 - sb) * x0 + sb * noise
     target = noise - x0
@@ -61,7 +63,7 @@ def flow_matching_loss(params: Params, cfg: WanDiTConfig, x0, context, cos, sin,
     if geoada_context is not None and cfg.has_geoadapter:
         gtok = constrain_tokens(geoada_patch_embedding(params, cfg, geoada_context))
     tokens = wan_dit_blocks(params, cfg, tokens, e0, cos, sin, ctx,
-                            geoada_tokens=gtok, remat=remat, lora=lora)
+                            geoada_tokens=gtok, remat=remat, lora=lora, attn_impl=attn_impl)
     pred = wan_dit_head(params, cfg, tokens, e, grid)
     return (pred.float() - target.float()).square().mean()
 
@@ -111,7 +113,8 @@ def _optimized(optimizer):
     return [t for g in optimizer.param_groups for t in g["params"]]
 
 
-def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
+def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
+                    attn_impl: str = "auto"):
     """train_step(params, x0, context, cos, sin, geoada_context=None,
     key=None, sig=None, noise=None) -> loss: one optimizer step on the
     leaves the optimizer holds (updated in place), blocks rematerialised.
@@ -123,7 +126,7 @@ def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
         sig, noise = _sig_noise(key, sig, noise, x0)
         optimizer.zero_grad(set_to_none=True)
         loss = flow_matching_loss(params, cfg, x0, context, cos, sin,
-                                  geoada_context, sig, noise)
+                                  geoada_context, sig, noise, attn_impl=attn_impl)
         loss.backward()
         sync_grads(_optimized(optimizer))
         optimizer.step()
@@ -133,7 +136,7 @@ def make_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer):
 
 
 def make_lora_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
-                         lora_scale: float = 1.0):
+                         lora_scale: float = 1.0, attn_impl: str = "auto"):
     """train_step(lora, base_params, x0, context, cos, sin,
     geoada_context=None, key=None, sig=None, noise=None) -> loss: one
     optimizer step on the LoRA factors (the optimizer holds them; see
@@ -151,7 +154,8 @@ def make_lora_train_step(cfg: WanDiTConfig, optimizer: torch.optim.Optimizer,
         sig, noise = _sig_noise(key, sig, noise, x0)
         optimizer.zero_grad(set_to_none=True)
         loss = flow_matching_loss(base_params, cfg, x0, context, cos, sin,
-                                  geoada_context, sig, noise, lora=(lora, lora_scale))
+                                  geoada_context, sig, noise, lora=(lora, lora_scale),
+                                  attn_impl=attn_impl)
         loss.backward()
         sync_grads(_optimized(optimizer))
         optimizer.step()

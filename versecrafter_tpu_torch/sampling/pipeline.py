@@ -21,8 +21,11 @@ time axis, and a masked init video (`video=`).
 
 Under a mesh (core/mesh.make_mesh; set_mesh) each rank is one process of a
 torchrun world: the DiT is sharded over (fsdp, tp), umT5 FSDP-sharded over
-every axis and gathered at use, the VAE and CLIP tower whole on every rank,
-and the DiT's tokens split over (dp, sp) (parallel/sharding.py). Each rank
+every axis and gathered at use, the CLIP tower whole on every rank, the
+DiT's tokens split over (dp, sp), and the VAE's width over the joint (sp,
+tp) group (parallel/sharding.shard_vae_io: each rank encodes and decodes its
+slice, the conv halos exchanged with its neighbours, and the latents and
+frames are gathered whole on every rank). Each rank
 draws the whole noise from the seed and ends every step with the whole
 prediction, so the scheduler, the CFG combine and TeaCache's decision (from
 the replicated e0) run the same on every rank; only the cached residual is
@@ -171,9 +174,10 @@ class VerseCrafterPipeline:
 
     def set_mesh(self, mesh):
         """Shard the pipeline onto a mesh: the DiT (each expert) over (fsdp,
-        tp), umT5 over every axis, the VAE and CLIP whole; the DiT's
-        attention then takes the sequence-parallel path. A mesh of one rank
-        (or None) is the single-device pipeline."""
+        tp), umT5 over every axis, the VAE's weights and CLIP whole (the
+        VAE's width is split per call); the DiT's attention then takes the
+        sequence-parallel path. A mesh of one rank (or None) is the
+        single-device pipeline."""
         self.mesh = mesh
         if mesh is None or mesh.size == 1:
             return
@@ -340,10 +344,17 @@ class VerseCrafterPipeline:
 
     def _vae_encode(self, x):
         """A [B, 3, T, H, W] video in [-1, 1] -> latents; above
-        VAE_STREAM_THRESHOLD voxels (T > 1) through the streaming encoder."""
-        if x.shape[2] > 1 and math.prod(x.shape[2:]) > self.VAE_STREAM_THRESHOLD:
-            return vae_encode_chunked(self.vae_params, self.vae_cfg, x)
-        return vae_encode(self.vae_params, self.vae_cfg, x)
+        VAE_STREAM_THRESHOLD voxels (T > 1) through the streaming encoder.
+        Under a mesh each rank encodes its slice of the width (whole where
+        the width does not divide, or a slice would go odd at one of the
+        encoder's stride-2 stages) and the latents are gathered."""
+        stream = x.shape[2] > 1 and math.prod(x.shape[2:]) > self.VAE_STREAM_THRESHOLD
+        x, width = shd.shard_vae_io(x, self.mesh, len(self.vae_cfg.dim_mult) - 1)
+        if stream:
+            z = vae_encode_chunked(self.vae_params, self.vae_cfg, x, width=width)
+        else:
+            z = vae_encode(self.vae_params, self.vae_cfg, x, width=width)
+        return shd.gather_vae_io(z, width)
 
     @torch.no_grad()
     def encode_controls(self, control_videos: Sequence[np.ndarray],
@@ -604,26 +615,31 @@ class VerseCrafterPipeline:
         or 0..255 (uint8, quantized on the device). Above
         VAE_STREAM_THRESHOLD output voxels the streaming decoder runs, its
         chunks moved to the host as they finish. mark(name) closes the
-        'vae_decode' and 'download' stages."""
+        'vae_decode' and 'download' stages. Under a mesh each rank decodes
+        its slice of the width and the frames are gathered before the
+        host copy, so every rank (rank 0 writes and answers) holds them
+        whole."""
         out_voxels = (math.prod(latents.shape[2:])
                       * self.vae_cfg.temporal_compression_ratio
                       * self.vae_cfg.spatial_compression_ratio ** 2)
+        latents, width = shd.shard_vae_io(latents, self.mesh)
         if latents.shape[2] > 1 and out_voxels > self.VAE_STREAM_THRESHOLD:
-            return self._decode_stream_overlapped(latents, output_type, mark)
-        video = _finalize_pixels(vae_decode(self.vae_params, self.vae_cfg, latents),
-                                 output_type)
+            return self._decode_stream_overlapped(latents, output_type, mark, width)
+        video = shd.gather_vae_io(_finalize_pixels(
+            vae_decode(self.vae_params, self.vae_cfg, latents, width=width), output_type), width)
         mark("vae_decode")
         out = video.permute(0, 2, 3, 4, 1).cpu().numpy()
         mark("download")
         return out
 
     def _decode_stream_overlapped(self, latents, output_type: str,
-                                  mark: Callable[[str], None] = lambda name: None
-                                  ) -> np.ndarray:
+                                  mark: Callable[[str], None] = lambda name: None,
+                                  width=None) -> np.ndarray:
         """Streaming decode whose chunks go to the host on a worker thread:
         chunk N is copied (on a side stream of its own, after an event that
         marks the end of the chunk's device work) while chunk N+1 decodes.
-        An error of the worker is raised here."""
+        An error of the worker is raised here. width: latents are that
+        shard's slice, and each chunk's frames are gathered whole."""
         cuda = latents.device.type == "cuda"
         copy_stream = torch.cuda.Stream(latents.device) if cuda else None
         chunks: list = []
@@ -653,8 +669,8 @@ class VerseCrafterPipeline:
         worker = threading.Thread(target=downloader, daemon=True)
         worker.start()
         try:
-            for y in vae_decode_stream(self.vae_params, self.vae_cfg, latents):
-                frames = _finalize_pixels(y, output_type)
+            for y in vae_decode_stream(self.vae_params, self.vae_cfg, latents, width=width):
+                frames = shd.gather_vae_io(_finalize_pixels(y, output_type), width)
                 del y
                 ready = None
                 if cuda:
