@@ -239,6 +239,22 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      seven others), counted from the shapes. Then one --tiny train step
      of the train CLI with --attn_impl xla on the card (no kernel launched)
      against the default step on the CPU, the losses within 1e-4 * |loss|.
+ 16. quantized tensor parallelism, one rank's share of tp = 8 (one card: the
+     eight shards run one after another, each torch.distributed.all_reduce
+     replayed round by round from the shards' own contributions, smoke
+     only): the Wan2.1-T2V-14B FFN pair in W8A8 and in W4A8 at the
+     480x832x81 CFG-2 point (65,520 rows), ffn_in's column shards
+     concatenated equal to the whole product and ffn_out's s32 partials
+     summed equal to the whole s32 product, each shard's rescaled output
+     equal to the whole int8_compute_dot, all bit for bit; then one 14B +
+     GeoAdapter block in W8A8 on shard 0 (rows 1-2 at 5 heads, the q / k
+     statistics of the whole rows) against the whole block's output within
+     twice its bf16 noise floor, the shard's and the whole's times and
+     peaks, rows 1-2 timed at the shard's shapes, and the bytes a rank sends
+     per block (each all_reduce call's tensor, ring-reduced over 8 ranks)
+     beside a bf16 tp path's. Phase 5's trained GeoAdapter tree is written
+     through core/checkpoint.py (the JAX package's orbax layout) and read
+     back byte-equal.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -282,6 +298,8 @@ TPU_KERNELS = {
     "flash_attention_ring_hop": "versecrafter_tpu/kernels/flash_attention.py:363",
     "fa_backward_dq_ring": "versecrafter_tpu/kernels/flash_attention_bwd.py:100",
     "fa_backward_dkv_ring": "versecrafter_tpu/kernels/flash_attention_bwd.py:142",
+    "fused_rope_rms_attention_tp8": "versecrafter_tpu/kernels/flash_attention.py:800",
+    "fused_rms_cross_attention_tp8": "versecrafter_tpu/kernels/flash_attention.py:800",
 }
 SOURCES = {
     "fused_rope_rms_attention": "versecrafter_tpu_torch/csrc/fused_attention.cu",
@@ -298,6 +316,8 @@ SOURCES = {
     "flash_attention_ring_hop": "versecrafter_tpu_torch/csrc/flash_attention.cu",
     "fa_backward_dq_ring": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
     "fa_backward_dkv_ring": "versecrafter_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fused_rope_rms_attention_tp8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
+    "fused_rms_cross_attention_tp8": "versecrafter_tpu_torch/csrc/fused_attention.cu",
 }
 # (B, N, Sq, Skv, window, k_lens) that straddle the fused kernel's tiles
 FUSED_EDGE_CASES = [(1, 2, 193, 321, (-1, -1), None), (2, 2, 129, 64, (-1, -1), (64, 0)),
@@ -1122,9 +1142,40 @@ def train_phase(fa, fab, ms, dev, card):
     log(f"[train] all {moved} trainable leaves moved; all "
         f"{len(frozen_before)} frozen leaves bit-identical")
     del train_before, frozen_before
+    checkpoint_round_trip(train, card)
     profile_step(step, min(times[1:]), card)
     log(f"[train] {time.perf_counter() - t0:.1f} s")
     return {k: counts[k] for k in ("flash_attention", "fa_backward_dq", "fa_backward_dkv")}
+
+
+def checkpoint_round_trip(train, card):
+    """Phase 5's trained GeoAdapter tree written through core/checkpoint.py
+    (the JAX package's orbax layout: block lists stacked, one uncompressed
+    zarr array a leaf) into a temporary directory, read back against the
+    tree itself, every leaf's bytes equal."""
+    import tempfile
+
+    from versecrafter_tpu_torch.core import checkpoint as tckpt
+    from versecrafter_tpu_torch.parallel.train_step import tree_leaves
+    tree = {"params": train}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(train))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "step_000002")
+        t1 = time.perf_counter()
+        tckpt.save_checkpoint(path, tree)
+        save_s = time.perf_counter() - t1
+        files = len(os.listdir(path))
+        t1 = time.perf_counter()
+        back = tckpt.load_checkpoint(path, template=tree, device=torch.device("cuda"))
+        load_s = time.perf_counter() - t1
+    same = all(torch.equal(a.detach().contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in zip(tree_leaves(train), tree_leaves(back["params"])))
+    log(f"[train] checkpoint (orbax layout, {files} entries, {nbytes / 1e9:.3f} GB): "
+        f"written in {save_s:.1f} s, read back in {load_s:.1f} s, every leaf byte-equal "
+        f"{same} on {card}")
+    if not same:
+        raise AssertionError("the checkpoint did not read back byte-equal")
 
 
 def timed_step(step, label, card, reps=2, tag="variants", profile=True, top=15):
@@ -4113,6 +4164,275 @@ def vae_phase(fa, fab, dev, card):
     return res
 
 
+# phase 16: one rank's share of tensor parallelism over 8 ranks at the 14B's
+# 480x832x81 CFG-2 point
+TP_RANKS = 8
+TP_ROWS = (2, 21 * 30 * 52)  # CFG-2 batch, 32,760 tokens: 65,520 rows
+
+
+class TpShardMesh:
+    """Shard `index` of a tp group of `count` as parallel/sharding.py sees a
+    mesh (shape, coord, size, group); the groups are names only: the
+    collectives are AllReduceReplay's."""
+
+    def __init__(self, index, count):
+        self.shape = {"dp": 1, "fsdp": 1, "sp": 1, "tp": count}
+        self.coord = {"dp": 0, "fsdp": 0, "sp": 0, "tp": index}
+        self.size = count
+
+    def group(self, axis):
+        return ("replayed", axis)
+
+
+class AllReduceReplay:
+    """torch.distributed.all_reduce for `count` tp shards run one after
+    another on one card (smoke only: one card has no tp group). run(fn)
+    runs fn(i) for every shard, round after round: call j of a shard takes
+    the reduction of the shards' call j once a round has gathered it, so
+    round r knows the first r calls' results and gathers the next; the last
+    round, which gathers nothing, is every shard's exact work. `calls`
+    keeps each call's tensor bytes."""
+
+    def __init__(self, count):
+        self.count, self.results, self.calls = count, [], []
+
+    def all_reduce(self, t, op=torch.distributed.ReduceOp.SUM, group=None, async_op=False):
+        j = self.call
+        self.call += 1
+        if j < len(self.results):
+            t.copy_(self.results[j])
+        elif j == len(self.results):
+            if self.acc is None:
+                self.acc = t.clone()
+                self.calls.append(t.numel() * t.element_size())
+            elif op == torch.distributed.ReduceOp.MAX:
+                torch.maximum(self.acc, t, out=self.acc)
+            else:
+                self.acc += t
+
+    def shard(self, fn, i):
+        """fn(i) with this replay's collectives, mesh queries and group
+        sizes in place of torch.distributed's."""
+        dist = torch.distributed
+        saved = (dist.all_reduce, dist.get_world_size, dist.get_rank)
+        dist.all_reduce = self.all_reduce
+        dist.get_world_size = lambda group=None: self.count
+        dist.get_rank = lambda group=None: i
+        self.call = 0
+        try:
+            return fn(i)
+        finally:
+            dist.all_reduce, dist.get_world_size, dist.get_rank = saved
+
+    def run(self, fn):
+        while True:
+            self.acc = None
+            outs = [self.shard(fn, i) for i in range(self.count)]
+            if self.acc is None:
+                return outs
+            self.results.append(self.acc)
+            del outs
+
+
+def ring_sent(call_bytes, n):
+    """Bytes one rank sends for ring all-reduces of these sizes over n."""
+    return sum(2 * (n - 1) * b // n for b in call_bytes)
+
+
+def tp_ffn_products(dev, card):
+    """Phase 16 (a): the 14B FFN pair at 65,520 rows in W8A8 and W4A8, whole
+    and as 8 tp shards (AllReduceReplay): the column shards' outputs
+    concatenated, the summed s32 partials and every shard's output against
+    the whole, bit for bit; times and peaks."""
+    from versecrafter_tpu_torch.core.config import versecrafter_14b
+    from versecrafter_tpu_torch.parallel import sharding as shd
+    from versecrafter_tpu_torch.utils import quantize as qz
+    cfg = versecrafter_14b()
+    M, D, F = TP_ROWS[0] * TP_ROWS[1], cfg.dim, cfg.ffn_dim
+    g = torch.Generator(device=dev).manual_seed(160)
+    x = torch.randn(M, D, generator=g, device=dev).to(torch.bfloat16)
+    out = {}
+    for label, bits in (("W8A8", 8), ("W4A8", 4)):
+        blk = {}
+        for name, (k, n) in (("ffn_in", (D, F)), ("ffn_out", (F, D))):
+            lim = math.sqrt(6.0 / (k + n))
+            blk[name] = {"kernel": ((torch.rand(k, n, generator=g, device=dev) * 2 - 1)
+                                    * lim).to(torch.bfloat16)}
+        blk = qz.quantize_dit_block(blk, "blocks", 0, cfg.num_layers, bits, True)
+        w_in, w_out = blk["ffn_in"]["kernel"], blk["ffn_out"]["kernel"]
+
+        def whole():
+            return qz.int8_compute_dot(w_out, torch.nn.functional.gelu(
+                qz.int8_compute_dot(w_in, x), approximate="tanh"))
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y_whole = whole()
+        torch.cuda.synchronize()
+        whole_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        whole_ms = cuda_ms(whole, 3)
+        h_whole = torch.nn.functional.gelu(qz.int8_compute_dot(w_in, x), approximate="tanh")
+        a, hq = qz._quantize_rows(h_whole, None)
+        y32 = qz._int_mm(hq, qz._product_weight(w_out))
+        del a, hq
+        shards = [shd.shard_dit_params(blk, TpShardMesh(i, TP_RANKS), ("blocks", 0))
+                  for i in range(TP_RANKS)]
+        hs = []
+
+        @torch.no_grad()
+        def shard_ffn(i):
+            mesh = TpShardMesh(i, TP_RANKS)
+            with shd.mesh_context(mesh):
+                h = torch.nn.functional.gelu(shd.tp_linear(shards[i]["ffn_in"], x, "col"),
+                                             approximate="tanh")
+                if len(hs) < TP_RANKS:
+                    hs.append(h)
+                return shd.tp_linear(shards[i]["ffn_out"], h, "row")
+
+        replay = AllReduceReplay(TP_RANKS)
+        ys = replay.run(shard_ffn)
+        col_equal = torch.equal(torch.cat(hs, dim=1), h_whole)
+        hs[:] = [None] * TP_RANKS  # kept no longer (the list stays full)
+        del h_whole
+        s32_equal = replay.results[-1].dtype == torch.int32 and torch.equal(
+            replay.results[-1], y32)
+        out_equal = all(torch.equal(y, y_whole) for y in ys)
+        del ys, y32
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        replay.shard(shard_ffn, 0)
+        torch.cuda.synchronize()
+        shard_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        shard_ms = cuda_ms(lambda: replay.shard(shard_ffn, 0), 3)
+        codes = qz.codes(shards[0]["ffn_out"]["kernel"])
+        log(f"  [tp] {label} FFN pair [{M}, {D}] -> {F} -> {D} over tp = {TP_RANKS}: "
+            f"ffn_in's column shards concatenated equal the whole {col_equal}; ffn_out's "
+            f"s32 partials ({tuple(codes.shape)} {codes.dtype} codes a shard) summed "
+            f"equal the whole s32 product {s32_equal}; every shard's output equals the "
+            f"whole int8_compute_dot {out_equal}; shard {shard_ms:.3f} ms (collectives "
+            f"replayed from memory) against whole {whole_ms:.3f} ms; peak +{shard_gib:.2f} "
+            f"against +{whole_gib:.2f} GiB; all_reduce calls {replay.calls} B on {card}")
+        if not (col_equal and s32_equal and out_equal):
+            raise AssertionError(f"the {label} tp products differ from the whole ones")
+        out[label] = {"shard_ms": shard_ms, "whole_ms": whole_ms, "shard_peak_gib": shard_gib,
+                      "whole_peak_gib": whole_gib}
+        del shards, blk, y_whole, w_in, w_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x
+    return out
+
+
+def tp_block(fa, dev, card):
+    """Phase 16 (b): one Wan2.1-T2V-14B + GeoAdapter block in W8A8 (dynamic
+    per-row scales) at 65,520 rows: the whole block (rows 1-2 at 40 heads)
+    and tp shard 0 of 8 through the port's mesh path (rows 1-2 at 5 heads
+    with the whole rows' q / k statistics, the row products' s32 partials
+    summed), its collectives replayed by AllReduceReplay; held to the
+    whole block within twice the bf16 noise floor; times, peaks, launches
+    and the bytes a rank sends per block."""
+    from versecrafter_tpu_torch.core.config import versecrafter_14b
+    from versecrafter_tpu_torch.kernels.rope import grid_cos_sin, rope_3d_angles
+    from versecrafter_tpu_torch.models import wan_dit as twan
+    from versecrafter_tpu_torch.parallel import sharding as shd
+    from versecrafter_tpu_torch.utils import quantize as qz
+    cfg = versecrafter_14b()
+    B, S = TP_ROWS
+    g = torch.Generator(device=dev).manual_seed(161)
+    blk = twan._init_block(g, cfg, torch.bfloat16, dev)
+    blk = qz.quantize_dit_block(blk, "blocks", 0, cfg.num_layers, 8, True)
+    x = torch.randn(B, S, cfg.dim, generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(B, cfg.text_len, cfg.dim, generator=g, device=dev).to(torch.bfloat16)
+    e0 = torch.randn(B, 6, cfg.dim, generator=g, device=dev) * 0.05
+    cos, sin = grid_cos_sin(rope_3d_angles(cfg.head_dim), 21, 30, 52, device=dev)
+    rope_i = fa.prepare_fused_rope_tables(cos, sin)
+
+    @torch.no_grad()
+    def whole(xx=x):
+        return twan.wan_block_forward(blk, cfg, xx, e0, cos, sin, ctx, rope_i)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref = whole()
+    torch.cuda.synchronize()
+    whole_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    whole_ms = cuda_ms(whole, 2)
+    floor = compare("whole block at x (1 + 2^-8) vs whole block (noise floor)",
+                    whole((x.float() * (1 + 2.0 ** -8)).to(x.dtype)), ref)
+    shards = [shd.shard_dit_params(blk, TpShardMesh(i, TP_RANKS), ("blocks", 0))
+              for i in range(TP_RANKS)]
+
+    @torch.no_grad()
+    def shard_block(i):
+        with shd.mesh_context(TpShardMesh(i, TP_RANKS)):
+            return twan.wan_block_forward(shards[i], cfg, x, e0, cos, sin, ctx, rope_i)
+
+    replay = AllReduceReplay(TP_RANKS)
+    ys = replay.run(shard_block)
+    same = all(torch.equal(y, ys[0]) for y in ys)
+    got = ys[0]
+    del ys
+    compare(f"tp shard 0 of {TP_RANKS} block vs whole block", got, ref,
+            corr_bar=0.999, err_bar=2 * floor)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    replay.shard(shard_block, 0)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    shard_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    shard_ms = cuda_ms(lambda: replay.shard(shard_block, 0), 2)
+    want = {**dict.fromkeys(launches, 0), "fused_rope_rms_attention": 1,
+            "fused_rms_cross_attention": 1}
+    # a bf16 tp path sends each row product's output in bf16, and no row
+    # absmax before it
+    calls, s32 = replay.calls, B * S * cfg.dim * 4
+    bf16_calls = [B * S * cfg.dim * 2 if b == s32 else b for j, b in enumerate(calls)
+                  if not (j + 1 < len(calls) and calls[j + 1] == s32)]
+    sent, sent_bf16 = ring_sent(replay.calls, TP_RANKS), ring_sent(bf16_calls, TP_RANKS)
+    log(f"  [tp] 14B W8A8 block, shard 0 of {TP_RANKS} ({cfg.num_heads // TP_RANKS} heads, "
+        f"the rows' statistics and s32 partials replayed): {shard_ms:.1f} ms, peak +{shard_gib:.2f} GiB, against the "
+        f"whole block {whole_ms:.1f} ms, peak +{whole_gib:.2f} GiB; shards' outputs "
+        f"bit-identical to each other {same}; launches {launches}; all_reduce calls "
+        f"{replay.calls} B -> a rank sends {sent / 1e9:.3f} GB a block (ring, computed; "
+        f"a bf16 tp path: {sent_bf16 / 1e9:.3f} GB) on {card}")
+    if launches != want or not same:
+        raise AssertionError(f"the tp block's launches {launches} != {want} or its "
+                             f"shards differ")
+    del shards, blk, x, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"shard_ms": shard_ms, "whole_ms": whole_ms, "shard_peak_gib": shard_gib,
+            "whole_peak_gib": whole_gib, "sent_bytes": sent, "sent_bytes_bf16": sent_bf16,
+            "launches": launches}
+
+
+def tp_phase(fa, dev, card):
+    """Phase 16: quantized tensor parallelism over 8 ranks, one rank's share
+    (module docstring); returns the records of rows 1-2 at the shard's
+    shapes and their launches in the shard's block."""
+    t0 = time.perf_counter()
+    log(f"[tp] phase 16: one rank's share of the 14B in W8A8 / W4A8 at tp = {TP_RANKS}, "
+        f"480x832x81 CFG-2")
+    tp_ffn_products(dev, card)
+    blk = tp_block(fa, dev, card)
+    from versecrafter_tpu_torch.core.config import versecrafter_14b
+    B, S = TP_ROWS
+    heads = versecrafter_14b().num_heads // TP_RANKS
+    records = {"fused_rope_rms_attention_tp8": check_kernel(
+        fa, "fused_rope_rms_attention", B, S, S, heads, dev, timed=True),
+        "fused_rms_cross_attention_tp8": check_kernel(
+        fa, "fused_rms_cross_attention", B, S, 512, heads, dev, timed=True)}
+    launches = {k + "_tp8": blk["launches"][k] for k in ("fused_rope_rms_attention",
+                                                        "fused_rms_cross_attention")}
+    log(f"[tp] {time.perf_counter() - t0:.1f} s")
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4374,6 +4694,11 @@ def main() -> int:
 
     # -- 15. the VAE's width over 8 ranks, one rank's share; --attn_impl xla
     vae_phase(fa, fab, dev, card)
+
+    # -- 16. quantized tensor parallelism over 8 ranks, one rank's share ---
+    recs, counts = tp_phase(fa, dev, card)
+    records.update(recs)
+    launches_main.update(counts)
 
     if failures:
         raise AssertionError("; ".join(failures))

@@ -548,7 +548,7 @@ def test_train_cli_starts_from_model_name(model_dir, tiny_text_and_vae, tmp_path
     assert len(losses) == 2 and all(np.isfinite(losses))
     pipe = tconvert.load_versecrafter(model_dir, geoada_in_dim=128, device="cpu")
     template = {k: v for k, v in pipe.dit_params.items() if k.startswith("geoada")}
-    saved = load_checkpoint(str(tmp_path / "step_000002.pt"), template={"params": template})
+    saved = load_checkpoint(str(tmp_path / "step_000002"), template={"params": template})
     assert saved["params"]["geoada_patch_embedding"]["kernel"].shape == (128 * 4, DIR_CFG.dim)
     assert not torch.equal(saved["params"]["geoada_blocks"][0]["ffn_in"]["kernel"],
                            template["geoada_blocks"][0]["ffn_in"]["kernel"])

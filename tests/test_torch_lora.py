@@ -24,6 +24,7 @@ from versecrafter_tpu.models.wan_dit import init_wan_dit
 from versecrafter_tpu.parallel import train_step as jts
 from versecrafter_tpu.utils import lora as jl
 from versecrafter_tpu_torch.cli import train as tcli
+from versecrafter_tpu_torch.core.checkpoint import load_checkpoint
 from versecrafter_tpu_torch.core.convert import load_torch_state_dict, params_from_jax
 from versecrafter_tpu_torch.kernels import flash_attention as tfa
 from versecrafter_tpu_torch.kernels import flash_attention_bwd as tfab
@@ -260,14 +261,16 @@ def test_lora_attention_launch_count_per_step(monkeypatch):
 
 def test_lora_cli_trains_and_exports(tmp_path):
     """--lora_rank on the tiny model: finite losses, the factors saved as
-    the checkpoint and exported as safetensors that read back equal and
+    the checkpoint (the JAX layout's directory, read back against the
+    trained factors) and exported as safetensors that read back equal and
     merge into the base tree through the generate path's reader."""
     out = tcli.run(tcli.parse_args([
         "--tiny", "--synthetic", "4", "--steps", "3", "--device", "cpu",
         "--sample_size", "64,64", "--video_length", "9", "--lora_rank", "4",
         "--lora_alpha", "8", "--output_dir", str(tmp_path)]))
     assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
-    saved = torch.load(os.path.join(tmp_path, "step_000003.pt"))["params"]
+    saved = load_checkpoint(os.path.join(tmp_path, "step_000003"),
+                            template={"params": out["train"]})["params"]
     assert sorted(saved) == ["blocks", "geoada_blocks"]
     _assert_equal(saved, jax.tree.map(lambda t: t.detach(), out["train"]))
     assert any(f["up"].abs().max() > 0 for g in saved.values() for f in g.values())

@@ -175,7 +175,8 @@ def test_sharded_dit_forward_matches_jax(spec, tmp_path):
     """One launch per MeshSpec: the DiT forward (at sp=4 also the ring's
     dispatch at 2 heads and the FSDP-sharded umT5 encode; at (fsdp=2, tp=2)
     also the i2v image keys, img_emb and the camera tokens) on every rank
-    equals the JAX package's sharded forward on the virtual mesh. At
+    equals the JAX package's sharded forward on the virtual mesh; without a
+    sequence split the self-attention runs the fused kernel's path. At
     (fsdp=2, tp=2) the base case runs the block FFN in chunks of 4 of its
     64 rows (FFN_CHUNK_ROWS lowered to 32), as a 720p request does."""
     cases, arrays, want = [], {}, {}
@@ -198,13 +199,17 @@ def test_sharded_dit_forward_matches_jax(spec, tmp_path):
             assert got.shape == w.shape
             assert _rel_err(got, w) <= BAR, (r, name, _rel_err(got, w))
             np.testing.assert_array_equal(got, outs[0][name + ".out"])
-        # 4 base + 2 GeoAdapter blocks: one self-attention each
-        assert int(out["dit.ulysses"]) == 6 and int(out["dit.ring"]) == 0
+        # 4 base + 2 GeoAdapter blocks: one self-attention each, over
+        # Ulysses with a sequence split, else through the fused kernel on
+        # the rank's heads
+        fused = 6 if spec.sp == 1 else 0
+        assert int(out["dit.ulysses"]) == 6 - fused and int(out["dit.ring"]) == 0
+        assert int(out["dit.fused"]) == fused
         # this rank's [B/dp, S/sp] rows in one FFN call, or a chunk of them
         local_rows = 2 // spec.dp * 32 // spec.sp
         assert int(out["dit.ffn_rows"]) == (4 if chunk else local_rows)
         if "i2v" in want:
-            assert int(out["i2v.ulysses"]) == 6
+            assert int(out["i2v.ulysses"]) == 6 - fused and int(out["i2v.fused"]) == fused
         if spec.sp == 4:
             assert int(out["ring.ring"]) == 6
             assert int(out["t5.sharded"]) > 0

@@ -472,6 +472,52 @@ def test_cli_quantizes_as_it_loads(workdir, monkeypatch, tmp_path):
     assert os.path.isfile(out) and seen == [(8, True)]
 
 
+def test_factory_without_a_mesh_leaves_the_pipeline_unsharded(monkeypatch):
+    """In a world of several ranks the factory called without mesh_spec /
+    auto_mesh builds the unsharded pipeline, which the generate CLI shards
+    after its weight flags (`--tp 2 --quantize_int8` under torchrun used to
+    fail in the factory: a world of 2 ranks needs a mesh); resolve_mesh
+    itself still refuses such a world."""
+    from versecrafter_tpu_torch.core import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "world_size", lambda: 2)
+    pipe = tserve.default_pipeline_factory(scale="tiny", device="cpu")()
+    assert pipe.mesh is None
+    with pytest.raises(ValueError, match="needs a mesh of 2 ranks"):
+        tserve.resolve_mesh(None, device="cpu")
+
+
+def test_cli_tp_with_quantize_flags(workdir, monkeypatch, tmp_path):
+    """The generate CLI on a 2-rank gloo world with --tp 2 and
+    --quantize_int8 --int8_compute (the tiny DiT's block kernels quantized:
+    MIN_SIZE lowered in the ranks and here; the bf16 VAE on width slices)
+    gives the one-process run's frames within two uint8 levels: the frames
+    are bf16 decoder outputs in [-1, 1], where one bf16 ulp (2^-7) is about
+    one level, and each run rounds its own decode once."""
+    from tests.torch_mesh import run_world
+    from versecrafter_tpu_torch.utils import quantize as tq
+
+    small = 1 << 10
+    flags = ["--offline_smoke", "--smoke_scale", "tiny", "--device", "cpu",
+             "--rendering_maps_path", str(workdir / "maps"), "--prompt", "x",
+             "--input_image_path", "", "--sample_size", "16,16", "--video_length", "5",
+             "--num_inference_steps", "2", "--quantize_int8", "--int8_compute",
+             "--save_path", str(tmp_path / "cli")]
+    frames = []
+    monkeypatch.setattr(tq, "MIN_SIZE", small)
+    monkeypatch.setattr(tserve, "save_generated_video",
+                        lambda video, params, default_dir=None: frames.append(video) or "x")
+    tinf.main(flags)
+    out = tmp_path / "world"
+    out.mkdir()
+    run_world(2, {"cli": flags + ["--tp", "2"], "min_size": small}, {}, out)
+    got = np.load(out / "frames.npy")
+    assert got.dtype == frames[0].dtype == np.uint8 and got.shape == frames[0].shape
+    assert got.std() > 0
+    diff = np.abs(got.astype(np.int16) - frames[0].astype(np.int16))
+    assert diff.max() <= 2, (diff.max(), got.mean(), frames[0].mean())
+
+
 @pytest.mark.parametrize("source", ["fresh", "transformer_high_path"])
 def test_cli_moe(workdir, capsys, monkeypatch, tmp_path, source):
     """--moe: a shell pipeline whose experts the swap builds where the
@@ -823,6 +869,69 @@ def test_sharded_model_server_matches_one_rank(pipes, model_server, workdir, tmp
         stop_world(procs)
     np.testing.assert_array_equal(served[1], served[0])
     got = served[0]
+    assert got.dtype == ref.dtype == np.uint8 and got.shape == ref.shape
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1, diff.max()
+
+
+def test_tp_model_server_quantizes_per_request(pipes, workdir, tmp_path, monkeypatch):
+    """A model server of two gloo ranks at tp = 2 serves a W8A8 request (its
+    quantize params quantize the sharded DiT: each part gathered whole,
+    quantized and cut again per tp rank) and then refuses another mode,
+    as the one-rank server does; the frames equal the one-rank server's
+    W8A8 request within one uint8 level. MIN_SIZE is lowered in both so the
+    tiny DiT's block kernels quantize."""
+    import copy
+
+    from tests.torch_mesh import flatten, free_port, start_world, stop_world
+    from versecrafter_tpu_torch.utils import quantize as tq
+
+    jp, tp = pipes
+    small = 1 << 10
+    monkeypatch.setattr(tq, "MIN_SIZE", small)
+    params = _request(workdir, quantize_int8=True, int8_compute=True)
+    one = KeepingModelServer(lambda: copy.copy(tp), output_dir=str(tmp_path / "one"))
+    httpd, url1 = _serve(tserve.build_router(one))
+    try:
+        task = _call(f"{url1}/generate", "POST", params)[1]["task_id"]
+        assert _wait(f"{url1}/status/{task}")[0]["status"] == "COMPLETED"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    ref = one.frames[-1]
+    assert tq.has_quantized(one._pipeline.dit_params)
+
+    port = free_port()
+    arrays = {}
+    for name, tree in (("dit", jp.dit_params), ("vae", jp.vae_params), ("t5", jp.t5_params)):
+        arrays.update(flatten(tree, name))
+    job = {"spec": [1, 1, 1, 2], "serve": {
+        "port": port, "dit_cfg": dataclasses.asdict(CFG), "min_size": small,
+        "vae_cfg": dataclasses.asdict(VAE_CFG), "t5_cfg": dataclasses.asdict(T5_CFG)}}
+    out = tmp_path / "out"
+    out.mkdir()
+    procs = start_world(2, job, arrays, out)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        t0 = time.monotonic()
+        while True:
+            try:
+                if _call(f"{url}/health")[1]["status"] == "ok":
+                    break
+            except OSError:
+                pass
+            assert all(p.poll() is None for p in procs), "a rank exited"
+            assert time.monotonic() - t0 < 60, "the server did not start"
+            time.sleep(0.2)
+        task = _call(f"{url}/generate", "POST", params)[1]["task_id"]
+        st = _wait(f"{url}/status/{task}")[0]
+        assert st["status"] == "COMPLETED", st
+        got = np.load(st["result"]["video_path"])
+        task = _call(f"{url}/generate", "POST", {**params, "quantize_bits": 4})[1]["task_id"]
+        st = _wait(f"{url}/status/{task}")[0]
+        assert st["status"] == "FAILED" and "already quantized" in st["error"], st
+    finally:
+        stop_world(procs)
     assert got.dtype == ref.dtype == np.uint8 and got.shape == ref.shape
     diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
     assert diff.max() <= 1, diff.max()

@@ -18,6 +18,7 @@ from versecrafter_tpu.kernels.rope import grid_cos_sin, rope_3d_angles
 from versecrafter_tpu.models.wan_dit import init_wan_dit
 from versecrafter_tpu.parallel import train_step as jts
 from versecrafter_tpu_torch.cli import train as tcli
+from versecrafter_tpu_torch.core.checkpoint import load_checkpoint
 from versecrafter_tpu_torch.core import config as tconfig
 from versecrafter_tpu_torch.core.convert import params_from_jax
 from versecrafter_tpu_torch.kernels import flash_attention as tfa
@@ -239,7 +240,7 @@ def test_cli_trains_and_saves(tmp_path):
                         "--sample_size", "64,64", "--video_length", "9",
                         "--log_every", "1", "--output_dir", str(tmp_path)])
     assert len(losses) == 3 and all(np.isfinite(l) for l in losses)
-    saved = torch.load(os.path.join(tmp_path, "step_000003.pt"))
+    saved = load_checkpoint(os.path.join(tmp_path, "step_000003"))
     assert sorted(saved["params"]) == ["geoada_before_proj", "geoada_blocks",
                                        "geoada_patch_embedding"]
 
@@ -406,7 +407,7 @@ def test_data_dir_encode_clip_matches_jax(tmp_path, monkeypatch):
                         "--output_dir", str(tmp_path / "out")])
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert os.path.isfile(data / "b" / cache)
-    assert os.path.isfile(tmp_path / "out" / "step_000002.pt")
+    assert os.path.isfile(tmp_path / "out" / "step_000002" / "_METADATA")
 
 
 def _tiny_model_dir(d, monkeypatch):

@@ -81,3 +81,24 @@ def test_shard_math_equals_whole_slice(name):
         ref = want[..., i * wo:(i + 1) * wo]
         assert got.shape == ref.shape
         assert (got - ref).abs().max() <= 1e-5 * want.abs().max(), (name, i)
+
+
+@pytest.mark.parametrize("shape", [(3, 384, 5, 3), (1, 384, 5, 4)])
+def test_bf16_conv_on_the_cpu_reads_only_its_input(shape):
+    """The stride-2 3x3 downsample conv in bf16 at the small widths a
+    width-sharded test-size encode gives it, with tensors of 1000.0 alive
+    around it (PyTorch's CPU bf16 convolution reads outside its input
+    there): conv2d_spatial equals the fp32 convolution of the same bf16
+    operands rounded once, in every one of 30 calls."""
+    torch.manual_seed(0)
+    kept = []
+    b, c, h, w = shape
+    for _ in range(30):
+        x = torch.randn(b, c, 1, h, w).to(torch.bfloat16)
+        k = torch.randn(c, c, 3, 3) * 0.02
+        got = tvae.conv2d_spatial(x, k, None, stride=2)
+        ref = F.conv2d(x[:, :, 0].float(), k.to(torch.bfloat16).float(), stride=2,
+                       padding=1).to(torch.bfloat16)
+        torch.testing.assert_close(got[:, :, 0], ref, rtol=0, atol=0)
+        kept.append(torch.full((int(torch.randint(1, 20000, (1,))),), 1000.0,
+                               dtype=torch.bfloat16))

@@ -4,7 +4,9 @@ tests/torch_mesh.py). Imports torch and the port only.
     python tests/torch_mesh_worker.py job.json     (under torchrun's env)
 
 The job names a MeshSpec and a list of cases; the inputs are one .npz of
-flattened trees. Each rank writes its outputs to <out_dir>/rank<r>.npz.
+flattened trees. Each rank writes its outputs to <out_dir>/rank<r>.npz. A
+job with "serve" runs a model server over the world instead, one with
+"cli" the generate CLI.
 """
 
 import datetime
@@ -107,7 +109,9 @@ def case_dit(c, arr, mesh, out):
     extras = {k: _t(arr[f"{n}.{k}"]) for k in ("y", "clip_fea", "y_camera")
               if f"{n}.{k}" in arr}
     ffn_rows, real_ffn, real_chunk = [], twan._ffn, twan.FFN_CHUNK_ROWS
+    fused, real_fused = [], twan.fused_rope_rms_attention
     twan._ffn = lambda p, x: ffn_rows.append(x.shape[:-1].numel()) or real_ffn(p, x)
+    twan.fused_rope_rms_attention = lambda *a, **k: fused.append(1) or real_fused(*a, **k)
     twan.FFN_CHUNK_ROWS = c.get("ffn_chunk_rows", real_chunk)
     try:
         with shd.mesh_context(mesh):
@@ -116,10 +120,12 @@ def case_dit(c, arr, mesh, out):
                                      _t(arr[n + ".sin"]), geoada_context=g, **extras)
     finally:
         twan._ffn, twan.FFN_CHUNK_ROWS = real_ffn, real_chunk
+        twan.fused_rope_rms_attention = real_fused
     out[n + ".out"] = _np(y)
     out[n + ".ffn_rows"] = np.int64(max(ffn_rows))
     out[n + ".ulysses"] = np.int64(COUNTS.get("ulysses_attention", 0))
     out[n + ".ring"] = np.int64(COUNTS.get("ring_sp_attention", 0))
+    out[n + ".fused"] = np.int64(len(fused))
 
 
 def _sp_shard(x, mesh):
@@ -296,9 +302,181 @@ def case_init(c, arr, mesh, out):
     out["init.coord"] = np.asarray([mesh.coord[a] for a in ("dp", "fsdp", "sp", "tp")])
 
 
+# calibration statistics of earlier "calib" cases of this world, by name
+CALIB = {}
+
+
+def _quant_flags(c):
+    """The job's quantize settings: MIN_SIZE (lowered for the tiny models,
+    as the JAX side's) and the per-row / per-tensor dynamic scales."""
+    from versecrafter_tpu_torch.utils import quantize as tq
+    tq.MIN_SIZE = c["min_size"]
+    tq.ROW_ACT_SCALES = c.get("row_act_scales", True)
+
+
+def _match_codes(mine, records, mesh):
+    """The JAX codes of the product whose codes are `mine` ([rows, K] on this
+    rank): of every recorded [B, ..., K] array, the slices this rank could
+    hold (its dp rows or all, its sp tokens or all, its tp channels or all),
+    the one closest to `mine`."""
+    best, fewest = None, None
+    for rec in records:
+        r = torch.from_numpy(rec.reshape(rec.shape[0], -1, rec.shape[-1]))
+        for b in {1, mesh.shape["dp"]}:
+            for s_ in {1, mesh.shape["sp"]}:
+                for k in {1, mesh.shape["tp"]}:
+                    if r.shape[0] % b or r.shape[1] % s_ or r.shape[2] % k:
+                        continue
+                    cand = r.chunk(b, 0)[mesh.coord["dp"] if b > 1 else 0]
+                    cand = cand.chunk(s_, 1)[mesh.coord["sp"] if s_ > 1 else 0]
+                    cand = cand.chunk(k, 2)[mesh.coord["tp"] if k > 1 else 0]
+                    if cand.numel() != mine.numel() or cand.shape[-1] != mine.shape[-1]:
+                        continue
+                    cand = cand.reshape(mine.shape)
+                    n = int((cand != mine).sum())
+                    if fewest is None or n < fewest:
+                        best, fewest = cand, n
+    if best is None:
+        raise AssertionError(f"no recorded product matches codes of shape {tuple(mine.shape)}")
+    return best.contiguous()
+
+
+def _quantized_tree(c, arr, params_key):
+    """The case's fp32 tree (the JAX one's arrays) quantized as c says:
+    bits, compute (W8A8 / W4A8, per-channel int4 scales), and calibrated
+    scales fitted from an earlier calib case's statistics."""
+    from versecrafter_tpu_torch.utils import quantize as tq
+    bits, compute = c["bits"], c["compute"]
+    scales = (tq.fit_act_scales([CALIB[c["scales_from"]]]) if c.get("scales_from")
+              else None)
+    tree = tq.quantize_tree(params_from_jax(unflatten(arr, params_key)), bits,
+                            0 if bits == 4 and compute else None)
+    return (tq.tag_int8_compute(tree, scales) if compute else tree), scales
+
+
+def _same_tree(a, b):
+    """Same structure, every tensor the same bits, and the same shard spec."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b)
+                and getattr(a, shd.SPEC_ATTR, None) == getattr(b, shd.SPEC_ATTR, None))
+    return a == b
+
+
+def case_qdit(c, arr, mesh, out):
+    """A quantized DiT forward under the mesh: the tree quantized whole,
+    then sharded (c['orders']: also sharded fp32 first and quantized by the
+    pipeline's quantize_weights, which must give the same shards). In the
+    W8A8 / W4A8 modes each product takes the JAX package's activation codes
+    (<name>.codes/<i>, recorded on its mesh) in place of its own; the codes
+    that differed and their distance from a rounding boundary are kept."""
+    from types import SimpleNamespace
+
+    from versecrafter_tpu_torch.models import wan_dit as twan
+    from versecrafter_tpu_torch.sampling import pipeline as tpipe
+    from versecrafter_tpu_torch.utils import quantize as tq
+    n, src = c["name"], c["params"]
+    _quant_flags(c)
+    cfg = _cfg(tconfig.WanDiTConfig, c["cfg"])
+    tree, scales = _quantized_tree(c, arr, src + ".params")
+    params = shd.shard_dit_params(tree, mesh)
+    leaf = params["blocks"][0]
+    for site, sub in (("ffn_in", leaf["ffn_in"]), ("ffn_out", leaf["ffn_out"]),
+                      ("o", leaf["self_attn"]["o"])):
+        k = sub["kernel"]
+        k = k.get("qvalues", k.get("q4values")) if isinstance(k, dict) else k
+        out[f"{n}.shape/{site}"] = np.asarray(tuple(k.shape))
+    if c.get("orders"):
+        pipe = SimpleNamespace(
+            mesh=mesh, dit_params=shd.shard_dit_params(
+                params_from_jax(unflatten(arr, src + ".params")), mesh),
+            dit_params_high=None, _mesh_ctx=lambda: shd.mesh_context(mesh))
+        tpipe.VerseCrafterPipeline.quantize_weights(
+            pipe, int8_compute=c["compute"], act_scales=scales, bits=c["bits"])
+        out[n + ".orders_equal"] = np.bool_(_same_tree(pipe.dit_params, params))
+    records = [arr[k] for k in sorted((k for k in arr if k.startswith(n + ".codes/")),
+                                      key=lambda k: int(k.rsplit("/", 1)[1]))]
+    flips, dists, real = [], [], tq._quantize_rows
+
+    def shared(x, a_global, group=None):
+        a, mine = real(x, a_global, group)
+        theirs = _match_codes(mine, records, mesh)
+        r = x.float() / a
+        differ = mine != theirs
+        flips.append(int(differ.sum()))
+        dists.extend(((r - r.floor() - 0.5).abs()[differ]).tolist())
+        return a, theirs
+
+    if records:
+        tq._quantize_rows = shared
+    try:
+        with shd.mesh_context(mesh):
+            y = twan.wan_dit_forward(params, cfg, *(_t(arr[f"{src}.{k}"]) for k in (
+                "x", "t", "ctx", "cos", "sin")), geoada_context=_t(arr[src + ".g"]),
+                geoada_scale=0.7)
+    finally:
+        tq._quantize_rows = real
+    out[n + ".out"] = _np(y)
+    out[n + ".products"] = np.int64(len(flips))
+    out[n + ".flips"] = np.int64(sum(flips))
+    out[n + ".flip_dist"] = np.float64(max(dists, default=0.0))
+
+
+def case_calib(c, arr, mesh, out):
+    """calibrate=True under the mesh: the output and the statistics (kept in
+    CALIB for later cases)."""
+    from versecrafter_tpu_torch.models import wan_dit as twan
+    n, src = c["name"], c["params"]
+    _quant_flags(c)
+    cfg = _cfg(tconfig.WanDiTConfig, c["cfg"])
+    params = shd.shard_dit_params(params_from_jax(unflatten(arr, src + ".params")), mesh)
+    with shd.mesh_context(mesh):
+        y, stats = twan.wan_dit_forward(params, cfg, *(_t(arr[f"{src}.{k}"]) for k in (
+            "x", "t", "ctx", "cos", "sin")), geoada_context=_t(arr[src + ".g"]),
+            geoada_scale=0.7, calibrate=True)
+    CALIB[n] = stats
+    out[n + ".out"] = _np(y)
+    for grp, sites in stats.items():
+        for site, v in sites.items():
+            out[f"{n}.stats/{grp}/{site}"] = _np(v)
+
+
+def case_record(c, arr, mesh, out):
+    """record_teacache_stats through the sharded pipeline (the record state
+    row-subsampled below c['subsample_rows'] rows): (rel_e0, rel_residual)
+    and the recorded latents."""
+    from versecrafter_tpu_torch.sampling import pipeline as tpipe
+    from versecrafter_tpu_torch.sampling import teacache as ttc
+    from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
+    n, t = c["name"], c["trees"]
+    ttc.TEA_RECORD_SUBSAMPLE_ROWS = c["subsample_rows"]
+    cfgs = {k: _cfg(getattr(tconfig, cls), c[k]) for k, cls in (
+        ("dit_cfg", "WanDiTConfig"), ("vae_cfg", "VAEConfig"), ("t5_cfg", "T5Config"))}
+    pipe = tpipe.VerseCrafterPipeline(
+        dit_params=params_from_jax(unflatten(arr, t + ".dit")),
+        vae_params=params_from_jax(unflatten(arr, t + ".vae")),
+        t5_params=params_from_jax(unflatten(arr, t + ".t5")),
+        tokenizer=HashTokenizer(cfgs["t5_cfg"].vocab), device="cpu", mesh=mesh, **cfgs)
+    rel_e0, rel_res = pipe.record_teacache_stats(
+        "a car drives left", negative_prompt="static",
+        control_videos=[arr[f"{n}.control{i}"] for i in range(2)],
+        mask_video=arr[n + ".mask"], latents=arr[n + ".noise"], height=c["hw"][0],
+        width=c["hw"][1], num_frames=c["frames"], num_inference_steps=c["steps"],
+        guidance_scale=2.0, shift=c["shift"], dtype=torch.float32)
+    out[n + ".rel_e0"] = np.asarray(rel_e0)
+    out[n + ".rel_res"] = np.asarray(rel_res)
+    out[n + ".latents"] = _np(pipe.last_record_latents)
+
+
 CASES = {"dit": case_dit, "ring": case_ring, "ulysses": case_ulysses,
          "dispatch": case_dispatch, "t5": case_t5, "train": case_train,
-         "pipeline": case_pipeline, "vae": case_vae, "init": case_init}
+         "pipeline": case_pipeline, "vae": case_vae, "init": case_init,
+         "qdit": case_qdit, "calib": case_calib, "record": case_record}
 
 
 def serve(job, arr):
@@ -309,6 +487,9 @@ def serve(job, arr):
     from versecrafter_tpu_torch.serve import model_server as tserve
     from versecrafter_tpu_torch.utils.tokenizer import HashTokenizer
     c = job["serve"]
+    if "min_size" in c:
+        from versecrafter_tpu_torch.utils import quantize as tq
+        tq.MIN_SIZE = c["min_size"]
     cfgs = {k: _cfg(getattr(tconfig, cls), c[k]) for k, cls in (
         ("dit_cfg", "WanDiTConfig"), ("vae_cfg", "VAEConfig"), ("t5_cfg", "T5Config"))}
 
@@ -343,6 +524,23 @@ def serve(job, arr):
     Saving(factory).serve("127.0.0.1", c["port"])
 
 
+def cli(job):
+    """The generate CLI with job['cli']'s flags on this world, MIN_SIZE
+    lowered to job['min_size']; rank 0's frames saved as frames.npy."""
+    from versecrafter_tpu_torch.cli import inference as tinf
+    from versecrafter_tpu_torch.serve import model_server as tserve
+    from versecrafter_tpu_torch.utils import quantize as tq
+    tq.MIN_SIZE = job["min_size"]
+
+    def save(video, params, default_dir=None):
+        path = os.path.join(job["out_dir"], "frames.npy")
+        np.save(path, video)
+        return path
+    tserve.save_generated_video = save
+    tinf.main(job["cli"])
+    np.savez(os.path.join(job["out_dir"], f"rank{torch.distributed.get_rank()}.npz"))
+
+
 def main():
     with open(sys.argv[1]) as f:
         job = json.load(f)
@@ -353,6 +551,8 @@ def main():
             datetime.timedelta(seconds=job["timeout_s"]))
     if "serve" in job:
         return serve(job, dict(np.load(job["inputs"])))
+    if "cli" in job:
+        return cli(job)
     mesh = make_mesh(MeshSpec(*job["spec"]), device="cpu")
     arr = dict(np.load(job["inputs"]))
     out = {}

@@ -47,8 +47,11 @@ staged factories (the high one from seed 1 or its checkpoint).
 (core.mesh.auto_mesh_spec of the world), shard the pipeline over a
 torchrun world of exactly that many ranks (NCCL on the card, gloo with
 --device cpu); every rank runs the request and rank 0 writes the video
-and prints. The weight flags apply before the sharding; a quantized DiT
-runs under dp / fsdp / sp only. --staged runs on one device.
+and prints. The weight flags apply before the sharding, and every quantize
+flag takes every mesh axis, --tp included: each tp rank holds its slice of
+the int8 / int4 codes and scales, and a W8A8 / W4A8 row product sums its
+s32 partials over tp (parallel/sharding.tp_linear). --staged runs on one
+device.
 """
 
 from __future__ import annotations

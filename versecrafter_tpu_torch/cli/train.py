@@ -17,7 +17,9 @@ control channels); --tiny is a small fp32 model (head_dim 16, so it runs on
 the CPU, or on the card with --attn_impl xla: the kernels take head_dim
 128). --attn_impl picks the attention path as the JAX CLI's does (auto,
 pallas: the kernels, xla: the reference math). The trainable tree is saved
-through core/checkpoint.py as <output_dir>/step_%06d.pt ({"params": tree}).
+through core/checkpoint.py as the directory <output_dir>/step_%06d
+({"params": tree}) in the JAX package's layout, which the JAX CLI's own
+orbax load_checkpoint restores (and core/checkpoint.load_checkpoint reads).
 
 --lora_rank r > 0 trains LoRA factors (utils/lora.py) of rank r over every
 block's attention and FFN kernels, base and GeoAdapter, with the whole base
@@ -239,7 +241,7 @@ def run(args):
         lora = init_lora(params, args.lora_rank, prng.key(args.seed + 5, dev),
                          groups=("blocks", "geoada_blocks"))
     if mesh is not None:
-        shd.check_dit_mesh(cfg, mesh, params)
+        shd.check_dit_mesh(cfg, mesh)
         params = shd.shard_dit_params(params, mesh)
         if pipe is not None:
             # umT5 and the VAE stay whole, as in the JAX CLI, so each rank
@@ -319,10 +321,10 @@ def run(args):
                 whole = _whole(train)  # every rank joins the gathers
                 if lead:
                     path = os.path.join(args.output_dir, f"step_{i + 1:06d}")
-                    save_checkpoint(path + ".pt", {"params": whole})
+                    save_checkpoint(path, {"params": whole})
                     if args.lora_rank > 0:
                         save_safetensors(path + "_lora.safetensors", lora_to_torch_sd(whole))
-                    log(f"saved {path}.pt", flush=True)
+                    log(f"saved {path}", flush=True)
                 del whole
                 wait_all()  # the next step's collectives wait for rank 0's save
     log(f"final loss {losses[-1]:.4f}")

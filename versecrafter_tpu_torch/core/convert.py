@@ -10,6 +10,9 @@ The DiT's stacked "blocks" / "geoada_blocks" ([L, ...] leading axis) become
 lists of per-block dicts. A quantized tree (utils/quantize.py) carries over
 too: each block gets its slice of qvalues / q4values / qscales and its
 scalar a_dyn / a_scale, and the leaf's zero-size qdtype token unsliced.
+`params_to_jax` is the inverse (block lists stacked back, tensors kept) and
+`params_from_jax_layout` reads such a tree back (core/checkpoint.py writes
+and reads checkpoints in that layout).
 
 `convert_wan_dit`, `convert_wan_vae` and `convert_wan_t5` map the
 reference's torch state dicts (the DiT + GeoAdapter from sharded
@@ -94,6 +97,69 @@ def params_from_jax(tree: Any, device=None) -> Any:
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return _leaf(tree, device)
+
+
+def _stack(blocks):
+    """The per-block dicts of a block list stacked into one dict of [L, ...]
+    tensors; a quantized leaf's zero-size `qdtype` token stays as it is."""
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: (first[k] if k == "qdtype" else _stack([b[k] for b in blocks]))
+                for k in first}
+    return torch.stack([b.detach().cpu() for b in blocks])
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The inverse of params_from_jax's layout: the port's tree with every
+    list under a "blocks" / "geoada_blocks" key stacked to [L, ...] (the
+    JAX package's scan layout), tensors on the CPU with their dtypes and
+    bits (bf16 included), other lists and scalars as they are. Tensors, not
+    numpy arrays: numpy has no bf16 without ml_dtypes, which the card
+    machine lacks."""
+    if isinstance(tree, dict):
+        return {k: (_stack(v) if k in _STACKED and isinstance(v, list) and v
+                    else params_to_jax(v)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_jax(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def _num_stacked_t(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(v for k, v in tree.items() if k != "qdtype")
+    return tree.shape[0]
+
+
+def _unstack_t(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: v if k == "qdtype" else _unstack_t(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def params_from_jax_layout(tree: Any, template: Any = None) -> Any:
+    """A JAX-layout tree of tensors (params_to_jax's, or one read from a
+    checkpoint) in the port's layout: without a template every dict under a
+    "blocks" / "geoada_blocks" key is unstacked into a list, as
+    params_from_jax does; with one, only where the template has a list
+    there (a LoRA tree's "blocks" stays a dict of stacks)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            sub = template.get(k) if isinstance(template, dict) else None
+            if k in _STACKED and isinstance(v, dict) and (
+                    isinstance(sub, list) if template is not None else True):
+                n = len(sub) if isinstance(sub, list) else _num_stacked_t(v)
+                out[k] = [params_from_jax_layout(_unstack_t(v, i), sub[i] if sub else None)
+                          for i in range(n)]
+            else:
+                out[k] = params_from_jax_layout(v, sub)
+        return out
+    if isinstance(tree, (list, tuple)):
+        subs = template if isinstance(template, (list, tuple)) else [None] * len(tree)
+        return [params_from_jax_layout(v, t) for v, t in zip(tree, subs)]
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -300,11 +300,12 @@ def flash_attention_with_stats(q, k, v, sm_scale: Optional[float] = None):
     return _fa_forward(q, k, v, k_lens, sm_scale, window_size, True)
 
 
-def prepare_fused_rope_tables(cos: torch.Tensor, sin: torch.Tensor):
-    """Half-width [S, D/2] tables -> interleaved bf16 [S_pad, D] tables
-    (S_pad a multiple of TABLE_ROW_ALIGN), built once per forward."""
+def prepare_fused_rope_tables(cos: torch.Tensor, sin: torch.Tensor, dtype=torch.bfloat16):
+    """Half-width [S, D/2] tables -> interleaved [S_pad, D] tables (S_pad a
+    multiple of TABLE_ROW_ALIGN), built once per forward; bf16 (the kernel's)
+    unless `dtype` asks for fp32 tables (plain version only)."""
     ci, si = interleave_rope_tables(cos, sin)
-    ci, si = ci.to(torch.bfloat16), si.to(torch.bfloat16)
+    ci, si = ci.to(dtype), si.to(dtype)
     pad = -ci.shape[0] % TABLE_ROW_ALIGN
     if pad:
         ci = torch.nn.functional.pad(ci, (0, 0, 0, pad))
@@ -646,23 +647,28 @@ def fused_rope_rms_attention(q, k, v, cos, sin, gq=None, gk=None, *,
 
 def fused_rms_cross_attention(q, k, v, gq=None, gk=None, *, num_heads: int,
                               eps: float = 1e-6,
-                              sm_scale: Optional[float] = None, rq=None,
+                              sm_scale: Optional[float] = None, rq=None, rk=None,
                               impl: str = "auto"):
     """Cross-attention over RAW projections q [B, S, D] (video tokens) and
     k/v [B, Skv, D] (context tokens) with qk-RMSNorm fused into the kernel.
     rq: optional [B, S, 1] fp32 raw q statistic from the projection (used
-    only with gq); the k statistic spans each context row and is always
-    reduced here. Under grad (an input needs a gradient), or with impl
-    'xla', it runs the unfused math through flash_attention."""
+    only with gq); the k statistic spans each context row and is reduced
+    here unless rk [B, Skv, 1] gives it (a tensor-parallel shard's, summed
+    over its group; inference only). Under grad (an input needs a
+    gradient), or with impl 'xla', it runs the unfused math through
+    flash_attention."""
     check_impl(impl, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     rq = rq if gq is not None else None
+    rk = rk if gk is not None else None
+    if rk is not None and (impl == "xla" or _needs_grad(q, k, v, gq, gk, rq, rk)):
+        raise ValueError("a given k statistic runs on the fused inference path only")
     if impl == "xla" or _needs_grad(q, k, v, gq, gk, rq):
         if rq is not None:
             return _unfused_rms_cross_attention_rs(q, k, v, rq, gq, gk, num_heads,
                                                    eps, sm_scale, impl)
         return _unfused_rms_cross_attention(q, k, v, gq, gk, num_heads, eps,
                                             sm_scale, impl)
-    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq)
+    rq, rk, gqv, gkv = _stats_and_scales(q, k, gq, gk, eps, sm_scale, rq, rk)
     return fused_attention(q, k, v, rq, rk, gqv, gkv, num_heads=num_heads)

@@ -5,7 +5,10 @@ with causal temporal padding (frame t's latent depends on frames <= t),
 mode() semantics and the Wan2.1 per-channel latent statistics; the decoder
 mirrors it with temporal upsampling to 2t-1 frames per stage. Parameters use
 the JAX package's tree with OIDHW / OIHW conv kernels; weights are cast to
-the activation dtype at use.
+the activation dtype at use. A bf16 convolution on the CPU runs in fp32 on
+the bf16 operands and rounds once (conv): PyTorch's CPU bf16 convolution
+reads values from outside its input at small spatial sizes
+(scripts/check_torch_cpu_bf16_conv.py).
 
 Every op takes `width`: None for a whole tensor, or a width shard
 (parallel/sharding.WidthShard) when the tensor is this rank's slice of the
@@ -42,6 +45,18 @@ def _stat(values, like: torch.Tensor) -> torch.Tensor:
         like.dtype)[None, :, None, None, None]
 
 
+def conv(fn, x, kernel, bias: Optional[torch.Tensor], **kw):
+    """fn (F.conv2d / F.conv3d) of x with kernel and bias cast to x's
+    dtype; for a bf16 x on the CPU the same bf16 operands convolved in fp32,
+    rounded once to bf16 (see the module docstring)."""
+    kernel = kernel.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+        return fn(x, kernel, bias, **kw)
+    return fn(x.float(), kernel.float(), None if bias is None else bias.float(),
+              **kw).to(x.dtype)
+
+
 def pad_w(x, left: int, right: int, width=None):
     """[B, C, T, H, W] with `left` / `right` columns on its width: zeros, or
     under a width shard the neighbours' edge columns."""
@@ -62,8 +77,7 @@ def causal_conv3d(x, kernel, bias: Optional[torch.Tensor], stride=(1, 1, 1),
         x = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2, 2 * (kt // 2), 0))
     else:
         x = F.pad(pad_w(x, kw // 2, kw // 2, width), (0, 0, kh // 2, kh // 2, 2 * (kt // 2), 0))
-    return F.conv3d(x, kernel.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype), stride=stride)
+    return conv(F.conv3d, x, kernel, bias, stride=stride)
 
 
 def conv2d_spatial(x, kernel, bias: Optional[torch.Tensor], stride: int = 1,
@@ -80,8 +94,7 @@ def conv2d_spatial(x, kernel, bias: Optional[torch.Tensor], stride: int = 1,
         x, lw, rw = pad_w(x, lw, rw, width), 0, 0
     b, c, t, h, w = x.shape
     xb = F.pad(x.permute(0, 2, 1, 3, 4).reshape(b * t, c, h, w), (lw, rw, *hpad))
-    y = F.conv2d(xb, kernel.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride=stride)
+    y = conv(F.conv2d, xb, kernel, bias, stride=stride)
     _, co, ho, wo = y.shape
     return y.reshape(b, t, co, ho, wo).permute(0, 2, 1, 3, 4)
 

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from versecrafter_tpu_torch.core.config import VAEConfig
 from versecrafter_tpu_torch.models.vae import (
     WAN21_LATENT_MEAN, WAN21_LATENT_STD, _attn_block, _stat, causal_conv3d,
-    channel_rms_norm, conv2d_spatial, pad_w, up_spatial)
+    channel_rms_norm, conv, conv2d_spatial, pad_w, up_spatial)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -52,7 +52,7 @@ def _cconv_stream(x, p, cache, stride_t: int = 1, width=None):
         x, pw = pad_w(x, pw, pw, width), 0
     xx = x if cache is None else torch.cat([cache.to(x.dtype), x], dim=2)
     xp = F.pad(xx, (pw, pw, kh // 2, kh // 2, 2 * (kt // 2) if cache is None else 0, 0))
-    y = F.conv3d(xp, kernel.to(x.dtype), bias.to(x.dtype), stride=(stride_t, 1, 1))
+    y = conv(F.conv3d, xp, kernel, bias, stride=(stride_t, 1, 1))
     # a copy, so the cache does not keep the whole chunk's storage alive
     new_cache = xx[:, :, -keep:].clone()
     if cache is None and new_cache.shape[2] < keep:

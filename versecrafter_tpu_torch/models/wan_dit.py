@@ -28,17 +28,20 @@ A linear kernel may be a quantized leaf (utils/quantize.py): a
 compute-tagged one runs the W8A8 product, a storage-only one is dequantized
 to the activations' dtype first. calibrate=True records each block's
 per-tensor activation absmax at every W8A8 site (the stats fit_act_scales
-takes). A LoRA (utils/lora.py) enters wan_dit_blocks as per-block factors
-whose effective kernels are formed inside each (rematerialised) block.
+takes); under a mesh each is the maximum over every rank's piece. A
+LoRA (utils/lora.py) enters wan_dit_blocks as per-block factors whose
+effective kernels are formed inside each (rematerialised) block.
 
 Under a mesh (parallel/sharding.mesh_context with more than one rank) the
 blocks take this rank's [B/dp, S/sp, D] token slice and the head gathers
 the whole prediction back. Attention then takes the JAX package's
 sequence-parallel path (`attn_impl == "sp"`): separate q/k RMSNorm and RoPE
 passes, then sharding.sequence_parallel_attention (Ulysses or the ring) and
-sp_cross_attention over the plain flash kernel, never the fused kernel. The
-projections are tensor-parallel over tp and gathered over fsdp
-(sharding.tp_linear), the q/k norm statistic summed over tp.
+sp_cross_attention over the plain flash kernel. Without a sequence split
+(sp = 1) an inference forward runs the fused kernels on the rank's heads
+instead, with the q/k statistics of the whole rows. The projections are
+tensor-parallel over tp and gathered over fsdp (sharding.tp_linear), the
+q/k norm statistic summed over tp.
 """
 
 from __future__ import annotations
@@ -122,8 +125,10 @@ def _ffn_chunked(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _amax(x: torch.Tensor) -> torch.Tensor:
     """Per-tensor activation absmax (fp32 scalar): the calibration
-    statistic behind static W8A8 scales."""
-    return x.float().abs().amax()
+    statistic behind static W8A8 scales. Under a mesh x is this rank's
+    piece (its tokens over dp / sp, its channels over tp at a row site):
+    the maximum is taken over every rank."""
+    return shd.all_max(x.float().abs().amax())
 
 
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
@@ -339,52 +344,88 @@ def _heads_local(x, hd: int):
     return _heads(x, x.shape[-1] // hd)
 
 
-def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig, impl: str = "auto"):
+def _sp_self_attention(p: Params, x, cos, sin, cfg: WanDiTConfig, impl: str = "auto",
+                       calib=None, rope_i=None):
     """The sequence-parallel self-attention of this rank's token slice
     and tp slice of heads: separate norm and RoPE passes (cos / sin are the
-    slice's rows), then Ulysses or the ring."""
+    slice's rows), then Ulysses or the ring. Without a sequence split, at
+    inference, the fused kernel on the rank's heads instead, its q / k
+    statistics summed over tp (sharding.tp_row_rstat)."""
     hd = cfg.head_dim
+    if calib is not None:
+        calib["self_attn/q/kernel"] = calib["self_attn/k/kernel"] = \
+            calib["self_attn/v/kernel"] = _amax(x)
     q = shd.tp_linear(p["q"], x, "col")
     k = shd.tp_linear(p["k"], x, "col")
     v = shd.tp_linear(p["v"], x, "col")
+    if cfg.qk_norm and shd.fused_attention_ok(impl):
+        rstats = (shd.tp_row_rstat(q, cfg.eps, cfg.dim), shd.tp_row_rstat(k, cfg.eps, cfg.dim))
+        out = fused_rope_rms_attention(
+            q, k, v, cos, sin, shd.tp_slice(p["norm_q"]["scale"], 0),
+            shd.tp_slice(p["norm_k"]["scale"], 0), num_heads=q.shape[-1] // hd, eps=cfg.eps,
+            window_size=cfg.window_size, tables_i=rope_i, rstats=rstats, impl=impl)
+        if calib is not None:
+            calib["self_attn/o/kernel"] = _amax(out)
+        return shd.tp_linear(p["o"], out, "row")
     if cfg.qk_norm:
         q = shd.tp_rms_norm(q, p["norm_q"]["scale"], cfg.eps, cfg.dim)
         k = shd.tp_rms_norm(k, p["norm_k"]["scale"], cfg.eps, cfg.dim)
     b, s, _ = q.shape
     q = apply_rope(q.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
     k = apply_rope(k.reshape(b, s, -1, hd), cos, sin).transpose(1, 2).contiguous()
-    out = shd.sequence_parallel_attention(q, k, _heads_local(v, hd),
-                                          window_size=cfg.window_size, impl=impl)
-    return shd.tp_linear(p["o"], _merge_heads(out), "row")
+    out = _merge_heads(shd.sequence_parallel_attention(q, k, _heads_local(v, hd),
+                                                       window_size=cfg.window_size,
+                                                       impl=impl))
+    if calib is not None:
+        calib["self_attn/o/kernel"] = _amax(out)
+    return shd.tp_linear(p["o"], out, "row")
 
 
 def _sp_cross_attention(p: Params, x, context, cfg: WanDiTConfig, context_img=None,
-                        impl: str = "auto"):
+                        impl: str = "auto", calib=None):
     """The sequence-parallel cross-attention: each token slice against the
     whole context (and the i2v image tokens), tp slices of heads."""
     hd = cfg.head_dim
+    if calib is not None:
+        calib["cross_attn/q/kernel"] = _amax(x)
+        calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
     q = shd.tp_linear(p["q"], x, "col")
     k = shd.tp_linear(p["k"], context, "col")
     v = shd.tp_linear(p["v"], context, "col")
+    if context_img is None and cfg.qk_norm and shd.fused_attention_ok(impl):
+        out = fused_rms_cross_attention(
+            q, k, v, shd.tp_slice(p["norm_q"]["scale"], 0),
+            shd.tp_slice(p["norm_k"]["scale"], 0), num_heads=q.shape[-1] // hd, eps=cfg.eps,
+            rq=shd.tp_row_rstat(q, cfg.eps, cfg.dim), rk=shd.tp_row_rstat(k, cfg.eps, cfg.dim),
+            impl=impl)
+        if calib is not None:
+            calib["cross_attn/o/kernel"] = _amax(out)
+        return shd.tp_linear(p["o"], out, "row")
     if cfg.qk_norm:
         q = shd.tp_rms_norm(q, p["norm_q"]["scale"], cfg.eps, cfg.dim)
         k = shd.tp_rms_norm(k, p["norm_k"]["scale"], cfg.eps, cfg.dim)
     qh = _heads_local(q, hd)
     out = shd.sp_cross_attention(qh, _heads_local(k, hd), _heads_local(v, hd), impl)
     if context_img is not None:
+        if calib is not None:
+            calib["cross_attn/k_img/kernel"] = calib["cross_attn/v_img/kernel"] = \
+                _amax(context_img)
         k_img = shd.tp_linear(p["k_img"], context_img, "col")
         if cfg.qk_norm:
             k_img = shd.tp_rms_norm(k_img, p["norm_k_img"]["scale"], cfg.eps, cfg.dim)
         v_img = shd.tp_linear(p["v_img"], context_img, "col")
         out = out + shd.sp_cross_attention(qh, _heads_local(k_img, hd),
                                            _heads_local(v_img, hd), impl)
-    return shd.tp_linear(p["o"], _merge_heads(out), "row")
+    out = _merge_heads(out)
+    if calib is not None:
+        calib["cross_attn/o/kernel"] = _amax(out)
+    return shd.tp_linear(p["o"], out, "row")
 
 
 def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=None,
                     impl: str = "auto"):
     if shd.active_mesh() is not None:
-        return _sp_self_attention(p, x, cos, sin, cfg, impl)
+        return _sp_self_attention(p, x, cos, sin, cfg, impl, calib, rope_i)
     if calib is not None:
         calib["self_attn/q/kernel"] = calib["self_attn/k/kernel"] = \
             calib["self_attn/v/kernel"] = _amax(x)
@@ -413,7 +454,7 @@ def _self_attention(p: Params, x, cos, sin, rope_i, cfg: WanDiTConfig, calib=Non
 def _cross_attention(p: Params, x, context, cfg: WanDiTConfig, calib=None,
                      context_img=None, impl: str = "auto"):
     if shd.active_mesh() is not None:
-        return _sp_cross_attention(p, x, context, cfg, context_img, impl)
+        return _sp_cross_attention(p, x, context, cfg, context_img, impl, calib)
     if calib is not None:
         calib["cross_attn/q/kernel"] = _amax(x)
         calib["cross_attn/k/kernel"] = calib["cross_attn/v/kernel"] = _amax(context)
@@ -494,10 +535,13 @@ def wan_block_forward(p: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
     elif calib is None:
         y = _ffn(p, tmp)
     else:
-        h = _gelu_tanh(_linear(p["ffn_in"], tmp))
+        # under a mesh ffn_in column-, ffn_out row-parallel over tp
+        h = _gelu_tanh(shd.tp_linear(p["ffn_in"], tmp, "col") if mesh is not None
+                       else _linear(p["ffn_in"], tmp))
         calib["ffn_in/kernel"] = _amax(tmp)
         calib["ffn_out/kernel"] = _amax(h)
-        y = _linear(p["ffn_out"], h)
+        y = (shd.tp_linear(p["ffn_out"], h, "row") if mesh is not None
+             else _linear(p["ffn_out"], h))
         # the [rows, ffn_dim] hidden (1.69 GiB at the 14B's 65,520 rows)
         # must not stay alive through the fp32 residual below
         del h
@@ -641,12 +685,15 @@ def wan_dit_blocks(params: Params, cfg: WanDiTConfig, x, e0, cos, sin, context,
         raise ValueError("calibrate is inference-only (stats escape remat)")
     if shd.active_mesh() is not None:
         # x is this rank's token slice: the per-row inputs and the RoPE
-        # tables follow it
-        if calibrate:
-            raise ValueError("calibrate runs on one rank, not under a mesh")
+        # tables follow it (calibrate's statistics are maxima over every
+        # rank: _amax)
         e0, context, context_img = (shd.local_rows(t) for t in (e0, context, context_img))
         cos, sin = shd.local_seq(cos), shd.local_seq(sin)
-        rope_i = None
+        # the fused kernels' RoPE tables: bf16 for the kernels, fp32 for the
+        # plain version of an fp32 forward (as the sp path's fp32 RoPE)
+        rope_i = (prepare_fused_rope_tables(
+            cos, sin, torch.float32 if x.dtype == torch.float32 else torch.bfloat16)
+            if shd.fused_attention_ok(attn_impl) else None)
     else:
         rope_i = prepare_fused_rope_tables(cos, sin)
     blocks = params["blocks"]

@@ -16,7 +16,11 @@ per GPU with explicit collectives over the mesh's groups (core/mesh.py):
   tensor-parallel sites: q / k / v / k_img / v_img / ffn_in column-parallel
   (heads or hidden split over tp), o / ffn_out row-parallel, summed over tp;
   tp_rms_norm sums the q / k RMSNorm's squares over tp before the rsqrt,
-  since WanRMSNorm spans every head's channels;
+  since WanRMSNorm spans every head's channels. A quantized leaf
+  (utils/quantize.py) stays whole under dp / fsdp / sp; at a tp site each
+  tp rank holds its slice of the codes and scales (quantize.tp_shard), and
+  a W8A8 row product reduces its row absmax with MAX and its s32 partials
+  with SUM over tp before the one rescale;
 - attention: sequence_parallel_attention picks Ulysses (all_to_all over sp,
   the plain flash kernel over the whole sequence on N / (tp * sp) heads,
   all_to_all back) when the local head count divides by sp, else the ring
@@ -240,7 +244,34 @@ def _spec_for(names, ndim: int) -> Tuple:
 
 
 def _is_quantized_leaf(tree) -> bool:
-    return isinstance(tree, dict) and "q" in tree and "scale" in tree
+    """A quantized leaf of utils/quantize.py: qscales beside qvalues or
+    q4values."""
+    return (isinstance(tree, dict) and "qscales" in tree
+            and ("qvalues" in tree or "q4values" in tree))
+
+
+# the block projections tp_linear runs: column- or row-parallel over tp
+_TP_KINDS = {"q": "col", "k": "col", "v": "col", "k_img": "col", "v_img": "col",
+             "ffn_in": "col", "o": "row", "ffn_out": "row"}
+
+
+def _tp_kind(path) -> Optional[str]:
+    """'col' / 'row' for the kernel of a tensor-parallel block site, else
+    None."""
+    names = [str(n) for n in path]
+    if len(names) < 2 or names[0] not in ("blocks", "geoada_blocks") or names[-1] != "kernel":
+        return None
+    return _TP_KINDS.get(names[-2])
+
+
+def _tp_quantized_shard(leaf, kind: str, mesh: Mesh):
+    """This tp rank's slice of a quantized leaf (quantize.tp_shard); the
+    codes carry their spec."""
+    from versecrafter_tpu_torch.utils.quantize import codes, tp_shard
+    out = tp_shard(leaf, kind, mesh.coord["tp"], mesh.shape["tp"])
+    c = codes(out)
+    setattr(c, SPEC_ATTR, (None, "tp") if kind == "col" else ("tp", None))
+    return out
 
 
 def _map_with_path(fn, tree, path=()):
@@ -284,17 +315,51 @@ def _local_slice(leaf: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     return out
 
 
-def shard_dit_params(params, mesh: Mesh):
+def shard_dit_params(params, mesh: Mesh, prefix: Tuple = ()):
     """Each rank's slices of the DiT tree under dit_param_pspecs; a leaf
-    whose sharded dims do not divide stays whole, as do quantized leaves."""
+    whose sharded dims do not divide stays whole. A quantized leaf stays
+    whole under dp / fsdp / sp (its codes are never split over fsdp); at a
+    tensor-parallel block site under tp > 1 it is cut to this tp rank's
+    codes and scales (quantize.tp_shard), once. `prefix`: the path of
+    `params` in the whole tree (("blocks", i) for one block)."""
     def place(path, leaf):
+        if _is_quantized_leaf(leaf):
+            from versecrafter_tpu_torch.utils.quantize import codes
+            kind = _tp_kind(path)
+            if kind is None or mesh.shape["tp"] == 1 or is_sharded(codes(leaf)):
+                return leaf
+            return _tp_quantized_shard(leaf, kind, mesh)
         if isinstance(leaf, dict):
             return leaf
         spec = _spec_for(path, leaf.ndim)
         if spec and _divisible(leaf.shape, spec, mesh):
             return _local_slice(leaf, spec, mesh)
         return leaf
-    return _map_with_path(place, params)
+    return _map_with_path(place, params, tuple(prefix))
+
+
+def whole_tree(tree):
+    """A tree with every sharded tensor made whole (all-gathered; under the
+    mesh context); quantized leaves as they are."""
+    if _is_quantized_leaf(tree):
+        return tree
+    if isinstance(tree, dict):
+        return {k: whole_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(whole_tree(v) for v in tree)
+    return gathered(tree).detach() if is_sharded(tree) else tree
+
+
+def all_max(t: torch.Tensor) -> torch.Tensor:
+    """t reduced with MAX over every rank of the active mesh (t itself
+    without one): a per-tensor statistic of values split over dp, sp or tp
+    (duplicated pieces do not change a maximum)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(AXES))
+    return t
 
 
 def shard_t5_params(params, mesh: Mesh):
@@ -330,17 +395,13 @@ def is_sharded(t) -> bool:
     return getattr(t, SPEC_ATTR, None) is not None
 
 
-def check_dit_mesh(cfg, mesh: Mesh, *trees) -> None:
+def check_dit_mesh(cfg, mesh: Mesh) -> None:
     """What the DiT's hand-written tensor parallelism needs: whole heads
-    and FFN columns per tp rank, and unquantized block kernels under tp."""
+    and FFN columns per tp rank."""
     tp = mesh.shape["tp"]
     if cfg.num_heads % tp or cfg.ffn_dim % tp:
         raise ValueError(f"tp={tp} must divide num_heads {cfg.num_heads} and "
                          f"ffn_dim {cfg.ffn_dim}")
-    if tp > 1:
-        from versecrafter_tpu_torch.utils.quantize import has_quantized
-        if any(t is not None and has_quantized(t) for t in trees):
-            raise ValueError("a quantized DiT runs under dp / fsdp / sp only, not tp > 1")
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +459,24 @@ def gather_tokens(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The whole [B, ...] from every rank's dp rows [B/dp, ...]."""
+    mesh = active_mesh()
+    if mesh is None or mesh.shape["dp"] == 1:
+        return x
+    return _all_gather(x, mesh.group("dp"), 0)
+
+
+def sum_over(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """x summed over the mesh's `axis` group (x itself without one)."""
+    mesh = active_mesh()
+    if mesh is None or mesh.shape[axis] == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=mesh.group(axis))
+    return x
+
+
 # ---------------------------------------------------------------------------
 # tensor parallelism
 # ---------------------------------------------------------------------------
@@ -410,20 +489,37 @@ def tp_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
     return _Slice.apply(t, mesh.group("tp"), dim)
 
 
+def _tp_quantized_linear(k, b, x: torch.Tensor, kind: str, mesh: Mesh) -> torch.Tensor:
+    """tp_linear of a quantized kernel (inference) holding this tp rank's
+    codes and scales (shard_dit_params). A compute-tagged leaf runs the W8A8
+    product, whose row form reduces its row absmax with MAX and its s32
+    partials with SUM over tp, and whose per-tensor dynamic absmax is
+    reduced with MAX over the world; a storage-only leaf is dequantized and
+    a row product's output summed over tp."""
+    from versecrafter_tpu_torch.utils import quantize as qz
+    tp = mesh.shape["tp"]
+    row_group = mesh.group("tp") if kind == "row" and tp > 1 else None
+    if qz.is_compute_tagged(k):
+        y = qz.int8_compute_dot(k, x, row_group=row_group, tensor_group=mesh.group(AXES))
+    else:
+        y = torch.matmul(x, qz.dequantize_leaf(k, x.dtype))
+        if row_group is not None:
+            y = _SumForward.apply(y, row_group)
+    if b is None:
+        return y
+    return y + (tp_slice(b, 0) if kind == "col" else b).to(y.dtype)
+
+
 def tp_linear(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     """A block projection under the mesh: kind 'col' (x whole, the output's
     tp slice) or 'row' (x's tp slice of channels, the output summed over
-    tp). The kernel is gathered over fsdp; a whole kernel is sliced."""
+    tp). The kernel is gathered over fsdp; a whole kernel is sliced. A
+    quantized kernel: _tp_quantized_linear."""
     mesh = _require_mesh()
     tp = mesh.shape["tp"]
     k, b = p["kernel"], p.get("bias")
     if isinstance(k, dict):
-        if tp > 1:
-            raise ValueError("a quantized kernel under tp > 1")
-        from versecrafter_tpu_torch.utils import quantize as qz
-        y = (qz.int8_compute_dot(k, x) if qz.is_compute_tagged(k)
-             else torch.matmul(x, qz.dequantize_leaf(k, x.dtype)))
-        return y + b.to(y.dtype) if b is not None else y
+        return _tp_quantized_linear(k, b, x, kind, mesh)
     sharded = is_sharded(k)
     k = gathered(k, keep=("tp",))
     if kind == "col":
@@ -445,13 +541,27 @@ def tp_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, dim: int) -> 
     """kernels/norms.rms_norm of a tensor whose last axis is this tp rank's
     slice of `dim` channels: the sum of squares is summed over tp before
     the rsqrt."""
+    y = x.float() * tp_row_rstat(x, eps, dim)
+    return (y * tp_slice(weight, 0).float()).to(x.dtype)
+
+
+def tp_row_rstat(x: torch.Tensor, eps: float, dim: int) -> torch.Tensor:
+    """rsqrt(mean(y^2) + eps) [B, S, 1] fp32 of the whole `dim`-channel row
+    whose tp slice x holds: the sum of squares summed over tp (the fused
+    attention kernels' rstats / rk)."""
     mesh = _require_mesh()
-    xf = x.float()
-    ss = xf.square().sum(-1, keepdim=True)
+    ss = x.float().square().sum(-1, keepdim=True)
     if mesh.shape["tp"] > 1:
         ss = _SumBoth.apply(ss, mesh.group("tp"))
-    y = xf * torch.rsqrt(ss / dim + eps)
-    return (y * tp_slice(weight, 0).float()).to(x.dtype)
+    return torch.rsqrt(ss / dim + eps)
+
+
+def fused_attention_ok(impl: str) -> bool:
+    """Whether the mesh's attention runs the fused qk-RMSNorm kernels: no
+    sequence split (sp = 1), inference, and the kernels' impl."""
+    mesh = active_mesh()
+    return (mesh is not None and mesh.shape["sp"] == 1 and impl != "xla"
+            and not torch.is_grad_enabled())
 
 
 # ---------------------------------------------------------------------------

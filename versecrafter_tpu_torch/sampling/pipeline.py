@@ -181,7 +181,7 @@ class VerseCrafterPipeline:
         self.mesh = mesh
         if mesh is None or mesh.size == 1:
             return
-        shd.check_dit_mesh(self.dit_cfg, mesh, self.dit_params, self.dit_params_high)
+        shd.check_dit_mesh(self.dit_cfg, mesh)
         for name in ("dit_params", "dit_params_high"):
             if getattr(self, name) is not None:
                 setattr(self, name, shd.shard_dit_params(getattr(self, name), mesh))
@@ -193,9 +193,14 @@ class VerseCrafterPipeline:
                                 else None)
 
     @_under_mesh
-    def _shard_tea_state(self, state: tc.TeaCacheState) -> tc.TeaCacheState:
+    def _shard_tea_state(self, state: tc.TeaCacheState, record_seq: Optional[int] = None,
+                         stride: int = 1) -> tc.TeaCacheState:
         """This rank's TeaCache state: the residual split like the tokens,
-        the per-row statistics whole."""
+        the per-row statistics whole; a record state (record_seq: the
+        sequence's tokens) keeps the rank's strided positions
+        (teacache.shard_record_state)."""
+        if record_seq is not None:
+            return tc.shard_record_state(state, record_seq, stride)
         return state._replace(prev_residual=shd.constrain_tokens(state.prev_residual))
 
     # -- runtime toggles (the JAX pipeline's enable_* surface) -------------
@@ -238,7 +243,11 @@ class VerseCrafterPipeline:
         Each tree is rebuilt one block at a time (utils/quantize.quantize_dit)
         in lists of the pipeline's own, so a bf16 block is dropped as soon as
         its quantized copy exists unless the caller still holds the old
-        tree."""
+        tree. On a sharded pipeline (set_mesh) each part is gathered whole,
+        quantized and sharded again, so a quantized leaf is always the
+        quantization of the whole kernel, as the JAX package's on its
+        mesh."""
+        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 else None
         for attr, scales in (("dit_params", act_scales), ("dit_params_high", act_scales_high)):
             old = getattr(self, attr)
             if old is None:
@@ -246,7 +255,21 @@ class VerseCrafterPipeline:
             tree = {k: (list(v) if isinstance(v, list) else v) for k, v in old.items()}
             del old
             setattr(self, attr, tree)
-            qz.quantize_dit(tree, bits, int8_compute, scales, int8_sites)
+            if mesh is None:
+                qz.quantize_dit(tree, bits, int8_compute, scales, int8_sites)
+                continue
+            with self._mesh_ctx():
+                lists = {k: v for k, v in tree.items() if isinstance(v, list)}
+                top = shd.whole_tree({k: v for k, v in tree.items() if k not in lists})
+                tree.update(shd.shard_dit_params(
+                    qz.quantize_dit_top(top, bits, int8_compute, scales, int8_sites), mesh))
+                del top
+                for key, blocks in lists.items():
+                    for i in range(len(blocks)):
+                        blk = qz.quantize_dit_block(
+                            shd.whole_tree(blocks[i]), key, i, len(blocks), bits,
+                            int8_compute, scales, int8_sites)
+                        blocks[i] = shd.shard_dit_params(blk, mesh, (key, i))
 
     def merge_lora(self, lora_sd, weight: float = 1.0):
         """Folds weight * (up @ down)^T of each LoRA pair into the DiT."""
@@ -300,9 +323,8 @@ class VerseCrafterPipeline:
         is the relative L1 drift of e0 between consecutive steps,
         rel_residual that of the blocks residual. Under sequential CFG only
         the cond branch is recorded. Takes __call__'s arguments; the latents
-        it produced are kept as last_record_latents."""
-        if self.mesh is not None and self.mesh.size > 1:
-            raise ValueError("record_teacache_stats runs on one rank, not under a mesh")
+        it produced are kept as last_record_latents. Under a mesh every rank
+        records the whole batch's statistics (teacache.recording_blocks)."""
         self.teacache_record = []
         old_thresh, old_skip = self.teacache_threshold, self.cfg_skip_ratio
         self.teacache_threshold = 0.0
@@ -716,16 +738,22 @@ class Denoiser:
         self.skip_from = num_steps * (1.0 - pipe.cfg_skip_ratio)
         dim = pipe.dit_cfg.dim
         rows = 2 * batch if self.do_cfg and not self.seq_cfg else batch
-        seq = seq_len
+        self.stride = 1
         if self.recording and rows * seq_len > tc.TEA_RECORD_SUBSAMPLE_ROWS:
-            seq = -(-seq_len // tc.RECORD_SUBSAMPLE_STRIDE)
+            self.stride = tc.RECORD_SUBSAMPLE_STRIDE
+        seq = -(-seq_len // self.stride)
         self.states = {}
+
+        def state(n):
+            st = tc.init_state(n, seq, dim, dtype, device=pipe.device)
+            if self.recording:  # the global positions = 0 mod stride
+                return pipe._shard_tea_state(st, seq_len, self.stride)
+            return pipe._shard_tea_state(st)
+
         if self.tea:
-            self.states["c"] = pipe._shard_tea_state(
-                tc.init_state(rows, seq, dim, dtype, device=pipe.device))
+            self.states["c"] = state(rows)
             if self.seq_cfg:
-                self.states["u"] = pipe._shard_tea_state(
-                    tc.init_state(batch, seq, dim, dtype, device=pipe.device))
+                self.states["u"] = state(batch)
         self.hosts = ({"c": tc.HostTeaState(batch, dim), "u": tc.HostTeaState(batch, dim)}
                       if self.host_gated else None)
 
@@ -772,7 +800,9 @@ class Denoiser:
     def _blocks(self, name, i, e0_host, run, tokens, e0):
         pipe, state = self.pipe, self.states[name]
         if self.recording:
-            out, self.states[name] = tc.recording_blocks(run, tokens, e0, state)
+            out, self.states[name] = tc.recording_blocks(
+                run, tokens, e0, state,
+                self.stride if shd.active_mesh() is not None else None)
         elif self.host_gated:
             calc = bool(tc.host_gate(self.hosts[name], e0_host, i, pipe.teacache_threshold,
                                      pipe.teacache_skip_start,

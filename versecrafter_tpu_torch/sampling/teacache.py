@@ -16,6 +16,13 @@ scales; above TEA_RECORD_SUBSAMPLE_ROWS the record pass tracks a strided
 row subset. host_gate is the same decision in float64 numpy on the host,
 which sequential CFG above TEA_HOST_GATE_ROWS rows uses, as the JAX
 package does.
+
+Under a mesh (parallel/sharding.py) the record pass sees this rank's
+[B/dp, S/sp, D] token slice: its state keeps, of the global token
+positions 0, stride, 2*stride, ..., those in the rank's sequence slice
+(shard_record_state), the per-row L1 sums of the residual drift and of the
+previous residual are summed over sp before the ratio, and the rows are
+gathered over dp, so every rank records the whole [B] statistic.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from versecrafter_tpu_torch.parallel import sharding as shd
 from versecrafter_tpu_torch.parallel.sharding import local_rows
 
 # rescale polynomial for Wan / VerseCrafter 14B, highest power first
@@ -200,15 +208,78 @@ def fit_teacache_coefficients(rel_e0, rel_residual, degree: int = 4):
     return tuple(np.polyfit(x[ok], y[ok], degree))
 
 
+def _record_span(seq_local: int, stride: int, mesh) -> Tuple[int, int]:
+    """(first local token, count) of the global positions = 0 mod stride
+    that fall in this rank's sp slice of seq_local tokens."""
+    off = mesh.coord["sp"] * seq_local
+    first = (-off) % stride
+    return first, max(0, -(-(seq_local - first) // stride))
+
+
+def shard_record_state(state: TeaCacheState, seq_len: int, stride: int) -> TeaCacheState:
+    """This rank's part of a record state built for the whole batch and
+    ceil(seq_len / stride) residual rows: under a mesh, its dp rows of the
+    residual and, of the global positions = 0 mod stride, those in its sp
+    slice; prev_mod, accum and valid stay whole. The state itself without a
+    mesh."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return state
+    if seq_len % mesh.shape["sp"]:
+        raise ValueError(f"sequence of size {seq_len} does not divide over "
+                         f"sp={mesh.shape['sp']}")
+    s_l = seq_len // mesh.shape["sp"]
+    first, count = _record_span(s_l, stride, mesh)
+    j0 = (mesh.coord["sp"] * s_l + first) // stride
+
+    def part(t):
+        return local_rows(t)[:, j0:j0 + count]
+    r = state.prev_residual
+    return state._replace(prev_residual=({k: part(v) for k, v in r.items()}
+                                         if isinstance(r, dict) else part(r)))
+
+
+def _record_on_mesh(fresh, tokens, e0, state, stride: int, mesh):
+    """recording_blocks on this rank's token slice (shard_record_state's
+    state): the L1 sums over sp, the rows gathered over dp."""
+    quantized = isinstance(state.prev_residual, dict)
+    s_l = tokens.shape[1]
+    first, count = _record_span(s_l, stride, mesh)
+    if res_shape(state)[1] != count:
+        raise ValueError(f"record state rows {res_shape(state)[1]} are not this rank's "
+                         f"{count} positions of stride {stride}")
+    sel = slice(first, s_l, stride)
+    residual = fresh[:, sel] - tokens[:, sel]
+    rf = residual.float()
+    pf = _load_residual(state.prev_residual, torch.float32)
+    sums = torch.stack([(rf - pf).abs().sum(dim=(1, 2)), pf.abs().sum(dim=(1, 2))])
+    sums = shd.sum_over(sums, "sp")
+    n = -(-s_l * mesh.shape["sp"] // stride) * tokens.shape[2]
+    rel = (sums[0] / n) / torch.clamp(sums[1] / n, min=1e-8)
+    return fresh, TeaCacheState(
+        prev_mod=e0.float(),
+        prev_residual=_store_residual(
+            residual if quantized else residual.to(state.prev_residual.dtype), quantized),
+        accum=shd.gather_rows(rel), valid=torch.ones_like(state.valid))
+
+
 def recording_blocks(run_blocks, tokens: torch.Tensor, e0: torch.Tensor,
-                     state: TeaCacheState):
+                     state: TeaCacheState, stride: Optional[int] = None):
     """The always-run counterpart of gated_blocks that measures what the gate
     observes: new_state.accum is the per-row relative L1 drift of the blocks
     residual against the previous step's, prev_mod snapshots e0. A state
     with fewer residual rows than tokens (init_state seq = ceil(S / stride))
-    tracks every stride-th token row; the stride follows from the shapes."""
-    quantized = isinstance(state.prev_residual, dict)
+    tracks every stride-th token row; the stride follows from the shapes.
+    Under a mesh tokens are this rank's slice, the state
+    shard_record_state's, and `stride` must be given; the returned accum
+    is the whole batch's."""
+    mesh = shd.active_mesh()
     fresh = run_blocks(tokens)
+    if mesh is not None:
+        if stride is None:
+            raise ValueError("recording_blocks under a mesh needs the stride")
+        return _record_on_mesh(fresh, tokens, e0, state, stride, mesh)
+    quantized = isinstance(state.prev_residual, dict)
     s_full = tokens.shape[1]
     s_sub = res_shape(state)[1]
     stride = max(1, round(s_full / s_sub)) if s_sub else 1

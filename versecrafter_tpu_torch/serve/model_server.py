@@ -33,7 +33,10 @@ queue and announces each task (load, generate, unload, shutdown) to the
 other ranks before it runs it (RankTasks, on the world's control group, so
 the other ranks may wait for the next request however long the server sits
 idle); every rank runs it, the ranks agree on whether it succeeded, and
-rank 0 saves the video.
+rank 0 saves the video. --resident_weights and a request's quantize params
+apply on any mesh, --tp included: a request's quantization gathers each
+part of the sharded DiT whole, quantizes it and shards it again
+(VerseCrafterPipeline.quantize_weights).
 """
 
 from __future__ import annotations
@@ -140,7 +143,9 @@ def default_pipeline_factory(model_path: Optional[str] = None,
     request that asked for it (run_loaded_request). with_dit=False leaves
     the DiT out (dit_params None: the shell an expert_swap fills).
     mesh_spec / auto_mesh shard the pipeline over the torchrun world
-    (resolve_mesh): every rank calls the factory."""
+    (resolve_mesh): every rank calls the factory. Without them the
+    pipeline stays unsharded, for a caller that shards it itself (the
+    generate CLI, after its weight flags)."""
     if model_path:
         def load():
             from versecrafter_tpu_torch.core.convert import load_versecrafter
@@ -148,7 +153,9 @@ def default_pipeline_factory(model_path: Optional[str] = None,
                                      device=device, load_dit_params=with_dit,
                                      quantize=quantize)
             pipe._quantized = quantize
-            pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, pipe.dit_cfg.num_heads, device))
+            if mesh_spec is not None or auto_mesh:
+                pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, pipe.dit_cfg.num_heads,
+                                           device))
             return pipe
         return load
     cfg, vae_cfg, t5_cfg = pipeline_configs(scale)
@@ -184,7 +191,8 @@ def default_pipeline_factory(model_path: Optional[str] = None,
             device=dev,
         )
         pipe._quantized = quantize
-        pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, cfg.num_heads, dev))
+        if mesh_spec is not None or auto_mesh:
+            pipe.set_mesh(resolve_mesh(mesh_spec, auto_mesh, cfg.num_heads, dev))
         return pipe
     return factory
 

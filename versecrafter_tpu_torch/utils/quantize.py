@@ -11,7 +11,9 @@ port's tree, where the blocks are lists of per-block dicts instead of
   groups;
 - ``qdtype``: a zero-size tensor of the original dtype;
 - after tag_int8_compute, ``a_dyn`` (dynamic activation scales) or
-  ``a_scale`` (a calibrated per-tensor scale): one fp32 scalar a block.
+  ``a_scale`` (a calibrated per-tensor scale): one fp32 scalar a block;
+- on a tensor-parallel shard of a grouped leaf (tp_shard), ``qgroup``:
+  int32 [K_shard], the row of the shard's qscales that each code row takes.
 
 Which leaves quantize is decided as the JAX package decides it on its
 stacked tree: a leaf of a block list counts its list's length as the
@@ -25,11 +27,17 @@ rescales in fp32: ``y.float() * (a * qscales)``, then one cast to the
 activations' dtype, as the JAX package rounds it. cuBLASLt's s8 product is
 ~7x faster with the weight column-major (K contiguous) than row-major on an
 H100, so tag_int8_compute stores a W8A8 leaf's qvalues column-major (the
-same [K, N] values), and an int4 leaf unpacks straight into that layout. A division by a constant
-(qmax, 127) is a multiplication by the constant's fp32 reciprocal, as XLA
-compiles the jitted JAX function (and as PyTorch's CUDA division by a host
-scalar would do, but not its CPU one), so the CPU and the card give the JAX
-package's bits.
+same [K, N] values), and an int4 leaf unpacks straight into that layout.
+Under tensor parallelism (tp_shard, parallel/sharding.tp_linear) a
+row-parallel product holds its slice of the contracting dim: the per-row
+absmax is reduced with MAX over the tp group before the codes are taken,
+and the s32 partial products are summed over it before the one fp32
+rescale, so the shards' result equals the one-rank product bit for bit.
+
+A division by a constant (qmax, 127) is a multiplication by the constant's
+fp32 reciprocal, as XLA compiles the jitted JAX function (and as PyTorch's
+CUDA division by a host scalar would do, but not its CPU one), so the CPU
+and the card give the JAX package's bits.
 """
 
 from __future__ import annotations
@@ -37,11 +45,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 EXCLUDE = ("modulation",)
 MIN_SIZE = 1 << 16  # don't quantize tiny leaves
 
-_QKEYS = {"qvalues", "q4values", "qscales", "qdtype", "a_dyn", "a_scale"}
+_QKEYS = {"qvalues", "q4values", "qscales", "qdtype", "a_dyn", "a_scale", "qgroup"}
 
 # Block-matmul sites eligible for W8A8 compute (path suffixes under blocks /
 # geoada_blocks). Embeddings, the head and the GeoAdapter before / after
@@ -234,6 +243,8 @@ def dequantize_leaf(leaf: Dict[str, Any], dtype=None) -> torch.Tensor:
     out_dtype = dtype if dtype is not None else leaf["qdtype"].dtype
     q = _int_values(leaf)
     scale = leaf["qscales"]
+    if "qgroup" in leaf:  # a tp shard of a grouped leaf: each row's group
+        return (q.float() * scale[..., 0, :].index_select(-2, leaf["qgroup"])).to(out_dtype)
     if scale.ndim == q.ndim + 1:  # grouped [..., K/g, 1, N]
         gct = scale.shape[-3]
         qg = q.float().reshape(*q.shape[:-2], gct, q.shape[-2] // gct, q.shape[-1])
@@ -342,14 +353,24 @@ def _int_mm(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y[:m, :n] if (pm, pn) != (m, n) else y
 
 
-def _quantize_rows(x: torch.Tensor, a_global):
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    """t reduced in place over `group` (t itself without one)."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _quantize_rows(x: torch.Tensor, a_global, group=None):
     """(a, s8 codes of x [M, K]): a is the per-tensor scale a_global, or
-    the per-row dynamic scales [M, 1] when it is None."""
+    the per-row dynamic scales [M, 1] when it is None, their absmax taken
+    over `group` too (the ranks that hold the other slices of K)."""
     if a_global is not None:  # [1, 1], not 0-dim: it must promote x to fp32
         a = a_global.reshape(1, 1)
     else:  # max|x| is one of x's values: exact in x's dtype
-        a = _div(torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True)
-                 .float().clamp_min(1e-8), 127.0)
+        m = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True).float()
+        if group is not None:
+            m = _all_reduce(m, group, dist.ReduceOp.MAX)
+        a = _div(m.clamp_min(1e-8), 127.0)
     t = torch.div(x, a)  # fp32: x.float() / a in one pass
     return a, t.round_().clamp_(-127, 127).to(torch.int8)
 
@@ -362,21 +383,33 @@ def _rescale(y: torch.Tensor, a: torch.Tensor, qscales: torch.Tensor, dtype) -> 
     return torch.mul(y, a * qscales, out=out)
 
 
-def _int8_dot_rows(leaf, w: torch.Tensor, x: torch.Tensor, a_global):
+def _int8_dot_rows(leaf, w: torch.Tensor, x: torch.Tensor, a_global, group=None):
     """One s8 x s8 -> s32 product over rows x [M, K] (a_global: the
-    per-tensor scale, or None for per-row dynamic scales)."""
-    a, xq = _quantize_rows(x, a_global)
-    return _rescale(_int_mm(xq, w), a, leaf["qscales"], x.dtype)
+    per-tensor scale, or None for per-row dynamic scales). With `group`, x
+    and w are this rank's slices of K: the row absmax is reduced with MAX
+    and the s32 partial products summed over the group before the rescale."""
+    a, xq = _quantize_rows(x, a_global, group)
+    y = _int_mm(xq, w)
+    if group is not None:
+        y = _all_reduce(y.contiguous(), group, dist.ReduceOp.SUM)
+    return _rescale(y, a, leaf["qscales"], x.dtype)
 
 
-def int8_compute_dot(leaf: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def int8_compute_dot(leaf: Dict[str, Any], x: torch.Tensor, row_group=None,
+                     tensor_group=None) -> torch.Tensor:
     """W8A8 (or W4A8) product of a compute-tagged leaf ([K, N] after the
     block's own slice; qscales [1, N]) with activations x [..., K].
 
     Dynamic scales are per row when ROW_ACT_SCALES (else one absmax over x);
     a calibrated a_scale is one per-tensor scale. int4 leaves unpack to s8
     values in [-7, 7] for the same product. Above INT8_DOT_CHUNK_ROWS rows
-    the product runs in row chunks, bit-identical."""
+    the product runs in row chunks, bit-identical.
+
+    Under a mesh: row_group is the tp group of a row-parallel product (x and
+    the leaf hold this rank's slice of K; the row absmax is reduced with MAX
+    and the s32 partials summed over it); tensor_group the ranks that hold
+    the other pieces of x, over which a dynamic per-tensor absmax is
+    reduced with MAX."""
     d_in = x.shape[-1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d_in)
@@ -385,17 +418,68 @@ def int8_compute_dot(leaf: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     if "a_scale" in leaf:
         a_global = leaf["a_scale"].float().clamp_min(1e-8)
     elif not ROW_ACT_SCALES:
-        a_global = _div(x2.abs().amax().float().clamp_min(1e-8), 127.0)
+        m = x2.abs().amax().float()
+        a_global = _div(_all_reduce(m, tensor_group, dist.ReduceOp.MAX).clamp_min(1e-8),
+                        127.0)
     w = _product_weight(leaf)
+
+    def dot(xc):
+        if row_group is None:
+            return _int8_dot_rows(leaf, w, xc, a_global)
+        return _int8_dot_rows(leaf, w, xc, a_global, row_group)
+
     if rows > INT8_DOT_CHUNK_ROWS:
         n = -(-rows // max(1, INT8_DOT_CHUNK_ROWS // 8))
         ch = -(-rows // n)
         out = torch.empty((rows, w.shape[-1]), dtype=x.dtype, device=x.device)
         for i in range(0, rows, ch):
-            out[i:i + ch] = _int8_dot_rows(leaf, w, x2[i:i + ch], a_global)
+            out[i:i + ch] = dot(x2[i:i + ch])
     else:
-        out = _int8_dot_rows(leaf, w, x2, a_global)
+        out = dot(x2)
     return out.reshape(*lead, w.shape[-1])
+
+
+def codes(leaf) -> torch.Tensor:
+    """A quantized leaf's code tensor (qvalues, or the packed q4values)."""
+    return leaf["q4values"] if "q4values" in leaf else leaf["qvalues"]
+
+
+def _compact(t: torch.Tensor, column_major: bool) -> torch.Tensor:
+    return t.t().contiguous().t() if column_major else t.contiguous()
+
+
+def tp_shard(leaf: Dict[str, Any], kind: str, index: int, count: int) -> Dict[str, Any]:
+    """Shard `index` of `count` of a quantized [K, N] leaf at a
+    tensor-parallel site, as new compact tensors (a column-major qvalues
+    stays column-major). kind 'col': the shard's N / count columns of the
+    codes and scales. kind 'row': its K / count rows of the codes (K / (2 *
+    count) packed rows of q4values), the per-channel scales whole, and of
+    group scales [K/g, 1, N] the rows that cover the shard, a straddled
+    group included, with `qgroup` mapping each code row to its scale row.
+    qdtype, a_dyn and a_scale are shared."""
+    key = "q4values" if "q4values" in leaf else "qvalues"
+    c, scales = leaf[key], leaf["qscales"]
+    col_major = c.dim() == 2 and c.stride(0) == 1 and c.shape[1] > 1
+    out = {k: v for k, v in leaf.items() if k not in (key, "qscales")}
+    if kind == "col":
+        n = c.shape[-1] // count
+        out[key] = _compact(c.narrow(-1, index * n, n), col_major)
+        out["qscales"] = scales.narrow(-1, index * n, n).contiguous()
+        return out
+    if c.shape[-2] % count:
+        raise ValueError(f"{c.shape[-2]} rows of {key} do not divide over {count} shards")
+    rows = c.shape[-2] // count
+    out[key] = _compact(c.narrow(-2, index * rows, rows), col_major)
+    kl = rows * (2 if key == "q4values" else 1)
+    k0 = index * kl
+    if scales.dim() == c.dim() + 1:  # grouped [K/g, 1, N]
+        g = kl * count // scales.shape[-3]
+        first, last = k0 // g, (k0 + kl - 1) // g
+        out["qscales"] = scales.narrow(-3, first, last - first + 1).contiguous()
+        out["qgroup"] = (torch.arange(k0, k0 + kl, device=c.device) // g - first).to(torch.int32)
+    else:
+        out["qscales"] = scales
+    return out
 
 
 def has_quantized(tree) -> bool:
