@@ -9,7 +9,8 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      kernel: the attention kernels of csrc/fused_attention.cu,
      csrc/flash_attention.cu and csrc/flash_attention_bwd.cu and the GEMM of
      csrc/matmul_stat.cu (a ptxas warning C7512, wgmma serialised, anywhere
-     in these sources or a spill in one of these kernels fails);
+     in these sources or a spill in one of these kernels fails); beside them
+     the host media codecs of csrc/host/ (c++);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes (480x832x81 = 32,760 tokens; 480x832x33 = 14,040 tokens; the
      training path's self 32,760 and cross 32,760 x 512 head-major shapes)
@@ -104,9 +105,9 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      it, was cut to keep the run inside its time; the check that it
      waited in the queue at depth 1 moved to the CPU test
      tests/test_torch_serving.py::test_model_server_queues_a_second_request).
-     The card has no cv2, so the model server takes phase 3's
-     synthetic control arrays through its _generate / _save override
-     points; the CPU tests hold the mp4 path;
+     The model server takes phase 3's synthetic control arrays through
+     its _generate / _save override points, so that the frames can equal
+     phase 3's bit for bit (phase 10 serves a request from files);
   9. quantization and LoRA: the W8A8 and W4A8 products (int8_compute_dot)
      at the 14B FFN in-projection's shape, [65,520, 5120] x [5120, 13,824],
      timed whole and split (activation quantize, int4 unpack, _int_mm, fp32
@@ -145,11 +146,16 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      memory, a bit-identical rerun, each stream's shape, the Gaussians
      drawn in every frame where one is present, in front and on screen; one
      27-frame batch under torch.profiler (device time by kernel, idle
-     share); then the six streams as a generate request (the way
-     load_request_inputs makes them from decoded frames) served on phase
-     3's 1.3B pipeline through run_loaded_request on the first 45 frames
-     (480x832x45), 2 steps, CFG 5: 45 launches a step per fused flavor, its
-     stage split beside the render's wall time.
+     share); then the request from files, as the add-on sends it: the six
+     streams written as mp4s by the renderer's writer
+     (render.write_control_maps), the scene's image uploaded as a PNG, a
+     generate task on a port ApiServer whose in-process tier holds phase
+     3's 1.3B pipeline (no override point) on the first 45 frames
+     (480x832x45), 2 steps, CFG 5: 45 launches a step per fused flavor; the
+     controls the pipeline decoded within WRITER_PSNR_DB of the rendered
+     frames, the video fetched with /api/download and decoded by the port
+     equal to the port's encode -> decode of the request's frames (PSNR
+     printed), its seconds beside the render's wall time.
  11. the conditioning extras: a 2-step 480x832x45 video= masked-init
      request on phase 3's pipeline (the rendered background clip masked by merged_mask as
      the single control, a geoada_patch_embedding for its 80 channels);
@@ -170,8 +176,11 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      torch.profiler, and the plain cross path's parts beside the fused
      cross kernel by CUDA events.
  12. preprocessing and the whole chain (run on phase 10's pipeline, between
-     phase 11's video= request and its i2v part): MoGe-v2 (ViT-L +
-     HEAD_L, seed 0) on the scene's first frame edge-padded to 490x840
+     phase 11's video= request and its i2v part): the scene's first frame
+     written as a PNG by the port and uploaded with a baseline JPEG fixture
+     to a port ApiServer, both read back from its workdir (the PNG equal to
+     the frame, the JPEG to its fixture digest); MoGe-v2 (ViT-L +
+     HEAD_L, seed 0) on the PNG's image edge-padded to 490x840
      (2,100 tokens), points and mask logits card vs CPU (1e-3 * max), the
      focal and shift recovered from each side's point map, a rerun
      bit-identical, seconds and peak; the neural segmenter at the full
@@ -184,8 +193,10 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      kept detection's token probabilities 0.002 from their thresholds, the
      detection lists of that selection; the segmenter at full depth (Grounding DINO Swin-T
      896 + BERT-base, SAM 2.1 Hiera-L 1024, init_gdino / init_sam2 from
-     seed 0): each model's seconds, the peak, the detections; then the
-     chain: the card's depth and eroded masks -> fit_objects_from_depth ->
+     seed 0): each model's seconds, the peak, the detections; the depth
+     PNGs (moge.save_outputs) and the mask PNGs (save_results) written and
+     read back equal to their arrays; then the chain: the card's depth and
+     the masks from their files, eroded -> fit_objects_from_depth ->
      each Gaussian moved sideways over 81 frames under the scene's camera
      -> render_control_maps -> a 2-step 480x832x81 request (45 launches a
      step per fused flavor), each stage's seconds and the wall from image
@@ -255,6 +266,12 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      beside a bf16 tp path's. Phase 5's trained GeoAdapter tree is written
      through core/checkpoint.py (the JAX package's orbax layout) and read
      back byte-equal.
+ 17. the media codecs on the card's host (the machine has no OpenCV; the
+     port's own PNG, JPEG, mp4 and MPEG-4 Part 2 code, built from
+     csrc/host/ in phase 1): each fixture of tests/data/media decoded to
+     the SHA-256 the JAX package's OpenCV reads gave, and a 480x832x81 clip
+     encoded by save_video and decoded by load_video on one host thread,
+     timed, with its size and PSNR.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -341,6 +358,12 @@ STEPS = 2
 # 17,971,200 voxels) still goes through the streaming VAE (above 2^24), cut
 # from 81 to make room for phase 13
 FRAMES_E2E = 45
+# phase 10: the least PSNR (dB) of a rendered control stream written by the
+# port's mp4 writer and decoded by load_request_inputs (the textured
+# background_RGB is the lowest; PERF.md section 5 has the card's readings)
+WRITER_PSNR_DB = 25.0
+# phases 12 and 17: the media fixtures (scripts/make_torch_media_fixtures.py)
+MEDIA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "media")
 E2E_SIZE = (480, 832, FRAMES_E2E)  # height, width, frames of the served requests
 # phase 3's generate request (prompt, seed); phase 8 serves it again through
 # the HTTP tiers
@@ -1931,8 +1954,9 @@ def front_door_phase(fa, fab, ms, dev, card, direct):
 
         # 3. both serving tiers over HTTP
         class SmokeModelServer(msrv.ModelServer):
-            """Serves phase 3's synthetic control videos (no cv2 here to read
-            mp4 maps) and keeps each request's digests, times and launches."""
+            """Serves phase 3's synthetic control arrays (its bit-for-bit
+            check against phase 3 needs them; phase 10 serves from files)
+            and keeps each request's digests, times and launches."""
 
             def _generate(self, pipe, params, progress):
                 seed = int(params["seed"])
@@ -1964,10 +1988,9 @@ def front_door_phase(fa, fab, ms, dev, card, direct):
             workdir=api_dir, model_server_url=ms_url, subprocess_fallback=False, device=dev)))
         log(f"[front] ModelServer at {ms_url}, ApiServer at {api_url} (model_server_url "
             f"{ms_url}, no subprocess fallback)")
-        log("[front] mp4 decoding and encoding did not run on this machine (no cv2 here): "
-            "the served requests take phase 3's synthetic control arrays through "
-            "ModelServer._generate / _save; tests/test_torch_video_io.py and "
-            "tests/test_torch_serving.py hold the mp4 path to the JAX package on the CPU")
+        log("[front] the served request takes phase 3's synthetic control arrays through "
+            "ModelServer._generate / _save, so that its frames can equal phase 3's bit for "
+            "bit; phase 10 serves a request from mp4 files and phase 17 times the codecs")
         health = http_json(f"{ms_url}/health")
         log(f"[front] GET /health before the first request: {health}")
         if health["model_loaded"] is not False:
@@ -2676,7 +2699,6 @@ def workflow_phase(fa, fab, ms, dev, card):
     "controls", "mask", "image"}: the pipeline and the whole 81-frame
     request inputs, which phase 11 takes over."""
     from versecrafter_tpu_torch.geometry import render as tr
-    from versecrafter_tpu_torch.serve.model_server import run_loaded_request
     t0 = time.perf_counter()
     log(f"[render] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase")
     _, small = render_inputs(*RENDER_SMALL, RENDER_SEED)
@@ -2733,40 +2755,152 @@ def workflow_phase(fa, fab, ms, dev, card):
     profile_step(lambda: tr.render_control_maps(*batch, device=dev), batch_ms, card, top=12)
     copy_rates(maps["background_RGB"], dev, card)
 
-    # the workflow's generate: the rendered maps as phase 3's request
+    # the workflow's generate through files: the renderer's six mp4s, the
+    # scene's image uploaded as a PNG, an ApiServer generate task (its
+    # in-process tier on phase 3's 1.3B pipeline), then /api/download
     pipe = build_pipeline(dev)
-    controls, mask = maps_to_request(maps, scene["image"])
-    if any(c.shape != (1, 3, n, h, w) for c in controls) or mask.shape != (1, 1, n, h, w):
-        raise AssertionError(f"request inputs {[c.shape for c in controls]} {mask.shape}")
+    full = maps_to_request(maps, scene["image"])
+    if any(c.shape != (1, 3, n, h, w) for c in full[0]) or full[1].shape != (1, 1, n, h, w):
+        raise AssertionError(f"request inputs {[c.shape for c in full[0]]} {full[1].shape}")
+    served = file_request(fa, fab, ms, pipe, maps, scene["image"], full, card)
     del maps
-    # the request takes the maps' first FRAMES_E2E frames (phase 12's chain
-    # serves a whole 81-frame render, phase 11 these 81 frames)
-    full, n = (controls, mask), FRAMES_E2E
-    controls = [np.ascontiguousarray(c[:, :, :n]) for c in controls]
-    mask = np.ascontiguousarray(mask[:, :, :n])
-    fa.reset_launch_counts()
-    fab.reset_launch_counts()
-    ms.reset_launch_counts()
-    t1 = time.perf_counter()
-    video = run_loaded_request(pipe, {"prompt": "a red car drives left", "negative_prompt":
-                                      "blurry", "num_inference_steps": STEPS,
-                                      "guidance_scale": 5.0, "seed": 13, "height": h,
-                                      "width": w, "num_frames": n}, controls, mask)
-    dt = time.perf_counter() - t1
-    counts = dict(fa.LAUNCHES)
-    split = {k: round(v, 3) for k, v in pipe.last_wall_profile.items()}
-    log(f"[workflow] request {video.shape} {video.dtype} in {dt:.2f} s {split} launches "
-        f"{counts}; render {prof['wall_s']:.3f} s wall + request {dt:.2f} s = "
-        f"{prof['wall_s'] + dt:.2f} s render -> generate on {card}")
-    want = {"fused_rope_rms_attention": 45 * STEPS, "fused_rope_rms_attention_int8": 0,
-            "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
-    if counts != want or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values()):
-        raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} != {want}")
-    if video.shape != (1, n, h, w, 3) or video.dtype != np.uint8 or float(video.std()) == 0.0:
-        raise AssertionError(f"bad output {video.shape} {video.dtype}")
-    del video
+    log(f"[workflow] render {prof['wall_s']:.3f} s wall + request through files "
+        f"{served['s']:.2f} s = {prof['wall_s'] + served['s']:.2f} s render -> generate on {card}")
+    counts = served["launches"]
     log(f"[workflow] phase 10 {time.perf_counter() - t0:.1f} s")
     return counts, {"pipe": pipe, "controls": full[0], "mask": full[1], "image": scene["image"]}
+
+
+class RecordingPipeline:
+    """The pipeline as the ApiServer's in-process tier calls it: each call's
+    control clips, mask and uint8 frames are kept for the phase's checks
+    (attributes read and set pass through to the pipeline)."""
+
+    def __init__(self, pipe):
+        object.__setattr__(self, "pipe", pipe)
+        object.__setattr__(self, "calls", [])
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.pipe, name, value)
+
+    def __call__(self, *args, **kw):
+        out = self.pipe(*args, **kw)
+        self.calls.append((kw["control_videos"], kw["mask_video"], out))
+        return out
+
+
+def psnr_db(a, b, peak=1.0):
+    d = np.asarray(a, np.float32) - np.asarray(b, np.float32)
+    mse = float(np.mean(np.square(d), dtype=np.float64))
+    return math.inf if mse == 0 else 10 * math.log10(peak * peak / mse)
+
+
+def file_request(fa, fab, ms, pipe, maps, image, full, card):
+    """Phase 10's request from files, as the Blender add-on sends it: the
+    six rendered streams written by the renderer's own writer
+    (geometry/render.write_control_maps), the scene's image uploaded as a
+    PNG over HTTP, a generate task on a port ApiServer whose in-process
+    tier holds `pipe` (no override point), the result fetched with
+    /api/download and decoded by the port. Checks: the controls the
+    pipeline received (decoded by load_request_inputs) against `full`, the
+    rendered frames as maps_to_request makes them, within WRITER_PSNR_DB;
+    the downloaded video's samples equal, byte for byte, to the port's own
+    encoding of the frames the pipeline returned, its decode's PSNR against
+    those frames printed; 45 launches a step of each fused flavor.
+    Returns {"s": the request's seconds, "launches"}."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from versecrafter_tpu_torch.geometry import render as tr
+    from versecrafter_tpu_torch.serve import api_server as api_mod
+    from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
+    from versecrafter_tpu_torch.utils import mp4, mpeg4, png
+
+    h, w, n = E2E_SIZE
+    api_dir = tempfile.mkdtemp(prefix="versecrafter_api_")
+    httpd = None
+    try:
+        t1 = time.perf_counter()
+        tr.write_control_maps(maps, os.path.join(api_dir, "rendering_4D_maps"), fps=16)
+        write_s = time.perf_counter() - t1
+        sizes = {k: os.path.getsize(os.path.join(api_dir, "rendering_4D_maps", f"{k}.mp4"))
+                 for k in maps}
+        rec = RecordingPipeline(pipe)
+        httpd = make_server(api_mod.build_router(api_mod.ApiServer(
+            workdir=api_dir, pipeline_factory=lambda: rec)), "127.0.0.1", 0)
+        serve_forever_in_thread(httpd)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        t1 = time.perf_counter()
+        up = urllib.request.Request(f"{url}/api/upload?filename=upload/scene.png",
+                                    data=png.encode(image), method="POST")
+        with urllib.request.urlopen(up, timeout=60) as r:
+            uploaded = json.loads(r.read())
+        fa.reset_launch_counts()
+        fab.reset_launch_counts()
+        ms.reset_launch_counts()
+        task = http_json(f"{url}/api/generate", {
+            "rendering_maps_path": "rendering_4D_maps", "input_image_path": "upload/scene.png",
+            "prompt": "a red car drives left", "negative_prompt": "blurry",
+            "num_inference_steps": STEPS, "guidance_scale": 5.0, "seed": 13, "height": h,
+            "width": w, "num_frames": n, "fps": 16})["task_id"]
+        while True:
+            st = http_json(f"{url}/api/status/{task}")
+            if st["status"] in ("COMPLETED", "FAILED"):
+                break
+            if time.perf_counter() - t1 > 900:
+                raise AssertionError("the file request did not finish in 900 s")
+            time.sleep(0.2)
+        request_s = time.perf_counter() - t1
+        counts = dict(fa.LAUNCHES)
+        if st["status"] != "COMPLETED":
+            raise AssertionError(f"the file request: {st}")
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(f"{url}/api/download/{st['result']['video_path']}",
+                                    timeout=60) as r:
+            data = r.read()
+        track = mp4.parse(data)
+        got = mpeg4.decode(data, track)
+        fetch_s = time.perf_counter() - t1
+        controls, mask, frames = rec.calls[-1]
+        log(f"[workflow] files: six {'x'.join(map(str, maps['merged_mask'].shape[1:3]))}x"
+            f"{len(maps['merged_mask'])} mp4s written in {write_s:.2f} s ({sizes} bytes); "
+            f"PNG uploaded {uploaded}; ApiServer generate task {request_s:.2f} s "
+            f"(request {pipe.last_wall_profile}); {len(data)} bytes downloaded and decoded "
+            f"in {fetch_s:.2f} s; launches {counts}")
+        # 1. the controls the pipeline got against the rendered frames
+        want_c, want_m = full
+        scores = {name: psnr_db(c, wc[:, :, :n]) for name, c, wc in
+                  zip(("background_RGB", "background_depth", "3D_gaussian_RGB",
+                       "3D_gaussian_depth"), controls, want_c)}
+        scores["merged_mask"] = psnr_db(mask, want_m[:, :, :n])
+        log(f"[workflow] decoded controls vs the rendered frames, PSNR dB (bar "
+            f"{WRITER_PSNR_DB}): { {k: round(v, 2) for k, v in scores.items()} }")
+        if min(scores.values()) < WRITER_PSNR_DB:
+            raise AssertionError(f"decoded controls below {WRITER_PSNR_DB} dB: {scores}")
+        # 2. the downloaded video against the frames the pipeline returned
+        _, samples = mpeg4.encode(frames[0], 16)
+        same = [data[o:o + z] for o, z in zip(track.offsets, track.sizes)] == samples
+        log(f"[workflow] downloaded video {got.shape}: PSNR {psnr_db(got, frames[0], 255.0):.2f} "
+            f"dB against the request's frames in memory; its samples equal to the port's "
+            f"encoding of those frames: {same}")
+        if not same or got.shape != frames[0].shape:
+            raise AssertionError("the downloaded video is not the request's frames as written")
+        want = {"fused_rope_rms_attention": 45 * STEPS, "fused_rope_rms_attention_int8": 0,
+                "fused_rms_cross_attention": 45 * STEPS, "flash_attention": 0}
+        if counts != want or any(fab.LAUNCHES.values()) or any(ms.LAUNCHES.values()):
+            raise AssertionError(f"launch counts {counts} {fab.LAUNCHES} {ms.LAUNCHES} != {want}")
+        if frames.shape != (1, n, h, w, 3) or float(frames.std()) == 0.0:
+            raise AssertionError(f"bad output {frames.shape} {frames.dtype}")
+        return {"s": request_s, "launches": counts}
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(api_dir, ignore_errors=True)
 
 
 def check_flash_cross(fa, dev, skv, card, seed=0):
@@ -3271,11 +3405,76 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
     (moge_check) and the segmenter's card-vs-CPU check (segmenter_check),
     then the segmenter at full depth (build_neural fresh_init: Swin-T 896 +
     BERT-base, Hiera-L 1024) with its seconds and peak; the chain on the
-    scene's first frame: the card's depth and eroded masks ->
-    fit_objects_from_depth -> each fitted Gaussian moved sideways over 81
-    frames under the scene's camera -> render_control_maps -> a 2-step
-    480x832x81 request on phase 10's 1.3B pipeline (45 launches a step per
-    fused flavor). Returns the request's launches."""
+    scene's first frame, read back from a PNG uploaded to a port ApiServer
+    (uploaded_image, with a JPEG fixture beside it): the card's depth and
+    masks, written as the preprocess's PNGs by the port and read back equal
+    (the masks eroded from their files) -> fit_objects_from_depth -> each
+    fitted Gaussian moved sideways over 81 frames under the scene's camera
+    -> render_control_maps -> a 2-step 480x832x81 request on phase 10's
+    1.3B pipeline (45 launches a step per fused flavor). Returns the
+    request's launches."""
+    import shutil
+    import tempfile
+
+    from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
+    t0 = time.perf_counter()
+    h, w, n = RENDER_SIZE
+    log(f"[pre] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+        f"(phase 10's pipeline resident)")
+    scene = synthetic_scene(h, w, n, RENDER_SEED)
+    media = tempfile.mkdtemp(prefix="versecrafter_pre_")
+    try:
+        image = uploaded_image(scene["image"], media, card)
+        return chain_phase(fa, fab, ms, pipe, dev, card, scene, image, media, t0)
+    finally:
+        shutil.rmtree(media, ignore_errors=True)
+
+
+def uploaded_image(image, media, card):
+    """Phase 12's image as the add-on sends it: the scene's first frame
+    written as a PNG by the port and a baseline JPEG fixture, both uploaded
+    to a port ApiServer over HTTP and read back from its workdir by the
+    port's codecs: the PNG equal to the frame bit for bit, the JPEG to its
+    fixture digest. Returns the PNG's image."""
+    import urllib.request
+
+    from versecrafter_tpu_torch.serve import api_server as api_mod
+    from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
+    from versecrafter_tpu_torch.utils import png
+    from versecrafter_tpu_torch.utils.video import load_image, read_image
+
+    t1 = time.perf_counter()
+    fixture = os.path.join(MEDIA_DIR, "yuv420.jpg")
+    with open(fixture, "rb") as f:
+        files = {"scene.png": png.encode(image), "photo.jpg": f.read()}
+    httpd = make_server(api_mod.build_router(api_mod.ApiServer(workdir=media)), "127.0.0.1", 0)
+    serve_forever_in_thread(httpd)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for name, data in files.items():
+            req = urllib.request.Request(f"{url}/api/upload?filename=upload/{name}", data=data,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    got = read_image(os.path.join(media, "upload", "scene.png"))
+    photo = load_image(os.path.join(media, "upload", "photo.jpg"))
+    digest = hashlib.sha256(photo.tobytes()).hexdigest()
+    with open(os.path.join(MEDIA_DIR, "digests.json")) as f:
+        want = json.load(f)["yuv420.jpg"]
+    log(f"[pre] uploaded {[(k, len(v)) for k, v in files.items()]} bytes and read back in "
+        f"{time.perf_counter() - t1:.2f} s: the PNG {got.shape} equal to the frame: "
+        f"{np.array_equal(got, image)}; the JPEG {photo.shape} digest {digest[:16]} "
+        f"(fixture {want[:16]}) on the host of {card}")
+    if not np.array_equal(got, image) or digest != want:
+        raise AssertionError("an uploaded image did not read back as written")
+    return got
+
+
+def chain_phase(fa, fab, ms, pipe, dev, card, scene, image, media, t0):
+    """Phase 12 from its uploaded image on (preprocess_phase says what)."""
     from versecrafter_tpu_torch.geometry.coords import (
         CV2BLENDER, blender_c2w_to_opencv_w2c, denormalize_intrinsics)
     from versecrafter_tpu_torch.geometry import render as tr
@@ -3283,15 +3482,11 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
     from versecrafter_tpu_torch.geometry.morphology import erode
     from versecrafter_tpu_torch.geometry.pointcloud import build_background
     from versecrafter_tpu_torch.geometry.splat import TAB20
-    from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
+    from versecrafter_tpu_torch.perception import moge
     from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
     from versecrafter_tpu_torch.serve.model_server import run_loaded_request
-    t0 = time.perf_counter()
+    from versecrafter_tpu_torch.utils.video import read_image
     h, w, n = RENDER_SIZE
-    log(f"[pre] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
-        f"(phase 10's pipeline resident)")
-    scene = synthetic_scene(h, w, n, RENDER_SEED)
-    image = scene["image"]
     labels = [t.strip() for t in PRE_PROMPT.split(".") if t.strip()]
     stages = {}
     moge_params, out, stages["depth"] = moge_check(dev, image, card)
@@ -3327,9 +3522,30 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
     if not dets:
         raise AssertionError("no detection at full depth")
 
-    # the chain: depth + masks -> Gaussians -> trajectories -> maps -> video
+    # the preprocess files, written and read back by the port
     t1 = time.perf_counter()
-    masks = {i + 1: (d.label, erode(d.mask, 5)) for i, d in enumerate(dets)}
+    moge.save_outputs(out, os.path.join(media, "estimated_depth"))
+    paths = seg.save_results(image, dets, os.path.join(media, "object_mask"), stem="scene")
+    depth = moge.replace_infs_with_max(out["depth"])
+    back = {"depth_gray": (read_image(os.path.join(media, "estimated_depth", "depth_gray.png")),
+                           moge.grayscale_depth(depth)),
+            "depth_vis": (read_image(os.path.join(media, "estimated_depth", "depth_vis.png")),
+                          moge.colorize_depth(depth))}
+    files = sorted(k for k in paths if k.startswith("mask_"))
+    for i, (k, d) in enumerate(zip(files, dets)):
+        back[k] = (read_image(paths[k], gray=True), d.mask.astype(np.uint8) * 255)
+    stages["files"] = time.perf_counter() - t1
+    equal = {k: np.array_equal(a, b) for k, (a, b) in back.items()}
+    log(f"[pre] depth and mask PNGs written and read back in {stages['files']:.2f} s, equal to "
+        f"the arrays: {equal}")
+    if len(files) != len(dets) or not all(equal.values()):
+        raise AssertionError(f"preprocess files read back other arrays: {equal}")
+
+    # the chain: depth + masks (from their files) -> Gaussians -> trajectories
+    # -> maps -> video
+    t1 = time.perf_counter()
+    masks = {i + 1: (d.label, erode(back[k][0] > 127, 5))
+             for i, (k, d) in enumerate(zip(files, dets))}
     fitted = fit_objects_from_depth(out["depth"], out["intrinsics"], masks)
     stages["gaussian"] = time.perf_counter() - t1
     if not fitted:
@@ -4433,6 +4649,61 @@ def tp_phase(fa, dev, card):
     return records, launches
 
 
+def media_phase(card):
+    """Phase 17: the port's media codecs on the card's host. Each fixture
+    (tests/data/media: an OpenCV mp4v clip, three baseline JPEGs, two PNGs)
+    decoded by load_video / load_image to the array whose SHA-256 the JAX
+    package's OpenCV reads gave (digests.json); then a 480x832x81 clip
+    encoded by save_video and decoded by load_video, each timed on one host
+    thread, with the file's size and PSNR."""
+    import tempfile
+
+    from versecrafter_tpu_torch.utils import mp4, mpeg4
+    from versecrafter_tpu_torch.utils.video import load_image, load_video, save_video
+
+    t0 = time.perf_counter()
+    with open(os.path.join(MEDIA_DIR, "digests.json")) as f:
+        want = json.load(f)
+    seconds, bad = {}, []
+    for name in sorted(want):
+        path = os.path.join(MEDIA_DIR, name)
+        t1 = time.perf_counter()
+        arr = load_video(path) if name.endswith(".mp4") else load_image(path)
+        seconds[name] = round(time.perf_counter() - t1, 4)
+        if hashlib.sha256(arr.tobytes()).hexdigest() != want[name]:
+            bad.append(name)
+    log(f"[media] {len(want)} fixtures decoded, digests {'equal' if not bad else 'DIFFER: ' + str(bad)}"
+        f" to the JAX package's OpenCV reads; seconds {seconds} on the host of {card}")
+    h, w, n = RENDER_SIZE
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0, 1 + 4 * n / w, w + 4 * n, dtype=np.float32)[None, :, None]
+    pan = (np.clip(0.5 + 0.35 * np.sin(2 * np.pi * (1.5 * xx + 0.7 * yy
+                                                    + np.float32([0, 0.3, 0.6]))), 0, 1)
+           * 255).astype(np.uint8)
+    frames = np.stack([pan[:, 4 * i:4 * i + w] for i in range(n)])  # a pan, 4 px a frame
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "clip.mp4")
+        t1 = time.perf_counter()
+        save_video(frames, path, fps=16)
+        enc_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        back = load_video(path)
+        dec_s = time.perf_counter() - t1
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        mpeg4.decode(data, mp4.parse(data))
+        raw_s = time.perf_counter() - t1
+    err = psnr_db(back[0, :, ::8].transpose(1, 2, 3, 0), frames[::8] / 255.0)
+    log(f"[media] {h}x{w}x{n}: save_video {enc_s:.3f} s ({size} bytes), load_video "
+        f"{dec_s:.3f} s (the decode alone {raw_s:.3f} s), PSNR {err:.2f} dB (every 8th frame), "
+        f"one host thread, "
+        f"on the host of {card}; phase 17 {time.perf_counter() - t0:.1f} s")
+    if bad or back.shape != (1, 3, n, h, w) or err < WRITER_PSNR_DB:
+        raise AssertionError(f"media phase: digests {bad}, shape {back.shape}, PSNR {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4456,12 +4727,17 @@ def main() -> int:
     log(f"[env] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:  # beside the builds' own nvccs
+    with ThreadPoolExecutor(max_workers=4 + len(_build.host_sources())) as pool:
+        # beside the builds' own nvccs: ptxas reports and the host codecs
         reports = {src: pool.submit(_build.ptxas_report, src)
                    for src in sorted({src for src, _ in PTXAS_KERNELS.values()})}
+        hosts = [pool.submit(_build.build_host, src) for src in _build.host_sources()]
         _build.build_all(_build.kernel_sources())
         reports = {src: r.result() for src, r in reports.items()}
-    log(f"[build] {_build.kernel_sources()} built in {time.perf_counter() - t0:.1f} s")
+        for r in hosts:
+            r.result()
+    log(f"[build] {_build.kernel_sources()} and host {_build.host_sources()} built in "
+        f"{time.perf_counter() - t0:.1f} s")
     ptxas_check(_build, reports)
 
     # -- 2. kernel parity ------------------------------------------------
@@ -4699,6 +4975,9 @@ def main() -> int:
     recs, counts = tp_phase(fa, dev, card)
     records.update(recs)
     launches_main.update(counts)
+
+    # -- 17. the media codecs on the card's host ---------------------------
+    media_phase(card)
 
     if failures:
         raise AssertionError("; ".join(failures))

@@ -94,8 +94,53 @@ def test_no_source_imports_jax(path):
     assert [n for n in names if _forbidden(n)] == []
 
 
+def test_no_source_imports_cv2():
+    """The port reads and writes its media with its own codecs: the only
+    import of OpenCV is the saliency segmenter backend's."""
+    found = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(open(os.path.join(REPO, path)).read())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            found += [path for n in names if n == "cv2" or n.startswith("cv2.")]
+    assert found == [os.path.join("versecrafter_tpu_torch", "perception", "segmenter.py")]
+
+
+def test_request_io_without_cv2(tmp_path):
+    """With OpenCV blocked, as on the GPU machine, control mp4s written by
+    the port go through load_request_inputs, and frames as the pipeline
+    returns them ([B, T, H, W, 3] uint8) through save_generated_video, to an
+    mp4 the port reads back."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "import numpy as np\n"
+        "from versecrafter_tpu_torch.serve import model_server as ms\n"
+        "from versecrafter_tpu_torch.utils import video\n"
+        f"d = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "for n in ms.CONTROL_NAMES + ['merged_mask.mp4']:\n"
+        "    video.save_video(rng.integers(0, 256, (5, 16, 32, 3)).astype(np.uint8),\n"
+        "                     d + '/' + n, fps=16)\n"
+        "params = {'rendering_maps_path': d, 'height': 16, 'width': 32, 'num_frames': 5,\n"
+        "          'fps': 16, 'save_path': d + '/out'}\n"
+        "controls, mask = ms.load_request_inputs(params)\n"
+        "out = (controls[0][0].transpose(1, 2, 3, 0)[None] * 255).astype(np.uint8)\n"
+        "path = ms.save_generated_video(out, params)\n"
+        "back = video.load_video(path)\n"
+        "assert back.shape == (1, 3, 5, 16, 32), back.shape\n"
+        "assert len(controls) == 4 and mask.shape == (1, 1, 5, 16, 32)\n"
+        "assert 'cv2' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "print('ok', path)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok ")
+
+
 @pytest.mark.parametrize("name", ["WanDiTConfig", "VAEConfig", "T5Config",
-                                  "SchedulerConfig", "PipelineConfig"])
+                                  "SchedulerConfig", "PipelineConfig", "ParallelConfig"])
 def test_config_fields_match_jax(name):
     def spec(cls):
         return [(f.name, f.default) for f in dataclasses.fields(cls)]

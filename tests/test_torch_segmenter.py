@@ -165,15 +165,20 @@ def test_saliency_backend_and_files(tmp_path):
             assert f.read() == g.read(), k
 
 
-def test_without_cv2(monkeypatch):
-    """OpenCV blocked, as on the GPU machine: the saliency backend and the
-    file writer raise ImportError naming it."""
+def test_without_cv2(monkeypatch, tmp_path):
+    """OpenCV blocked, as on the GPU machine: the saliency backend raises
+    ImportError naming it; the file writer (the port's own PNG codec and
+    drawing) writes the JAX package's files."""
     monkeypatch.setitem(sys.modules, "cv2", None)
     seg = tseg.ImageSegmenter(backend="saliency")
     with pytest.raises(ImportError, match="cv2"):
         seg.segment_image(_image(4), "car.")
-    with pytest.raises(ImportError, match="cv2"):
-        seg.save_results(_image(4), [], "unused")
+    got = seg.save_results(_image(4), [], str(tmp_path / "port"))
+    want = jseg.ImageSegmenter().save_results(_image(4), [], str(tmp_path / "jax"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        with open(want[k], "rb") as f, open(got[k], "rb") as g:
+            assert f.read() == g.read(), k
 
 
 def test_guards(segs):

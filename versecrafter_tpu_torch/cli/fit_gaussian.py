@@ -5,7 +5,7 @@
 
 The JAX package's flags; the fit is numpy on the host, so --device,
 --input_image_path and --disable_visualization change nothing, as there.
-Writes <output_dir>/gaussian_params.json. Reading the masks needs OpenCV.
+Writes <output_dir>/gaussian_params.json.
 """
 
 from __future__ import annotations

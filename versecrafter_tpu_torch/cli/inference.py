@@ -14,8 +14,8 @@ The flags are the JAX package's cli/inference.py flags plus --device
 pipeline of --smoke_scale. --offline_smoke defaults the size to 64x64x9 at
 4 steps unless the size flags are given. It prints "denoise i / n" after
 each step and the saved mp4's path as its last line (the API server's
-subprocess tier reads both). Reading the maps and writing the mp4 need
-OpenCV (utils/video.py). As in the JAX CLI, --lora_path (any state dict
+subprocess tier reads both). The maps are read and the mp4 written by the
+port's codecs (utils/video.py). As in the JAX CLI, --lora_path (any state dict
 core.convert.load_torch_state_dict reads) is merged at --lora_weight first,
 then --quantize_int8 / --int8_compute store the DiT in --quantize_bits
 (W8A8 / W4A8 with --int8_compute), then --int8_attention applies. Without

@@ -8,7 +8,8 @@ outputs cropped back. Writes depth_intrinsics.npz (fp16 depth + normalized
 intrinsics), depth_gray.png / depth_vis.png (--maps), mesh.glb (--glb) and
 pointcloud.ply (--ply); all of them when no format flag is given. Without
 --pretrained the model is the full ViT-L MoGe from seed 0 (random weights).
-Reading the image and writing the PNGs needs OpenCV.
+The image is read (PNG or baseline JPEG) and the PNGs written by the port's
+codecs (utils/video.py).
 """
 
 from __future__ import annotations
@@ -42,20 +43,20 @@ def main(argv=None):
 
     from versecrafter_tpu_torch import resolve_device
     from versecrafter_tpu_torch.perception import moge
-    from versecrafter_tpu_torch.utils.video import _cv2
+    from versecrafter_tpu_torch.utils import imgproc
+    from versecrafter_tpu_torch.utils.video import read_image
 
     dev = resolve_device(args.device_name)
-    cv2 = _cv2()
-    raw = cv2.imread(args.input_path)
-    if raw is None:
+    try:
+        img = read_image(args.input_path)
+    except (OSError, ValueError) as e:
         raise FileNotFoundError(f"File {args.input_path} does not exist "
-                                "or is not a readable image.")
-    img = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
+                                "or is not a readable image.") from e
     if args.resize_to:
         h, w = img.shape[:2]
         nh = min(args.resize_to, int(args.resize_to * h / w))
         nw = min(args.resize_to, int(args.resize_to * w / h))
-        img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)
+        img = imgproc.resize(img, (nw, nh), imgproc.INTER_AREA)
     oh, ow = img.shape[:2]
     ph, pw = -img.shape[0] % 14, -img.shape[1] % 14
     if ph or pw:

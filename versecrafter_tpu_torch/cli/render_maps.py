@@ -9,8 +9,8 @@ defaults to cuda. As there, --video_path, --mask_video, --use_fp16,
 --pin_memory, --ellipsoid_subdiv, --trajectory_radius,
 --gaussian_mask_threshold and --sample_frames are accepted and change
 nothing. It prints the render's time split as one JSON line, then
-"saved <name>: <path>" for each of the six mp4s. Reading the png and masks
-and writing the mp4s needs OpenCV (utils/video.py).
+"saved <name>: <path>" for each of the six mp4s. The png and masks are read
+and the mp4s written by the port's codecs (utils/video.py).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@
 
 The JAX package's flags; --device (the neural backend's) defaults to cuda.
 Writes masks/mask_{id:02d}_{label}.png, mask_combined.png,
-annotations.txt and visualization.png. Reading the image and writing the
-PNGs needs OpenCV, and so does the saliency backend.
+annotations.txt and visualization.png, through the port's codecs
+(utils/video.py). The saliency backend alone needs OpenCV.
 """
 
 from __future__ import annotations
@@ -42,10 +42,9 @@ def main(argv=None):
     import numpy as np
 
     from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
-    from versecrafter_tpu_torch.utils.video import _cv2
+    from versecrafter_tpu_torch.utils.video import read_image
 
-    cv2 = _cv2()
-    img = cv2.cvtColor(cv2.imread(args.image), cv2.COLOR_BGR2RGB)
+    img = read_image(args.image)
     depth = None
     if args.depth_npz:
         d = np.load(args.depth_npz)["depth"].astype(np.float32)

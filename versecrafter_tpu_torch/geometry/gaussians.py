@@ -4,7 +4,7 @@
 mask (eroded) -> world points -> sample mean and covariance with a 1e-6
 ridge; process_single_image writes the gaussian_params.json schema that the
 renderer and the Blender add-on read. numpy on the host; the erosion is
-morphology.py's, and only the mask file reads need OpenCV.
+morphology.py's, and the mask files read through utils/video.py.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 from versecrafter_tpu_torch.geometry.coords import denormalize_intrinsics
 from versecrafter_tpu_torch.geometry.morphology import erode
 from versecrafter_tpu_torch.geometry.pointcloud import unproject_depth
-from versecrafter_tpu_torch.utils.video import _cv2
+from versecrafter_tpu_torch.utils.video import read_image
 
 
 def fit_gaussian(points: np.ndarray) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
@@ -36,9 +36,9 @@ def fit_gaussian(points: np.ndarray) -> Tuple[Optional[np.ndarray], Optional[np.
 def load_mask_eroded(mask_path: str, erode_kernel: int = 5) -> Optional[np.ndarray]:
     """A mask png -> bool [H, W], eroded by an elliptical erode_kernel;
     None when the file does not read."""
-    cv2 = _cv2()
-    m = cv2.imread(mask_path, cv2.IMREAD_GRAYSCALE)
-    if m is None:
+    try:
+        m = read_image(mask_path, gray=True)
+    except (OSError, ValueError):
         return None
     return erode(m > 127, erode_kernel)
 

@@ -3,8 +3,9 @@
 
 Host arithmetic in numpy, in the JAX package's order, so the points are
 bit-equal; the object masks are dilated by morphology.py (OpenCV's result
-without OpenCV). Only the file reads of load_background_from_files need
-OpenCV, imported at first use.
+without OpenCV). load_background_from_files reads its files with the
+port's codecs (utils/video.py) and resizes the masks as cv2.INTER_NEAREST
+does (utils/imgproc.py).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 
 from versecrafter_tpu_torch.geometry.coords import CV2BLENDER, denormalize_intrinsics
 from versecrafter_tpu_torch.geometry.morphology import dilate
-from versecrafter_tpu_torch.utils.video import _cv2
+from versecrafter_tpu_torch.utils import imgproc
+from versecrafter_tpu_torch.utils.video import read_image
 
 
 def unproject_depth(depth: np.ndarray, K: np.ndarray,
@@ -67,8 +69,7 @@ def load_background_from_files(png_path: str, npz_path: str, mask_dir: Optional[
     """The reference CLI's inputs (RGB png, MoGe depth npz with 'depth' and
     'intrinsic', a directory of per-object mask pngs) -> (points, colors,
     K in pixels, H, W)."""
-    cv2 = _cv2()
-    img = cv2.cvtColor(cv2.imread(png_path), cv2.COLOR_BGR2RGB)
+    img = read_image(png_path)
     h, w = img.shape[:2]
     data = np.load(npz_path)
     depth = data["depth"].astype(np.float32)
@@ -80,8 +81,8 @@ def load_background_from_files(png_path: str, npz_path: str, mask_dir: Optional[
     if mask_dir is not None:
         combined = np.zeros((h, w), np.uint8)
         for f in sorted(Path(mask_dir).glob("*.png")):
-            m = cv2.imread(str(f), cv2.IMREAD_GRAYSCALE)
-            m = cv2.resize(m, (w, h), interpolation=cv2.INTER_NEAREST)
+            m = read_image(str(f), gray=True)
+            m = imgproc.resize(m, (w, h), imgproc.INTER_NEAREST)
             combined |= (m > 127).astype(np.uint8)
 
     pts, cols = build_background(img, depth, K, combined, dilate_kernel)

@@ -268,10 +268,20 @@ def render_from_files(
     if last_render_profile:
         print(json.dumps({"render_profile": last_render_profile}), flush=True)
 
+    return write_control_maps(videos, output_dir, fps)
+
+
+def write_control_maps(videos: dict, output_dir: str, fps: int = 16) -> dict:
+    """The rendered uint8 streams as <output_dir>/<name>.mp4, written the
+    reference's way (as floats in [0, 1] through save_video), one stream a
+    thread (each encoder runs on one); the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
     os.makedirs(output_dir, exist_ok=True)
-    paths = {}
-    for name, vid in videos.items():
-        p = os.path.join(output_dir, f"{name}.mp4")
-        save_video(vid.astype(np.float32) / 255.0, p, fps=fps)
-        paths[name] = p
+    paths = {name: os.path.join(output_dir, f"{name}.mp4") for name in videos}
+    with ThreadPoolExecutor(max_workers=max(1, len(videos))) as pool:
+        futures = [pool.submit(save_video, vid.astype(np.float32) / 255.0, paths[name], fps=fps)
+                   for name, vid in videos.items()]
+        for f in futures:
+            f.result()
     return paths

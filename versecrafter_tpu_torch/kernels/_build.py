@@ -6,6 +6,12 @@ into ``versecrafter_tpu_torch/build/<name>-<source hash>.so`` (git-ignored),
 exposing a plain C interface — no PyTorch headers, so a build takes seconds.
 Shared device helpers live in ``csrc/*.cuh``; the hash covers them too. A
 library whose hash matches is reused; a changed source builds anew.
+
+Host code (the media codecs) lives in ``csrc/host/<name>.cpp`` and builds
+the same way with the host C++ compiler (``c++ -O3 -std=c++17 -shared
+-fPIC``) into ``build/host-<name>-<source hash>.so``: on the CPU of any
+machine with a compiler, and at first use on the GPU machine, whose CUDA
+toolkit brings one. Without a compiler it raises; nothing stands in.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +48,57 @@ def _nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                        "machine with the CUDA toolkit")
+
+
+def _cxx() -> str:
+    found = shutil.which("c++")
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler (c++) found: the port's media codecs "
+                       "(csrc/host/*.cpp) build with it at first use")
+
+
+def host_library_path(name: str) -> str:
+    """csrc/host/<name>.cpp's library path, named by a hash of the source
+    and the flags."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(HOST_DIR, name + ".cpp"), "rb") as src:
+        h.update(name.encode() + b"\0" + src.read())
+    return os.path.join(BUILD_DIR, f"host-{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile csrc/host/<name>.cpp unless an up-to-date library exists;
+    returns the library path (written to a temporary file, then renamed)."""
+    out = host_library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_cxx(), *HOST_FLAGS, "-o", tmp, os.path.join(HOST_DIR, name + ".cpp")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"c++ failed for host/{name}.cpp:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/host/<name>.cpp, building it on first use."""
+    key = "host/" + name
+    with _lock:
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(build_host(name))
+        return _libs[key]
+
+
+def host_sources() -> list:
+    return sorted(f[:-4] for f in os.listdir(HOST_DIR) if f.endswith(".cpp"))
 
 
 def library_path(name: str) -> str:

@@ -6,7 +6,7 @@ positions, QuickGELU MLP blocks and a final LayerNorm over all tokens
 (cls + patches: 257 at ViT-H/14, 224 px). The attention is the JAX
 module's einsum -> fp32 softmax -> einsum in the token dtype, at the same
 rounding points; no kernel of the port is involved. `encode_image` resizes
-with `resize_linear`, this module's numpy copy of OpenCV's bilinear
+with `utils/imgproc.resize_linear`, a numpy copy of OpenCV's bilinear
 `cv2.resize` (the GPU machine has no OpenCV), so the tower runs in fp32 on
 the same pixels in both packages.
 """
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from versecrafter_tpu_torch.kernels.norms import layer_norm
+from versecrafter_tpu_torch.utils.imgproc import resize_linear
 
 Params = Dict[str, Any]
 
@@ -114,83 +115,6 @@ def clip_vision_forward(params: Params, cfg: dict, image: torch.Tensor) -> torch
     if not cfg.get("post_norm", True):
         return tok
     return layer_norm(tok, params["post_norm"]["scale"], params["post_norm"]["bias"], eps=eps)
-
-
-# ---------------------------------------------------------------------------
-# OpenCV's bilinear resize in numpy
-# ---------------------------------------------------------------------------
-
-def _coords(dst: int, src: int, fixed_point: bool):
-    """(first source index, fraction as float32) of each output pixel of a
-    half-pixel-centred linear resize. The fixed-point path forms the
-    coordinate in float32 as OpenCV's generic resize does; the float path
-    keeps it in float64 and rounds only the fraction."""
-    if fixed_point:
-        scale = 1.0 / (np.float64(dst) / np.float64(src))
-        f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
-        s = np.floor(f).astype(np.int64)
-        return s, (f - s.astype(np.float32)).astype(np.float32)
-    f = (np.arange(dst, dtype=np.float64) + 0.5) * (np.float64(src) / dst) - 0.5
-    s = np.floor(f).astype(np.int64)
-    return s, (f - s).astype(np.float32)
-
-
-def _clamp(s, f, n):
-    """Indices outside [0, n - 2] take the edge pixel with weight 1."""
-    f = np.where((s < 0) | (s >= n - 1), np.float32(0), f).astype(np.float32)
-    return np.clip(s, 0, n - 1), f
-
-
-def _fma32(a, b, c):
-    """fp32 a * b + c with one rounding (the float64 product is exact)."""
-    return (a.astype(np.float64) * b + c).astype(np.float32)
-
-
-def resize_linear(img: np.ndarray, size) -> np.ndarray:
-    """cv2.resize(img, size) with the default INTER_LINEAR, for a uint8 or
-    float32 [H, W] / [H, W, C] image and size = (width, height).
-
-    uint8 is OpenCV's fixed-point path: 11-bit weights from the float32
-    fractions, the horizontal pass in exact integers, the vertical one as
-    its SIMD form computes it ((S >> 4) * beta >> 16 per row, a saturating
-    add, then (t + 2) >> 2, saturated to 0..255). Rows outside the image
-    repeat the edge row with their weights kept. float32 is the IPP path
-    OpenCV takes there: each pass a + f * (b - a) as one fused multiply-add,
-    edges clamped. Both are bit-exact to OpenCV's at 480x832 -> 224x224 and
-    at an upscale (tests/test_torch_clip.py); the float path can differ by
-    one ulp on some strong upscales of very narrow images."""
-    w_out, h_out = int(size[0]), int(size[1])
-    img = np.asarray(img)
-    H, W = img.shape[:2]
-    x = img.reshape(H, W, -1)
-    if img.dtype == np.uint8:
-        sx, fx = _clamp(*_coords(w_out, W, True), W)
-        sy, fy = _coords(h_out, H, True)
-        x1 = np.minimum(sx + 1, W - 1)
-        y0, y1 = np.clip(sy, 0, H - 1), np.clip(sy + 1, 0, H - 1)
-
-        def weights(f):
-            return (np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64),
-                    np.rint(f * np.float32(2048)).astype(np.int64))
-
-        a0, a1 = weights(fx)
-        b0, b1 = weights(fy)
-        xs = x.astype(np.int64)
-        d = xs[:, sx] * a0[None, :, None] + xs[:, x1] * a1[None, :, None]
-        t = ((((d[y0] >> 4) * b0[:, None, None]) >> 16)
-             + (((d[y1] >> 4) * b1[:, None, None]) >> 16))
-        out = np.clip((np.clip(t, -32768, 32767) + 2) >> 2, 0, 255).astype(np.uint8)
-    elif img.dtype == np.float32:
-        sx, fx = _clamp(*_coords(w_out, W, False), W)
-        sy, fy = _clamp(*_coords(h_out, H, False), H)
-        x1, y1 = np.minimum(sx + 1, W - 1), np.minimum(sy + 1, H - 1)
-        a, b = x[:, sx], x[:, x1]
-        d = _fma32(fx[None, :, None], b - a, a)
-        c, e = d[sy], d[y1]
-        out = _fma32(fy[:, None, None], e - c, c)
-    else:
-        raise TypeError(f"resize_linear takes uint8 or float32, got {img.dtype}")
-    return out.reshape((h_out, w_out) + img.shape[2:])
 
 
 def encode_image(params: Params, cfg: dict, image: np.ndarray) -> torch.Tensor:

@@ -130,3 +130,42 @@ def init_t5(cfg: T5Config, generator: torch.Generator,
         })
     return {"embed": normal((cfg.vocab, d), 1.0), "final_norm": ones(),
             "blocks": blocks}
+
+
+def convert_hf_umt5(state_dict, cfg: T5Config, dtype=torch.bfloat16) -> Params:
+    """A Hugging Face UMT5EncoderModel state dict (torch tensors or numpy
+    arrays) -> this module's params: Linear weights transposed to [in, out]
+    in `dtype`, layer norms and relative-position biases in float32 (the
+    JAX package's convert_hf_umt5, leaf for leaf)."""
+    def g(name):
+        t = state_dict[name]
+        return (t.detach().to("cpu").float() if isinstance(t, torch.Tensor)
+                else torch.from_numpy(np.asarray(t, np.float32)))
+
+    def lin(name):  # torch Linear stores [out, in]
+        return g(name).t().contiguous().to(dtype)
+
+    params: Params = {
+        "embed": g("shared.weight").to(dtype),
+        "final_norm": g("encoder.final_layer_norm.weight"),
+        "blocks": [],
+    }
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        params["blocks"].append({
+            "norm1": g(f"{pre}.0.layer_norm.weight"),
+            "attn": {
+                "q": lin(f"{pre}.0.SelfAttention.q.weight"),
+                "k": lin(f"{pre}.0.SelfAttention.k.weight"),
+                "v": lin(f"{pre}.0.SelfAttention.v.weight"),
+                "o": lin(f"{pre}.0.SelfAttention.o.weight"),
+                "rel_bias": g(f"{pre}.0.SelfAttention.relative_attention_bias.weight"),
+            },
+            "norm2": g(f"{pre}.1.layer_norm.weight"),
+            "ffn": {
+                "wi_0": lin(f"{pre}.1.DenseReluDense.wi_0.weight"),
+                "wi_1": lin(f"{pre}.1.DenseReluDense.wi_1.weight"),
+                "wo": lin(f"{pre}.1.DenseReluDense.wo.weight"),
+            },
+        })
+    return params

@@ -11,8 +11,9 @@ focal and z-shift are recovered on the host from the point map by
 `recover_focal_shift` (float64 numpy, the JAX package's code line for
 line). Checkpoints are npz files of flattened JAX parameter paths
 (`vit/blocks/qkv/kernel` stacked over the blocks, `head/projects/0/weight`,
-...), so a file written by either package loads in the other. Only the
-PNG writers need OpenCV, imported at first use.
+...), so a file written by either package loads in the other. The PNG
+views are written by utils/video.write_png and coloured by
+utils/imgproc.colormap_turbo.
 """
 
 from __future__ import annotations
@@ -256,10 +257,8 @@ def grayscale_depth(depth: np.ndarray) -> np.ndarray:
 
 def colorize_depth(depth: np.ndarray) -> np.ndarray:
     """The normalized disparity through OpenCV's TURBO colour map, RGB."""
-    from versecrafter_tpu_torch.utils.video import _cv2
-    cv2 = _cv2()
-    g = grayscale_depth(depth)[..., 0]
-    return cv2.cvtColor(cv2.applyColorMap(g, cv2.COLORMAP_TURBO), cv2.COLOR_BGR2RGB)
+    from versecrafter_tpu_torch.utils.imgproc import colormap_turbo
+    return colormap_turbo(grayscale_depth(depth)[..., 0])
 
 
 def export_mesh(output: dict, image: np.ndarray, out_dir: str, threshold: float = 0.04,
@@ -375,16 +374,13 @@ def save_checkpoint(params: Params, path: str) -> None:
 
 def save_outputs(output: dict, out_dir: str) -> str:
     """depth_intrinsics.npz (fp16 depth + normalized intrinsics) and the
-    depth_gray.png / depth_vis.png views (OpenCV)."""
-    from versecrafter_tpu_torch.utils.video import _cv2
-    cv2 = _cv2()
+    depth_gray.png / depth_vis.png views."""
+    from versecrafter_tpu_torch.utils.video import write_png
     os.makedirs(out_dir, exist_ok=True)
     depth = replace_infs_with_max(output["depth"])
     np.savez_compressed(os.path.join(out_dir, "depth_intrinsics.npz"),
                         depth=depth.astype(np.float16),
                         intrinsic=output["intrinsics"].astype(np.float16))
-    cv2.imwrite(os.path.join(out_dir, "depth_gray.png"),
-                cv2.cvtColor(grayscale_depth(depth), cv2.COLOR_RGB2BGR))
-    cv2.imwrite(os.path.join(out_dir, "depth_vis.png"),
-                cv2.cvtColor(colorize_depth(depth), cv2.COLOR_RGB2BGR))
+    write_png(os.path.join(out_dir, "depth_gray.png"), grayscale_depth(depth))
+    write_png(os.path.join(out_dir, "depth_vis.png"), colorize_depth(depth))
     return os.path.join(out_dir, "depth_intrinsics.npz")

@@ -6,14 +6,15 @@
   phrases, labels grounded from the token posmap, class-agnostic NMS, then
   SAM 2.1 (sam2.py) or SAM (sam.py, `mask_backend="sam1"`) box-prompted
   masks. The letterbox and the mask resize are OpenCV's bilinear
-  `cv2.resize` in numpy (models/clip.resize_linear), so this backend needs
+  `cv2.resize` in numpy (utils/imgproc.resize_linear), so this backend needs
   no OpenCV: it runs on arrays on the card.
 - `backend="saliency"`: the classical fallback (colour k-means + connected
   components), OpenCV's code at first use; without OpenCV it raises
-  ImportError naming it.
+  ImportError naming it. It is the only part of the port that uses OpenCV.
 
 Detections are area-filtered, sorted by area and cut to max_objects;
-`save_results` writes the reference's file layout (PNG IO through OpenCV).
+`save_results` writes the reference's file layout through the port's PNG
+writer and utils/imgproc's rectangle and label drawing.
 """
 
 from __future__ import annotations
@@ -25,8 +26,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from versecrafter_tpu_torch.models.clip import resize_linear
-from versecrafter_tpu_torch.utils.video import _cv2
+from versecrafter_tpu_torch.utils import imgproc
+from versecrafter_tpu_torch.utils.imgproc import resize_linear
+from versecrafter_tpu_torch.utils.video import write_png
+
+
+def _cv2():
+    """OpenCV, for the saliency backend only."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("the saliency segmenter backend needs OpenCV (the cv2 module), "
+                          "which is not installed here; use backend='neural'") from e
+    return cv2
+
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
 IMAGENET_STD = np.array([0.229, 0.224, 0.225])
@@ -267,12 +280,11 @@ class ImageSegmenter:
             dets.append(Detection(label, det["score"], tuple(pix_boxes[qi].astype(int)), m > 0))
         return dets
 
-    # -- file contract (OpenCV) ------------------------------------------------
+    # -- file contract --------------------------------------------------------
     def save_results(self, image: np.ndarray, detections: Sequence[Detection],
                      output_dir: str, stem: str = "") -> Dict[str, str]:
         """masks/mask_{id:02d}_{label}.png, {stem}_mask_combined.png,
         {stem}_annotations.txt and {stem}_visualization.png."""
-        cv2 = _cv2()
         os.makedirs(os.path.join(output_dir, "masks"), exist_ok=True)
         paths = {}
         combined = np.zeros(image.shape[:2], np.uint8)
@@ -281,20 +293,19 @@ class ImageSegmenter:
         for i, d in enumerate(detections, start=1):
             name = f"mask_{i:02d}_{d.label}.png"
             p = os.path.join(output_dir, "masks", name)
-            cv2.imwrite(p, d.mask.astype(np.uint8) * 255)
+            write_png(p, d.mask.astype(np.uint8) * 255)
             paths[name] = p
             combined |= d.mask.astype(np.uint8) * 255
             x0, y0, x1, y1 = d.box
-            cv2.rectangle(vis, (x0, y0), (x1, y1), (255, 60, 60), 2)
-            cv2.putText(vis, f"{i}:{d.label}", (x0, max(y0 - 4, 10)),
-                        cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 60, 60), 1)
+            imgproc.rectangle(vis, (x0, y0), (x1, y1), (255, 60, 60))
+            imgproc.put_text(vis, f"{i}:{d.label}", (x0, max(y0 - 4, 10)), (255, 60, 60))
             lines.append(f"{i}\t{d.label}\t{d.score:.3f}\t{x0},{y0},{x1},{y1}\t"
                          f"{int(d.mask.sum())}")
         pre = f"{stem}_" if stem else ""
         paths["combined"] = os.path.join(output_dir, f"{pre}mask_combined.png")
-        cv2.imwrite(paths["combined"], combined)
+        write_png(paths["combined"], combined)
         paths["visualization"] = os.path.join(output_dir, f"{pre}visualization.png")
-        cv2.imwrite(paths["visualization"], cv2.cvtColor(vis, cv2.COLOR_RGB2BGR))
+        write_png(paths["visualization"], vis)
         paths["annotations"] = os.path.join(output_dir, f"{pre}annotations.txt")
         with open(paths["annotations"], "w") as f:
             f.write("\n".join(lines) + "\n")

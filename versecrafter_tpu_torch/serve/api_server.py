@@ -162,21 +162,20 @@ class ApiServer:
         {"depth_npz", "gaussian_params", "mask_dir", "num_objects"}, relative
         to the workdir. The detection knobs ride the request (backend,
         box_threshold, text_threshold, min_area_ratio, max_area_ratio,
-        max_objects, text_prompt); MoGe runs on `device`. Image and PNG IO
-        need OpenCV."""
+        max_objects, text_prompt); MoGe runs on `device`. Images and PNGs go
+        through the port's own codecs (utils/video.py)."""
         try:
             import numpy as np
 
             from versecrafter_tpu_torch.geometry.gaussians import process_single_image
             from versecrafter_tpu_torch.perception import moge
             from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
-            from versecrafter_tpu_torch.utils.video import _cv2
+            from versecrafter_tpu_torch.utils.video import read_image
 
-            cv2 = _cv2()
             self.tasks.update(task_id, status=RUNNING, progress=5, message="estimating depth")
             img_path = self.safe_path(params["image"])
             out_root = os.path.dirname(img_path)
-            img = cv2.cvtColor(cv2.imread(img_path), cv2.COLOR_BGR2RGB)
+            img = read_image(img_path)
             ph, pw = -img.shape[0] % 14, -img.shape[1] % 14  # the ViT patch multiple
             pimg = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge") if ph or pw else img
             mparams = self._moge_params(params.get("moge_checkpoint"),

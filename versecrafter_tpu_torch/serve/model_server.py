@@ -17,7 +17,7 @@ Endpoints:
         --model_path <dir> --ulysses_degree 8
 
 A request names a control-map directory by the reference's file contract
-(load_request_inputs); reading its mp4s needs OpenCV (utils/video.py).
+(load_request_inputs); its mp4s are read by the port's codecs (utils/video.py).
 run_loaded_request serves a request whose control videos are already
 arrays. The pipeline comes from default_pipeline_factory: a reference-layout
 checkpoint directory (core.convert.load_versecrafter) or random weights.
@@ -318,7 +318,10 @@ def load_request_inputs(params: dict):
     the mask's frame 0 zeroed (kept), all ones without a mask file; the
     input image, when given, over control 0's frame 0. A missing control
     stream becomes zeros in its own slot (a warning names each stream that
-    is filled); with none of them present, FileNotFoundError."""
+    is filled); with none of them present, FileNotFoundError. The mp4s are
+    decoded one a thread (each decoder runs on one)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from versecrafter_tpu_torch.utils.video import load_image, load_video
 
     maps_dir = params["rendering_maps_path"]
@@ -327,8 +330,12 @@ def load_request_inputs(params: dict):
     n = int(params.get("num_frames", 81))
     fps = int(params.get("fps", 16))
     paths = [os.path.join(maps_dir, name) for name in CONTROL_NAMES]
-    controls = [load_video(p, num_frames=n, size=(h, w), fps=fps)
-                if os.path.exists(p) else None for p in paths]
+    mask_p = os.path.join(maps_dir, "merged_mask.mp4")
+    with ThreadPoolExecutor(max_workers=len(paths) + 1) as pool:
+        futures = [pool.submit(load_video, p, num_frames=n, size=(h, w), fps=fps)
+                   if os.path.exists(p) else None for p in paths + [mask_p]]
+        clips = [f.result() if f is not None else None for f in futures]
+    controls, mask = clips[:-1], clips[-1]
     loaded = [c for c in controls if c is not None]
     if not loaded:
         raise FileNotFoundError(
@@ -338,9 +345,8 @@ def load_request_inputs(params: dict):
         if controls[i] is None:
             print(f"warning: control video not found, zero-filled: {p}", flush=True)
             controls[i] = np.zeros_like(loaded[0])
-    mask_p = os.path.join(maps_dir, "merged_mask.mp4")
-    if os.path.exists(mask_p):
-        mask = load_video(mask_p, num_frames=n, size=(h, w), fps=fps)[:, :1]
+    if mask is not None:
+        mask = mask[:, :1]
         mask[:, :, 0] = 0.0  # frame 0 is kept
     else:
         mask = np.ones((1, 1, n, h, w), np.float32)

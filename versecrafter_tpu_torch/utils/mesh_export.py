@@ -192,13 +192,8 @@ def save_glb(path: str, vertices: np.ndarray, faces: np.ndarray,
         "accessors": accessors,
     }
     if texture_rgb is not None and vertex_uvs is not None:
-        from versecrafter_tpu_torch.utils.video import _cv2
-        cv2 = _cv2()
-        ok, png = cv2.imencode(
-            ".png", cv2.cvtColor(np.asarray(texture_rgb, np.uint8),
-                                 cv2.COLOR_RGB2BGR))
-        assert ok
-        img_view = add_view(png.tobytes(), None)
+        from versecrafter_tpu_torch.utils import png
+        img_view = add_view(png.encode(np.ascontiguousarray(texture_rgb, np.uint8)), None)
         gltf["images"] = [{"bufferView": img_view, "mimeType": "image/png"}]
         gltf["samplers"] = [{"magFilter": 9729, "minFilter": 9729,
                              "wrapS": 33071, "wrapT": 33071}]
