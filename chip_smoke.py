@@ -177,13 +177,15 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      cross kernel by CUDA events.
  12. preprocessing and the whole chain (run on phase 10's pipeline, between
      phase 11's video= request and its i2v part): the scene's first frame
-     written as a PNG by the port and uploaded with a baseline JPEG fixture
-     to a port ApiServer, both read back from its workdir (the PNG equal to
-     the frame, the JPEG to its fixture digest); MoGe-v2 (ViT-L +
-     HEAD_L, seed 0) on the PNG's image edge-padded to 490x840
-     (2,100 tokens), points and mask logits card vs CPU (1e-3 * max), the
-     focal and shift recovered from each side's point map, a rerun
-     bit-identical, seconds and peak; the neural segmenter at the full
+     written as a PNG by the port and uploaded with a baseline and a
+     progressive JPEG fixture to a port ApiServer, all read back from its
+     workdir (the PNG equal to the frame, each JPEG to its fixture digest);
+     MoGe-v2 (ViT-L + HEAD_L, seed 0) on the PNG's image edge-padded to
+     490x840 (2,100 tokens), points and mask logits card vs CPU (1e-3 *
+     max), the focal and shift recovered from each side's point map, a rerun
+     bit-identical, seconds and peak; a preprocess request with the default
+     parameters (the saliency segmenter) on the uploaded progressive JPEG,
+     completed with objects and timed; the neural segmenter at the full
      widths but a reduced depth (Swin-T stages 2,2,2,2, BERT-base and the
      encoder / decoder at 2 layers; Hiera-L stages 2,2,4,2) card vs CPU:
      the encoder's proposal scores, then, both sides decoding the CPU's
@@ -266,12 +268,16 @@ Phases, each timed, any failure fatal (exit code != 0, no result line):
      beside a bf16 tp path's. Phase 5's trained GeoAdapter tree is written
      through core/checkpoint.py (the JAX package's orbax layout) and read
      back byte-equal.
- 17. the media codecs on the card's host (the machine has no OpenCV; the
-     port's own PNG, JPEG, mp4 and MPEG-4 Part 2 code, built from
-     csrc/host/ in phase 1): each fixture of tests/data/media decoded to
-     the SHA-256 the JAX package's OpenCV reads gave, and a 480x832x81 clip
-     encoded by save_video and decoded by load_video on one host thread,
-     timed, with its size and PSNR.
+ 17. the host code on the card's host (the machine has no OpenCV; the
+     port's own PNG, JPEG (baseline, progressive, CMYK), mp4 and MPEG-4
+     Part 2 code and the saliency segmenter's blur, k-means and connected
+     components, built from csrc/host/ in phase 1): each fixture of
+     tests/data/media decoded to the SHA-256 the JAX package's OpenCV reads
+     gave; the saliency segmentation of the 480x832 progressive fixture with
+     a seeded depth, on a fresh host thread, timed, its detections equal to
+     the JAX package's; and a 480x832x81 clip encoded by save_video and
+     decoded by load_video on one host thread, timed, with its size and
+     PSNR.
 Phase 2 also holds the int8 flavor of the self-attention kernel and the
 linear_rstat GEMM to their plain versions (and the int8 flavor to the exact
 bf16 kernel within the int8 envelope), the GEMM at the q/k projections'
@@ -364,6 +370,8 @@ FRAMES_E2E = 45
 WRITER_PSNR_DB = 25.0
 # phases 12 and 17: the media fixtures (scripts/make_torch_media_fixtures.py)
 MEDIA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "media")
+# phase 12's uploads: name in the workdir -> fixture
+UPLOADED_JPEGS = {"photo.jpg": "yuv420.jpg", "photo_prog.jpg": "prog420_rst.jpg"}
 E2E_SIZE = (480, 832, FRAMES_E2E)  # height, width, frames of the served requests
 # phase 3's generate request (prompt, seed); phase 8 serves it again through
 # the HTTP tiers
@@ -3432,10 +3440,10 @@ def preprocess_phase(fa, fab, ms, pipe, dev, card):
 
 def uploaded_image(image, media, card):
     """Phase 12's image as the add-on sends it: the scene's first frame
-    written as a PNG by the port and a baseline JPEG fixture, both uploaded
-    to a port ApiServer over HTTP and read back from its workdir by the
-    port's codecs: the PNG equal to the frame bit for bit, the JPEG to its
-    fixture digest. Returns the PNG's image."""
+    written as a PNG by the port, a baseline and a progressive JPEG fixture,
+    all uploaded to a port ApiServer over HTTP and read back from its
+    workdir by the port's codecs: the PNG equal to the frame bit for bit,
+    each JPEG to its fixture digest. Returns the PNG's image."""
     import urllib.request
 
     from versecrafter_tpu_torch.serve import api_server as api_mod
@@ -3444,9 +3452,10 @@ def uploaded_image(image, media, card):
     from versecrafter_tpu_torch.utils.video import load_image, read_image
 
     t1 = time.perf_counter()
-    fixture = os.path.join(MEDIA_DIR, "yuv420.jpg")
-    with open(fixture, "rb") as f:
-        files = {"scene.png": png.encode(image), "photo.jpg": f.read()}
+    files = {"scene.png": png.encode(image)}
+    for name, fixture in UPLOADED_JPEGS.items():
+        with open(os.path.join(MEDIA_DIR, fixture), "rb") as f:
+            files[name] = f.read()
     httpd = make_server(api_mod.build_router(api_mod.ApiServer(workdir=media)), "127.0.0.1", 0)
     serve_forever_in_thread(httpd)
     try:
@@ -3460,17 +3469,60 @@ def uploaded_image(image, media, card):
         httpd.shutdown()
         httpd.server_close()
     got = read_image(os.path.join(media, "upload", "scene.png"))
-    photo = load_image(os.path.join(media, "upload", "photo.jpg"))
-    digest = hashlib.sha256(photo.tobytes()).hexdigest()
     with open(os.path.join(MEDIA_DIR, "digests.json")) as f:
-        want = json.load(f)["yuv420.jpg"]
+        want = json.load(f)
+    digests = {}
+    for name, fixture in UPLOADED_JPEGS.items():
+        photo = load_image(os.path.join(media, "upload", name))
+        digests[name] = (photo.shape, hashlib.sha256(photo.tobytes()).hexdigest() == want[fixture])
     log(f"[pre] uploaded {[(k, len(v)) for k, v in files.items()]} bytes and read back in "
         f"{time.perf_counter() - t1:.2f} s: the PNG {got.shape} equal to the frame: "
-        f"{np.array_equal(got, image)}; the JPEG {photo.shape} digest {digest[:16]} "
-        f"(fixture {want[:16]}) on the host of {card}")
-    if not np.array_equal(got, image) or digest != want:
+        f"{np.array_equal(got, image)}; the JPEGs (shape, digest equal to the fixture's) "
+        f"{digests} on the host of {card}")
+    if not np.array_equal(got, image) or not all(ok for _, ok in digests.values()):
         raise AssertionError("an uploaded image did not read back as written")
     return got
+
+
+def default_preprocess(moge_params, media, card):
+    """Phase 12's default preprocess request, as the Blender add-on sends
+    it: POST /api/preprocess naming only the uploaded progressive JPEG, so
+    every other parameter is the default (the saliency segmenter, prompt
+    "object."), to a port ApiServer whose MoGe is phase 12's ViT-L on the
+    card, polled to its end. The task must complete with objects. Returns
+    its seconds."""
+    import urllib.request
+
+    from versecrafter_tpu_torch.serve import api_server as api_mod
+    from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
+
+    server = api_mod.ApiServer(workdir=media)
+    server._moge_cache = moge_params
+    httpd = make_server(api_mod.build_router(server), "127.0.0.1", 0)
+    serve_forever_in_thread(httpd)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        t1 = time.perf_counter()
+        req = urllib.request.Request(f"{url}/api/preprocess", method="POST",
+                                     data=json.dumps({"image": "upload/photo_prog.jpg"}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            task = json.loads(r.read())["task_id"]
+        while True:
+            with urllib.request.urlopen(f"{url}/api/status/{task}", timeout=60) as r:
+                st = json.loads(r.read())
+            if st["status"] in ("COMPLETED", "FAILED") or time.perf_counter() - t1 > 300:
+                break
+            time.sleep(0.05)
+        seconds = time.perf_counter() - t1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[pre] default preprocess request (saliency) on the uploaded progressive JPEG: "
+        f"{st['status']} in {seconds:.3f} s, result {st.get('result')}, on {card} and its host "
+        f"({host_cpu()})")
+    if st["status"] != "COMPLETED" or st["result"]["num_objects"] <= 0:
+        raise AssertionError(f"the default preprocess request did not find objects: {st}")
+    return seconds
 
 
 def chain_phase(fa, fab, ms, pipe, dev, card, scene, image, media, t0):
@@ -3490,6 +3542,7 @@ def chain_phase(fa, fab, ms, pipe, dev, card, scene, image, media, t0):
     labels = [t.strip() for t in PRE_PROMPT.split(".") if t.strip()]
     stages = {}
     moge_params, out, stages["depth"] = moge_check(dev, image, card)
+    default_preprocess(moge_params, media, card)
     segmenter_check(dev, image, labels, card)
 
     t1 = time.perf_counter()
@@ -4649,13 +4702,68 @@ def tp_phase(fa, dev, card):
     return records, launches
 
 
+def host_cpu():
+    """The host's CPU model (the first /proc/cpuinfo model name) and core count."""
+    import platform
+    name = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith(("model name", "cpu model")):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def saliency_on_host(record, card):
+    """Phase 17's saliency segmentation: the record's image read by the port,
+    its seeded 480x832 depth (geometry/synthetic.bump_depth), the default
+    ImageSegmenter on one fresh host thread (OpenCV's generator state in a
+    new thread). Returns (detections as label, score, box, mask SHA-256,
+    seconds)."""
+    import threading
+
+    from versecrafter_tpu_torch.geometry.synthetic import bump_depth
+    from versecrafter_tpu_torch.perception.segmenter import ImageSegmenter
+    from versecrafter_tpu_torch.utils.video import read_image
+
+    img = read_image(os.path.join(MEDIA_DIR, record["image"]))
+    depth = bump_depth(img.shape[0], img.shape[1], record["depth_seed"])
+    out = {}
+
+    def run():
+        try:
+            t1 = time.perf_counter()
+            dets = ImageSegmenter().segment_image(img, record["text_prompt"], depth=depth)
+            out["seconds"] = time.perf_counter() - t1
+            out["rows"] = [[d.label, d.score, [int(v) for v in d.box],
+                            hashlib.sha256(d.mask.tobytes()).hexdigest()] for d in dets]
+        except Exception as e:  # noqa: BLE001 — re-raised in the caller
+            out["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    log(f"[media] saliency segmentation of {record['image']} {img.shape} with its seeded depth: "
+        f"{out['seconds']:.3f} s on one host thread ({host_cpu()}) of {card}; "
+        f"{len(out['rows'])} detections "
+        f"{[(r[0], r[2]) for r in out['rows']]}, equal to the JAX package's: "
+        f"{out['rows'] == record['detections']}")
+    return out["rows"], out["seconds"]
+
+
 def media_phase(card):
-    """Phase 17: the port's media codecs on the card's host. Each fixture
-    (tests/data/media: an OpenCV mp4v clip, three baseline JPEGs, two PNGs)
-    decoded by load_video / load_image to the array whose SHA-256 the JAX
-    package's OpenCV reads gave (digests.json); then a 480x832x81 clip
-    encoded by save_video and decoded by load_video, each timed on one host
-    thread, with the file's size and PSNR."""
+    """Phase 17: the port's host code on the card's host. Each fixture
+    (tests/data/media: an OpenCV mp4v clip, three baseline and four
+    progressive JPEGs, one of them CMYK, two PNGs) decoded by load_video /
+    load_image to the array whose SHA-256 the JAX package's OpenCV reads
+    gave (digests.json); the saliency segmenter's detections on the 480x832
+    progressive fixture equal to the JAX package's (saliency_on_host); then
+    a 480x832x81 clip encoded by save_video and decoded by load_video, each
+    timed on one host thread, with the file's size and PSNR."""
     import tempfile
 
     from versecrafter_tpu_torch.utils import mp4, mpeg4
@@ -4664,6 +4772,7 @@ def media_phase(card):
     t0 = time.perf_counter()
     with open(os.path.join(MEDIA_DIR, "digests.json")) as f:
         want = json.load(f)
+    record = want.pop("saliency")
     seconds, bad = {}, []
     for name in sorted(want):
         path = os.path.join(MEDIA_DIR, name)
@@ -4674,6 +4783,9 @@ def media_phase(card):
             bad.append(name)
     log(f"[media] {len(want)} fixtures decoded, digests {'equal' if not bad else 'DIFFER: ' + str(bad)}"
         f" to the JAX package's OpenCV reads; seconds {seconds} on the host of {card}")
+    rows, _ = saliency_on_host(record, card)
+    if rows != record["detections"]:
+        bad.append("saliency")
     h, w, n = RENDER_SIZE
     yy = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
     xx = np.linspace(0, 1 + 4 * n / w, w + 4 * n, dtype=np.float32)[None, :, None]

@@ -1,6 +1,7 @@
 """The port's own media codecs against OpenCV (through the JAX package where
 it has the call), on files written here by OpenCV and PIL at small sizes:
-PNG, baseline JPEG and MPEG-4 Part 2 mp4 decoded bit for bit; the port's
+PNG, baseline, progressive and CMYK JPEG and MPEG-4 Part 2 mp4 decoded bit
+for bit; the port's
 mp4 and PNG writers read back by OpenCV exactly as by the port, the mp4 at
 a PSNR no lower than OpenCV's writer; resize, the TURBO map, and the
 segmenter's files (CPU)."""
@@ -135,8 +136,9 @@ def test_png_writes_opencv_bytes(tmp_path, shape):
 # ---------------------------------------------------------------- JPEG
 
 def _pil_jpeg(img, **kw):
+    """A JPEG of a uint8 array, or of a PIL image in its own mode (CMYK)."""
     b = io.BytesIO()
-    Image.fromarray(img).save(b, "JPEG", **kw)
+    (img if isinstance(img, Image.Image) else Image.fromarray(img)).save(b, "JPEG", **kw)
     return b.getvalue()
 
 
@@ -183,9 +185,74 @@ def test_jpeg_exif_orientation(tmp_path, orientation):
                                   cv2.imread(path, cv2.IMREAD_GRAYSCALE))
 
 
+PROGRESSIVE_CASES = [(f"{name}-{h}x{w}", h, w, kw) for h, w in ((1, 1), (9, 300), (37, 53))
+                     for name, kw in [("444", {"subsampling": 0}), ("422", {"subsampling": 1}),
+                                      ("420", {"subsampling": 2}),
+                                      ("420-rst", {"subsampling": 2, "restart_marker_blocks": 3}),
+                                      ("grey", {"grey": True}), ("cmyk", {"cmyk": True}),
+                                      ("cmyk-baseline", {"cmyk": True, "baseline": True})]]
+
+
+@pytest.mark.parametrize("name,h,w,kw", PROGRESSIVE_CASES)
+def test_progressive_jpeg_decodes_like_opencv(name, h, w, kw):
+    """PIL's progressive files (ten scans: spectral selection, successive
+    approximation, EOB runs) at odd sizes, with restart markers, grey and
+    Adobe CMYK (progressive and baseline): colour and grey equal to
+    cv2.imdecode's."""
+    kw = dict(kw)
+    img = Image.fromarray(_image(h, w, h * w))
+    if kw.pop("grey", False):
+        img = img.convert("L")
+    if kw.pop("cmyk", False):
+        img = img.convert("CMYK")
+    buf = _pil_jpeg(img, quality=85, progressive=not kw.pop("baseline", False),
+                    **kw)
+    assert (b"\xff\xc2" in buf) == ("baseline" not in name)
+    if "rst" in name:
+        assert b"\xff\xdd" in buf
+    np.testing.assert_array_equal(jpeg.decode(buf), _cv_read(buf, cv2.IMREAD_COLOR)[..., ::-1])
+    np.testing.assert_array_equal(jpeg.decode(buf, gray=True),
+                                  _cv_read(buf, cv2.IMREAD_GRAYSCALE))
+
+
+def test_progressive_opencv_writer_and_fixtures():
+    """OpenCV's own progressive writer (with restarts, 4:4:4) and the
+    committed progressive fixtures, through read_image as imread reads a
+    path."""
+    img = _image(45, 71, 3)
+    for params in ([cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 2],
+                   [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, cv2.IMWRITE_JPEG_QUALITY, 97]):
+        buf = cv2.imencode(".jpg", img, params)[1].tobytes()
+        np.testing.assert_array_equal(jpeg.decode(buf), _cv_read(buf, cv2.IMREAD_COLOR)[..., ::-1])
+    for name in ("prog420_rst.jpg", "prog444.jpg", "prog_grey.jpg", "prog_cmyk.jpg"):
+        path = os.path.join(MEDIA, name)
+        np.testing.assert_array_equal(tvideo.read_image(path), cv2.imread(path)[..., ::-1])
+        np.testing.assert_array_equal(tvideo.read_image(path, gray=True),
+                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+
+
 def test_unsupported_images_are_named(tmp_path):
-    with pytest.raises(ValueError, match=r"progressive JPEG \(SOF2\)"):
-        jpeg.decode(_pil_jpeg(_image(16, 16, 0), progressive=True))
+    """A progressive file cut inside a scan, one cut between scans (its
+    coefficients left unrefined: libjpeg-turbo would block-smooth it), a
+    YCCK header, and lossless and arithmetic-coded frames raise ValueError
+    naming them; so does a file that is neither PNG nor JPEG."""
+    buf = _pil_jpeg(_image(61, 83, 0), quality=90, progressive=True)
+    with pytest.raises(ValueError, match="truncated progressive JPEG"):
+        jpeg.decode(buf[: int(len(buf) * 0.9)])
+    scans = [i for i in range(len(buf) - 1) if buf[i:i + 2] == b"\xff\xda"]
+    with pytest.raises(ValueError, match="unrefined.*block smoothing"):
+        jpeg.decode(buf[:scans[-1]] + b"\xff\xd9")
+    cmyk = bytearray(_pil_jpeg(Image.fromarray(_image(16, 16, 1)).convert("CMYK"), quality=90))
+    adobe = cmyk.find(b"Adobe")
+    assert adobe > 0 and cmyk[adobe + 11] == 0
+    cmyk[adobe + 11] = 2  # the transform flag: YCCK
+    with pytest.raises(ValueError, match="YCCK"):
+        jpeg.decode(bytes(cmyk))
+    base = _pil_jpeg(_image(16, 16, 0), quality=90)
+    for sof, kind in ((0xC3, "lossless"), (0xC9, "arithmetic")):
+        with pytest.raises(ValueError, match=kind):
+            jpeg.decode(base.replace(b"\xff\xc0", bytes([0xFF, sof]), 1))
     path = str(tmp_path / "x.gif")
     Image.fromarray(_image(8, 8, 0)).save(path, "GIF")
     with pytest.raises(ValueError, match="not a PNG or JPEG"):
@@ -338,12 +405,19 @@ def test_segmenter_files_match_jax(tmp_path):
 def test_fixture_digests():
     """The committed fixtures decode, in the port, to the arrays whose
     SHA-256 the JAX package's load_video / load_image gave when they were
-    made (scripts/make_torch_media_fixtures.py), and still give."""
+    made (scripts/make_torch_media_fixtures.py), and still give; the saliency
+    record's detections are the JAX package's after cv2.setRNGSeed(0) and
+    the port's in a fresh thread, with OpenCV blocked in the port."""
     import hashlib
+    import sys
+    import threading
+
+    from versecrafter_tpu_torch.geometry.synthetic import bump_depth
 
     with open(os.path.join(MEDIA, "digests.json")) as f:
         digests = json.load(f)
-    assert len(digests) == 6
+    record = digests.pop("saliency")
+    assert len(digests) == 10
     for name, want in digests.items():
         path = os.path.join(MEDIA, name)
         load = tvideo.load_video if name.endswith(".mp4") else tvideo.load_image
@@ -351,6 +425,30 @@ def test_fixture_digests():
         got = load(path)
         assert hashlib.sha256(got.tobytes()).hexdigest() == want, name
         np.testing.assert_array_equal(got, jload(path))
+
+    img = tvideo.read_image(os.path.join(MEDIA, record["image"]))
+    depth = bump_depth(*img.shape[:2], record["depth_seed"])
+    cv2.setRNGSeed(0)
+    jdets = jseg.ImageSegmenter().segment_image(img, record["text_prompt"], depth=depth)
+    out = {}
+
+    def port():
+        saved = sys.modules.get("cv2")
+        sys.modules["cv2"] = None
+        try:
+            out["dets"] = tseg.ImageSegmenter().segment_image(img, record["text_prompt"],
+                                                             depth=depth)
+        finally:
+            sys.modules["cv2"] = saved
+    t = threading.Thread(target=port)
+    t.start()
+    t.join()
+
+    def rows(dets):
+        return [[d.label, d.score, [int(v) for v in d.box],
+                 hashlib.sha256(d.mask.tobytes()).hexdigest()] for d in dets]
+    assert len(record["detections"]) >= 3
+    assert rows(jdets) == rows(out["dets"]) == record["detections"]
 
 
 def test_host_codecs_build_or_raise(tmp_path, monkeypatch):

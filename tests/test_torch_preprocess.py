@@ -2,7 +2,8 @@
 CLI (CPU): POST /api/preprocess and /api/preprocess_sync over HTTP on
 127.0.0.1 with a tiny MoGe; run_preprocess's result files against the JAX
 server's on the same image and weights (depth within an fp16 step, the
-saliency masks with cv2's RNG seeded before each package's run, the fitted
+saliency masks with cv2's generator seeded before the JAX server's run and
+the port's (utils/cvops) before its own, the fitted
 Gaussians); the missing-field 400; then cli/pipeline.py running depth ->
 segment -> gaussian -> render -> generate on files the test writes."""
 
@@ -27,6 +28,7 @@ from versecrafter_tpu_torch.geometry.synthetic import synthetic_scene
 from versecrafter_tpu_torch.perception import moge as tm
 from versecrafter_tpu_torch.serve import api_server as tapi
 from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread
+from versecrafter_tpu_torch.utils import cvops
 
 
 def _call(url, method="GET", body=None):
@@ -107,7 +109,7 @@ def test_result_files_match_the_jax_server(tmp_path, jparams):
         server = mod.ApiServer(workdir=str(wd), **({"device": "cpu"} if mod is tapi else {}))
         server._moge_cache = jparams if mod is japi else params_from_jax(np_tree(jparams))
         t = server.tasks.create("preprocess")
-        cv2.setRNGSeed(11)
+        (cv2.setRNGSeed if mod is japi else cvops.set_rng_seed)(11)
         server.run_preprocess(t.task_id, {"image": "input.png", "text_prompt": "box. car.",
                                           "min_area_ratio": 0.01})
         st = server.tasks.get(t.task_id)

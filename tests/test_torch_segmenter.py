@@ -3,8 +3,10 @@ SAM 2.1, and SAM1) on converted tiny HuggingFace models against the JAX
 ImageSegmenter — raw detector and mask outputs within 1e-4 * max|ref|, then
 the detection lists, compared only after asserting that every probability
 the thresholds decide on clears them by MARGIN — run with OpenCV blocked;
-the saliency backend with cv2's RNG seeded before each package's call;
-save_results' files byte for byte; the guards; the segment CLI."""
+the saliency backend (the port's own blur, k-means and connected
+components) with cv2's generator and the port's seeded alike before each
+package's call, and with OpenCV blocked; save_results' files byte for
+byte; the guards; the segment CLI."""
 
 import os
 import sys
@@ -26,6 +28,7 @@ from versecrafter_tpu_torch.perception import sam as t1
 from versecrafter_tpu_torch.perception import sam2 as ts
 from versecrafter_tpu_torch.perception import segmenter as tseg
 from versecrafter_tpu_torch.perception.wordpiece import SMOKE_VOCAB, WordPieceTokenizer
+from versecrafter_tpu_torch.utils import cvops
 
 BAR = 1e-4
 MARGIN = 0.02
@@ -139,9 +142,9 @@ def test_letterbox_matches_cv2():
 
 
 def test_saliency_backend_and_files(tmp_path):
-    """The saliency backend (cv2's k-means, its RNG seeded before each
-    package's call) with a depth map of another size, then save_results'
-    files byte for byte."""
+    """The saliency backend (cv2's generator seeded before the JAX
+    package's call, the port's before its own) with a depth map of another
+    size, then save_results' files byte for byte."""
     import cv2
 
     img = _image(2)
@@ -150,7 +153,7 @@ def test_saliency_backend_and_files(tmp_path):
     kw = dict(backend="saliency", min_area_ratio=0.001)
     cv2.setRNGSeed(5)
     want = jseg.ImageSegmenter(**kw).segment_image(img, "car. person.", depth=depth)
-    cv2.setRNGSeed(5)
+    cvops.set_rng_seed(5)
     got = tseg.ImageSegmenter(**kw).segment_image(img, "car. person.", depth=depth)
     assert len(got) == len(want) > 0
     for a, b in zip(got, want):
@@ -166,19 +169,40 @@ def test_saliency_backend_and_files(tmp_path):
 
 
 def test_without_cv2(monkeypatch, tmp_path):
-    """OpenCV blocked, as on the GPU machine: the saliency backend raises
-    ImportError naming it; the file writer (the port's own PNG codec and
-    drawing) writes the JAX package's files."""
+    """OpenCV blocked, as on the GPU machine: the saliency backend gives
+    the JAX package's detections (cv2.setRNGSeed before the JAX call,
+    cvops.set_rng_seed before the port's), with and without depth, and the
+    file writer (the port's own PNG codec and drawing) writes the JAX
+    package's files."""
+    import cv2
+
+    img = _image(4)
+    img[10:40, 20:60] = [30, 30, 220]
+    img[60:90, 70:110] = [230, 230, 40]
+    depth = np.random.default_rng(4).random(img.shape[:2]).astype(np.float32)
+    kw = dict(backend="saliency", min_area_ratio=0.001)
+    want = []
+    for seed, d in ((2, None), (9, depth)):
+        cv2.setRNGSeed(seed)
+        want.append(jseg.ImageSegmenter(**kw).segment_image(img, "car. box.", depth=d))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    seg = tseg.ImageSegmenter(backend="saliency")
-    with pytest.raises(ImportError, match="cv2"):
-        seg.segment_image(_image(4), "car.")
-    got = seg.save_results(_image(4), [], str(tmp_path / "port"))
-    want = jseg.ImageSegmenter().save_results(_image(4), [], str(tmp_path / "jax"))
-    assert sorted(got) == sorted(want)
-    for k in want:
-        with open(want[k], "rb") as f, open(got[k], "rb") as g:
-            assert f.read() == g.read(), k
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401,F811
+    seg = tseg.ImageSegmenter(**kw)
+    for (seed, d), w in zip(((2, None), (9, depth)), want):
+        cvops.set_rng_seed(seed)
+        got = seg.segment_image(img, "car. box.", depth=d)
+        assert len(got) == len(w) > 0
+        for a, b in zip(got, w):
+            assert (a.label, a.score, a.box) == (b.label, b.score, b.box)
+            np.testing.assert_array_equal(a.mask, b.mask)
+    for dets, jdets, sub in ((got, w, "dets"), ([], [], "none")):
+        paths = seg.save_results(img, dets, str(tmp_path / "port" / sub))
+        jpaths = jseg.ImageSegmenter().save_results(img, jdets, str(tmp_path / "jax" / sub))
+        assert sorted(paths) == sorted(jpaths)
+        for k in jpaths:
+            with open(jpaths[k], "rb") as f, open(paths[k], "rb") as g:
+                assert f.read() == g.read(), k
 
 
 def test_guards(segs):
@@ -213,7 +237,7 @@ def test_build_neural_fresh_init_trees(monkeypatch, tmp_path):
 
 def test_segment_cli(tmp_path, monkeypatch):
     """The segment CLI on a written png: the saliency backend with a depth
-    npz (files equal to the JAX CLI's, cv2's RNG seeded), and the neural
+    npz (files equal to the JAX CLI's, both generators seeded), and the neural
     backend with fresh tiny weights (the full-width configs patched tiny)
     on --device cpu, detector at its default 896."""
     import cv2
@@ -228,7 +252,7 @@ def test_segment_cli(tmp_path, monkeypatch):
     args = ["-i", str(tmp_path / "in.png"), "-t", "box.", "--depth_npz", str(tmp_path / "d.npz")]
     cv2.setRNGSeed(3)
     jcli.main(args + ["-o", str(tmp_path / "jax")])
-    cv2.setRNGSeed(3)
+    cvops.set_rng_seed(3)
     tcli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"])
     for root, _, files in os.walk(tmp_path / "jax"):
         for f in files:

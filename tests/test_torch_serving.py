@@ -44,6 +44,7 @@ from tests.jax_prng import threefry_default  # noqa: F401
 # four control videos of z_dim 4 plus the 2x2 pixel-shuffled mask
 CFG = dataclasses.replace(DIT_CFG, geoada_in_dim=20)
 H, W, N = 8, 16, 5
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REQUEST = {"prompt": "a car drives left", "negative_prompt": "static",
            "num_inference_steps": 2, "guidance_scale": 2.0, "shift": 3.0,
            "seed": 7, "height": H, "width": W, "num_frames": N, "fps": 16}
@@ -712,6 +713,53 @@ def test_model_server_resident_weights(weights, mode, monkeypatch):
     monkeypatch.setattr(tserve, "make_server", lambda *a: Stub())
     tserve.main(["--device", "cpu", "--model_path", "m", "--resident_weights", weights])
     assert seen == {"path": "m", "device": "cpu", "quantize": mode, "served": True}
+
+
+def test_default_preprocess_without_cv2(tmp_path):
+    """/api/preprocess_sync with the default parameters (the saliency
+    backend) in a process where OpenCV cannot be imported, as on the GPU
+    machine: the progressive fixture uploaded over HTTP, a tiny MoGe, the
+    task completing with objects and their files."""
+    import shutil
+    import subprocess
+
+    shutil.copy(os.path.join(REPO_ROOT, "tests", "data", "media", "prog420_rst.jpg"),
+                tmp_path / "photo.jpg")
+    code = (
+        "import json, os, sys, urllib.request\n"
+        "sys.modules['cv2'] = None\n"
+        "import torch\n"
+        "from versecrafter_tpu_torch.perception import moge\n"
+        "from versecrafter_tpu_torch.serve import api_server as tapi\n"
+        "from versecrafter_tpu_torch.serve.http import make_server, serve_forever_in_thread\n"
+        f"d = {str(tmp_path)!r}\n"
+        "server = tapi.ApiServer(workdir=d, device='cpu')\n"
+        "server._moge_cache = moge.init_moge(torch.Generator().manual_seed(0),\n"
+        "    vit_kwargs=dict(patch=14, dim=32, depth=2, heads=2))\n"
+        "httpd = make_server(tapi.build_router(server), '127.0.0.1', 0)\n"
+        "serve_forever_in_thread(httpd)\n"
+        "url = f'http://127.0.0.1:{httpd.server_address[1]}'\n"
+        "data = open(os.path.join(d, 'photo.jpg'), 'rb').read()\n"
+        "req = urllib.request.Request(url + '/api/upload?filename=upload/photo.jpg', data=data,\n"
+        "                             method='POST')\n"
+        "urllib.request.urlopen(req, timeout=60).read()\n"
+        "req = urllib.request.Request(url + '/api/preprocess_sync', method='POST',\n"
+        "    data=json.dumps({'image': 'upload/photo.jpg'}).encode())\n"
+        "body = json.loads(urllib.request.urlopen(req, timeout=300).read())\n"
+        "httpd.shutdown()\n"
+        "assert 'cv2' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "print(json.dumps(body))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    body = json.loads(proc.stdout.splitlines()[-1])
+    assert body["status"] == "completed", body
+    res = body["result"]
+    assert res["num_objects"] > 0
+    masks = os.listdir(tmp_path / res["mask_dir"] / "masks")
+    assert len(masks) == res["num_objects"]
+    assert os.path.exists(tmp_path / res["gaussian_params"])
 
 
 def test_api_server_auto_mesh_raises(monkeypatch):

@@ -33,7 +33,8 @@ def main(argv=None):
     p.add_argument("--text_prompt", default="person. car.", help="segmentation phrases")
     p.add_argument("--segment_backend", default="saliency",
                    help="'neural' is Grounding DINO -> SAM 2.1; 'saliency' the "
-                        "classical fallback")
+                        "classical fallback (OpenCV's blur, k-means and connected "
+                        "components, in the port's own code)")
     p.add_argument("--sam2_checkpoint", default=None)
     p.add_argument("--gdino_checkpoint", default=None)
     p.add_argument("--bert_vocab", default=None)

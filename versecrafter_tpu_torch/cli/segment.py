@@ -6,7 +6,8 @@
 The JAX package's flags; --device (the neural backend's) defaults to cuda.
 Writes masks/mask_{id:02d}_{label}.png, mask_combined.png,
 annotations.txt and visualization.png, through the port's codecs
-(utils/video.py). The saliency backend alone needs OpenCV.
+(utils/video.py). Neither backend needs OpenCV: the saliency backend's
+blur, k-means and connected components are utils/cvops.py's.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-// Baseline and extended sequential Huffman JPEG (SOF0 / SOF1), 8-bit, one
-// or three components, sampling factors up to 2x2, restart markers; behind
-// a plain C interface (loaded with ctypes).
+// Baseline, extended sequential and progressive Huffman JPEG (SOF0 / SOF1 /
+// SOF2), 8-bit, one, three or four (Adobe CMYK) components, sampling
+// factors up to 2x2, restart markers; behind a plain C interface (loaded
+// with ctypes).
 //
 // The samples are those libjpeg-turbo gives with its defaults, as OpenCV's
 // imread uses it: the ISLOW integer IDCT (jidctint.c), fancy (triangle)
@@ -9,9 +10,19 @@
 // integer), and the fixed-point YCbCr -> RGB tables of jdcolor.c.
 // libjpeg-turbo's SIMD forms of all three give the same samples as these.
 //
-// Progressive (SOF2), lossless (SOF3), hierarchical (SOF5-7) and
-// arithmetic-coded (SOF9-15) files, 12-bit samples and four-component
-// (CMYK) files raise an error that names them.
+// A progressive file's scans (DC and AC, first and refinement, spectral
+// selection, successive approximation, EOB runs, restarts) fill each
+// component's coefficient blocks; the same IDCT, upsampling and colour
+// tables then make its samples. Non-interleaved scans cover the
+// component's own ceil(w/8) x ceil(h/8) blocks, not the MCU-padded grid.
+// A CMYK image becomes RGB as OpenCV's IMREAD_COLOR makes it BGR
+// (icvCvt_CMYK2BGR_8u_C4C3R), and grey as IMREAD_GRAYSCALE does.
+//
+// Lossless (SOF3), hierarchical (SOF5-7) and arithmetic-coded (SOF9-15)
+// files, 12-bit samples, YCCK images, and progressive files that
+// libjpeg-turbo would block-smooth (coefficients left unrefined, as in a
+// truncated file) or whose data ends inside a scan raise an error that
+// names them.
 
 #include <algorithm>
 #include <cstdint>
@@ -24,6 +35,8 @@ namespace {
 struct Error {
   std::string msg;
 };
+
+const char* const kTruncated = "JPEG: truncated progressive JPEG (its data ends inside a scan)";
 
 const uint8_t kNatural[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
@@ -84,6 +97,11 @@ struct Component {
   int bw = 0, bh = 0;        // blocks per line / column in the plane
   int dw = 0, dh = 0;        // downsampled width / height
   std::vector<uint8_t> px;   // bw*8 x bh*8 samples
+  // progressive: the coefficients (bw x bh blocks of 64, natural order) and
+  // the successive-approximation bit each zigzag position was last left at
+  // (-1 before any scan reached it), as libjpeg's coef_bits
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -91,21 +109,23 @@ struct Decoder {
   size_t n, pos = 0;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;
-  bool have_frame = false, saw_jfif = false, saw_adobe = false;
+  bool have_frame = false, progressive = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int restart_interval = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
 
-  // entropy-coded segment reader
+  // entropy-coded segment reader; `pad` counts the zero bits fed after the
+  // data ended, and ran_out records that a scan read into them
   uint32_t bitbuf = 0;
-  int bitcnt = 0;
-  bool hit_marker = false;
+  int bitcnt = 0, pad = 0;
+  bool hit_marker = false, ran_out = false;
+  int eobrun = 0;
 
   uint8_t byte() {
-    if (pos >= n) throw Error{"JPEG: unexpected end of file"};
+    if (pos >= n) throw Error{"JPEG: unexpected end of file (truncated?)"};
     return data[pos++];
   }
   int u16() {
@@ -129,17 +149,26 @@ struct Decoder {
         } else {
           pos++;
         }
+      } else {
+        pad += 8;
       }
       bitbuf |= b << (24 - bitcnt);
       bitcnt += 8;
+    }
+  }
+  void consume(int k) {
+    bitbuf <<= k;
+    bitcnt -= k;
+    if (bitcnt < pad) {
+      ran_out = true;
+      pad = bitcnt;
     }
   }
   int get_bits(int k) {
     if (k == 0) return 0;
     fill();
     int v = (int)(bitbuf >> (32 - k));
-    bitbuf <<= k;
-    bitcnt -= k;
+    consume(k);
     return v;
   }
   int decode(const Huffman& h) {
@@ -147,8 +176,7 @@ struct Decoder {
     int idx = (int)(bitbuf >> (32 - 9));
     if (h.fast_len[idx]) {
       int l = h.fast_len[idx];
-      bitbuf <<= l;
-      bitcnt -= l;
+      consume(l);
       return h.fast_sym[idx];
     }
     int code = (int)(bitbuf >> (32 - 10));
@@ -158,8 +186,7 @@ struct Decoder {
       code = (int)(bitbuf >> (32 - l));
     }
     if (l > 16) throw Error{"JPEG: corrupt Huffman code"};
-    bitbuf <<= l;
-    bitcnt -= l;
+    consume(l);
     return h.vals[code + h.valoffset[l]];
   }
   static int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
@@ -167,11 +194,13 @@ struct Decoder {
   void reset_bits() {
     bitbuf = 0;
     bitcnt = 0;
+    pad = 0;
     hit_marker = false;
   }
 
-  void parse_sof() {
+  void parse_sof(bool prog) {
     if (have_frame) throw Error{"JPEG: more than one frame header"};
+    progressive = prog;
     int len = u16();
     size_t end = pos + len - 2;
     int precision = byte();
@@ -180,9 +209,8 @@ struct Decoder {
     height = u16();
     width = u16();
     ncomp = byte();
-    if (ncomp != 1 && ncomp != 3)
-      throw Error{"JPEG: " + std::to_string(ncomp) +
-                  "-component images (CMYK / YCCK) are not supported"};
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      throw Error{"JPEG: " + std::to_string(ncomp) + "-component images are not supported"};
     if (width == 0 || height == 0) throw Error{"JPEG: zero image size (DNL is not supported)"};
     for (int i = 0; i < ncomp; i++) {
       comp[i].id = byte();
@@ -209,6 +237,10 @@ struct Decoder {
       c.dw = (width * c.h + hmax - 1) / hmax;
       c.dh = (height * c.v + vmax - 1) / vmax;
       c.px.assign((size_t)c.bw * 8 * c.bh * 8, 0);
+      if (progressive) {
+        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+        for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
+      }
     }
     have_frame = true;
   }
@@ -407,9 +439,11 @@ struct Decoder {
     reset_bits();
     while (pos + 1 < n && !(data[pos] == 0xff && data[pos + 1] >= 0xd0 && data[pos + 1] <= 0xd7))
       pos++;
-    if (pos + 1 >= n) throw Error{"JPEG: missing restart marker"};
+    if (pos + 1 >= n)
+      throw Error{progressive ? kTruncated : "JPEG: missing restart marker"};
     pos += 2;
     for (int i = 0; i < ncomp; i++) comp[i].dc_pred = 0;
+    eobrun = 0;
   }
 
   void parse_sos() {
@@ -418,7 +452,7 @@ struct Decoder {
     size_t end = pos + len - 2;
     int ns = byte();
     if (ns < 1 || ns > ncomp) throw Error{"JPEG: bad scan component count"};
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; i++) {
       int id = byte(), t = byte();
       sc[i] = nullptr;
@@ -427,11 +461,18 @@ struct Decoder {
       if (!sc[i]) throw Error{"JPEG: scan names an unknown component"};
       sc[i]->td = t >> 4;
       sc[i]->ta = t & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc[sc[i]->td].defined || !ac[sc[i]->ta].defined)
-        throw Error{"JPEG: scan uses an undefined Huffman table"};
+      if (sc[i]->td > 3 || sc[i]->ta > 3) throw Error{"JPEG: bad Huffman table index"};
       if (!qt_defined[sc[i]->tq]) throw Error{"JPEG: undefined quantisation table"};
     }
     int ss = byte(), se = byte(), ahal = byte();
+    if (progressive) {
+      pos = end;
+      progressive_scan(sc, ns, ss, se, ahal >> 4, ahal & 15);
+      return;
+    }
+    for (int i = 0; i < ns; i++)
+      if (!dc[sc[i]->td].defined || !ac[sc[i]->ta].defined)
+        throw Error{"JPEG: scan uses an undefined Huffman table"};
     if (ss != 0 || se != 63 || ahal != 0)
       throw Error{"JPEG: spectral selection or successive approximation in a sequential scan"};
     pos = end;
@@ -459,11 +500,164 @@ struct Decoder {
           mcus++;
         }
     }
-    // skip to the next marker
+    skip_to_marker();
+  }
+
+  void skip_to_marker() {
     reset_bits();
     while (pos + 1 < n && !(data[pos] == 0xff && data[pos + 1] != 0 &&
                             !(data[pos + 1] >= 0xd0 && data[pos + 1] <= 0xd7)))
       pos++;
+  }
+
+  // One scan of a progressive frame (jdphuff.c): DC first / refine over
+  // the scan's MCUs, AC first / refine over one component's blocks.
+  void progressive_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
+    bool dc_scan = ss == 0;
+    bool bad = dc_scan ? se != 0 : (se < ss || se > 63 || ns != 1);
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) throw Error{"JPEG: bad progressive scan parameters"};
+    for (int i = 0; i < ns; i++) {
+      if (dc_scan && ah == 0 && !dc[sc[i]->td].defined)
+        throw Error{"JPEG: scan uses an undefined Huffman table"};
+      if (!dc_scan && !ac[sc[i]->ta].defined)
+        throw Error{"JPEG: scan uses an undefined Huffman table"};
+      for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
+    }
+    reset_bits();
+    for (int i = 0; i < ncomp; i++) comp[i].dc_pred = 0;
+    eobrun = 0;
+    auto block = [&](Component& c, int bx, int by) {
+      int16_t* b = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+      if (dc_scan && ah == 0) {
+        int s = decode(dc[c.td]);
+        if (s > 15) throw Error{"JPEG: bad DC code"};
+        int diff = s ? extend(get_bits(s), s) : 0;
+        c.dc_pred += diff;
+        b[0] = (int16_t)((unsigned)c.dc_pred << al);
+      } else if (dc_scan) {
+        if (get_bits(1)) b[0] = (int16_t)(b[0] | (1 << al));
+      } else if (ah == 0) {
+        ac_first(c, b, ss, se, al);
+      } else {
+        ac_refine(c, b, ss, se, al);
+      }
+    };
+    int mcus = 0;
+    if (ns == 1) {
+      Component& c = *sc[0];
+      int bx_n = (c.dw + 7) / 8, by_n = (c.dh + 7) / 8;
+      for (int by = 0; by < by_n; by++)
+        for (int bx = 0; bx < bx_n; bx++) {
+          if (restart_interval && mcus && mcus % restart_interval == 0) restart();
+          block(c, bx, by);
+          mcus++;
+        }
+    } else {
+      for (int my = 0; my < mcuy; my++)
+        for (int mx = 0; mx < mcux; mx++) {
+          if (restart_interval && mcus && mcus % restart_interval == 0) restart();
+          for (int i = 0; i < ns; i++) {
+            Component& c = *sc[i];
+            for (int v = 0; v < c.v; v++)
+              for (int h = 0; h < c.h; h++) block(c, mx * c.h + h, my * c.v + v);
+          }
+          mcus++;
+        }
+    }
+    if (ran_out) throw Error{kTruncated};
+    skip_to_marker();
+  }
+
+  void ac_first(Component& c, int16_t* b, int ss, int se, int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = decode(ac[c.ta]);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int v = extend(get_bits(s), s);
+        b[kNatural[std::min(k, 79)]] = (int16_t)((unsigned)v << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += get_bits(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  // Correction bits raise the magnitude of coefficients already nonzero;
+  // a new coefficient is +-1 at this bit, after r still-zero positions.
+  void ac_refine(Component& c, int16_t* b, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    auto correct = [&](int16_t* coef) {
+      if (get_bits(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = decode(ac[c.ta]);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = get_bits(1) ? p1 : m1;  // a new coefficient's size is always 1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += get_bits(r);
+          break;
+        }
+        do {
+          int16_t* coef = b + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else {
+            if (--r < 0) break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) b[kNatural[std::min(k, 79)]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* coef = b + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // After the last scan: libjpeg-turbo block-smooths a progressive image
+  // whose DC is known and one of the first nine AC coefficients is not
+  // refined to its last bit (jdcoefct.c's smoothing_ok); that is not ported.
+  // Otherwise every block goes through the IDCT.
+  void finish_progressive() {
+    bool known = true, useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const uint16_t* q = qt[comp[i].tq];
+      const int pos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+      for (int p : pos)
+        if (q[p] == 0) known = false;
+      if (comp[i].coef_bits[0] < 0) known = false;
+      for (int k = 1; k < 10; k++)
+        if (comp[i].coef_bits[k] != 0) useful = true;
+    }
+    if (known && useful)
+      throw Error{"JPEG: progressive JPEG with coefficients left unrefined (a truncated "
+                  "file?): libjpeg-turbo's block smoothing is not supported"};
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++)
+          idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, qt[c.tq],
+                     c.px.data() + (size_t)by * 8 * c.bw * 8 + bx * 8, c.bw * 8);
+    }
   }
 
   void parse(bool headers_only) {
@@ -482,11 +676,10 @@ struct Decoder {
       switch (m) {
         case 0xc0:
         case 0xc1:
-          parse_sof();
+        case 0xc2:
+          parse_sof(m == 0xc2);
           if (headers_only) return;
           break;
-        case 0xc2:
-          throw Error{"JPEG: progressive JPEG (SOF2) is not supported"};
         case 0xc3:
           throw Error{"JPEG: lossless JPEG (SOF3) is not supported"};
         case 0xc5:
@@ -591,7 +784,39 @@ struct Decoder {
     return out;
   }
 
+  // A four-component image is CMYK unless an Adobe marker's transform says
+  // YCCK (libjpeg's default_decompress_parms); YCCK is not supported.
+  void check_colour_space() const {
+    if (ncomp == 4 && saw_adobe && adobe_transform != 0)
+      throw Error{"JPEG: YCCK (Adobe transform " + std::to_string(adobe_transform) +
+                  ") images are not supported"};
+  }
+
+  // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R (as RGB here) and
+  // icvCvt_CMYK2Gray_8u_C4C1R on libjpeg's CMYK samples.
+  void cmyk_output(uint8_t* out, bool gray) const {
+    std::vector<uint8_t> p0 = upsample(comp[0]), p1 = upsample(comp[1]), p2 = upsample(comp[2]),
+                         p3 = upsample(comp[3]);
+    for (size_t i = 0; i < (size_t)width * height; i++) {
+      int k = p3[i];
+      int c = k - (((255 - p0[i]) * k) >> 8);
+      int m = k - (((255 - p1[i]) * k) >> 8);
+      int y = k - (((255 - p2[i]) * k) >> 8);
+      if (gray) {
+        out[i] = (uint8_t)((y * 1868 + m * 9617 + c * 4899 + (1 << 13)) >> 14);
+      } else {
+        out[3 * i] = (uint8_t)c;
+        out[3 * i + 1] = (uint8_t)m;
+        out[3 * i + 2] = (uint8_t)y;
+      }
+    }
+  }
+
   void to_output(uint8_t* out, bool gray) const {
+    if (ncomp == 4) {
+      cmyk_output(out, gray);
+      return;
+    }
     if (ncomp == 1 || gray) {
       // a grey request of a YCbCr image is its luma; an RGB image is
       // converted with jdcolor.c's rgb_gray weights
@@ -656,6 +881,7 @@ int jpg_info(const uint8_t* data, int64_t n, int* width, int* height, int* comps
     d.n = (size_t)n;
     d.parse(true);
     if (!d.have_frame) throw Error{"JPEG: no frame header"};
+    d.check_colour_space();
     *width = d.width;
     *height = d.height;
     *comps = d.ncomp;
@@ -675,6 +901,8 @@ int jpg_decode(const uint8_t* data, int64_t n, uint8_t* out, int width, int heig
     d.n = (size_t)n;
     d.parse(false);
     if (d.width != width || d.height != height) throw Error{"JPEG: frame size changed"};
+    d.check_colour_space();
+    if (d.progressive) d.finish_progressive();
     d.to_output(out, gray != 0);
     return 0;
   } catch (const Error& e) {

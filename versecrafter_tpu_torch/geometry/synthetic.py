@@ -94,3 +94,16 @@ def trajectory_json(scene: dict) -> dict:
                                              "covariance": scene["covs"][t, k].tolist()}}
             for k in range(len(scene["color_idx"])) if scene["present"][t, k]]}
             for t in range(T)]}
+
+
+def bump_depth(height: int, width: int, seed: int = 0, bumps: int = 6) -> np.ndarray:
+    """A smooth seeded depth map, fp32 [H, W]: a ramp from 2 at the top to
+    10 at the bottom, less a few rational bumps (nearer objects). Only
+    adds, multiplies and divides, so every machine gives the same bits."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    d = 2.0 + 8.0 * yy / max(height - 1, 1)
+    for cy, cx, r, a in rng.random((bumps, 4)):
+        r2 = (0.05 + 0.15 * r) ** 2 * (height * width)
+        d = d - (1.0 + 3.0 * a) / (1.0 + ((yy - cy * height) ** 2 + (xx - cx * width) ** 2) / r2)
+    return d.astype(np.float32)

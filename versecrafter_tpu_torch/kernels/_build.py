@@ -7,11 +7,12 @@ exposing a plain C interface — no PyTorch headers, so a build takes seconds.
 Shared device helpers live in ``csrc/*.cuh``; the hash covers them too. A
 library whose hash matches is reused; a changed source builds anew.
 
-Host code (the media codecs) lives in ``csrc/host/<name>.cpp`` and builds
-the same way with the host C++ compiler (``c++ -O3 -std=c++17 -shared
--fPIC``) into ``build/host-<name>-<source hash>.so``: on the CPU of any
-machine with a compiler, and at first use on the GPU machine, whose CUDA
-toolkit brings one. Without a compiler it raises; nothing stands in.
+Host code (the media codecs and the saliency segmenter's OpenCV
+operations) lives in ``csrc/host/<name>.cpp`` and builds the same way with
+the host C++ compiler (``c++ -O3 -std=c++17 -shared -fPIC``) into
+``build/host-<name>-<source hash>.so``: on the CPU of any machine with a
+compiler, and at first use on the GPU machine, whose CUDA toolkit brings
+one. Without a compiler it raises; nothing stands in.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def _cxx() -> str:
     found = shutil.which("c++")
     if found:
         return found
-    raise RuntimeError("no host C++ compiler (c++) found: the port's media codecs "
-                       "(csrc/host/*.cpp) build with it at first use")
+    raise RuntimeError("no host C++ compiler (c++) found: the port's host code "
+                       "(csrc/host/*.cpp: media codecs, the segmenter's OpenCV operations) "
+                       "builds with it at first use")
 
 
 def host_library_path(name: str) -> str:

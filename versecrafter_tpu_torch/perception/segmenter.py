@@ -9,8 +9,10 @@
   `cv2.resize` in numpy (utils/imgproc.resize_linear), so this backend needs
   no OpenCV: it runs on arrays on the card.
 - `backend="saliency"`: the classical fallback (colour k-means + connected
-  components), OpenCV's code at first use; without OpenCV it raises
-  ImportError naming it. It is the only part of the port that uses OpenCV.
+  components). Its blur, k-means and connected components are OpenCV's, bit
+  for bit, in the port's own host code (utils/cvops.py), and the k-means
+  draws from a per-thread generator that starts where OpenCV's does, so an
+  unseeded call in a fresh thread gives the JAX package's detections.
 
 Detections are area-filtered, sorted by area and cut to max_objects;
 `save_results` writes the reference's file layout through the port's PNG
@@ -26,19 +28,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from versecrafter_tpu_torch.utils import imgproc
+from versecrafter_tpu_torch.utils import cvops, imgproc
 from versecrafter_tpu_torch.utils.imgproc import resize_linear
 from versecrafter_tpu_torch.utils.video import write_png
-
-
-def _cv2():
-    """OpenCV, for the saliency backend only."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("the saliency segmenter backend needs OpenCV (the cv2 module), "
-                          "which is not installed here; use backend='neural'") from e
-    return cv2
 
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
@@ -87,32 +79,31 @@ class ImageSegmenter:
         dets.sort(key=lambda d: d.mask.sum(), reverse=True)
         return dets[: self.max_objects]
 
-    # -- classical fallback (OpenCV) -----------------------------------------
+    # -- classical fallback ---------------------------------------------------
     def _saliency_segment(self, image, labels, depth) -> List[Detection]:
-        cv2 = _cv2()
         h, w = image.shape[:2]
         feats = np.concatenate([
-            cv2.GaussianBlur(image, (9, 9), 0).reshape(-1, 3).astype(np.float32) / 255.0,
+            cvops.gaussian_blur(image, 9).reshape(-1, 3).astype(np.float32) / 255.0,
             (np.mgrid[0:h, 0:w].transpose(1, 2, 0).reshape(-1, 2) / [h, w]).astype(np.float32)
             * 0.5,
         ], 1)
         if depth is not None:
             d = depth.astype(np.float32)
             if d.shape != (h, w):
-                d = cv2.resize(d, (w, h), interpolation=cv2.INTER_LINEAR)
+                d = resize_linear(np.ascontiguousarray(d), (w, h))
             d = (d - d.min()) / max(d.max() - d.min(), 1e-6)
             feats = np.concatenate([feats, d.reshape(-1, 1)], 1)
         k = min(8, max(3, len(labels) + 2))
-        _, lab, _ = cv2.kmeans(feats, k, None,
-                               (cv2.TERM_CRITERIA_EPS + cv2.TERM_CRITERIA_MAX_ITER, 10, 1.0),
-                               3, cv2.KMEANS_PP_CENTERS)
+        _, lab, _ = cvops.kmeans(feats, k,
+                                 (cvops.TERM_CRITERIA_EPS + cvops.TERM_CRITERIA_MAX_ITER, 10, 1.0),
+                                 3, cvops.KMEANS_PP_CENTERS)
         lab = lab.reshape(h, w)
         dets: List[Detection] = []
         for c in range(k):
             m = (lab == c).astype(np.uint8)
             if m[0].mean() + m[-1].mean() + m[:, 0].mean() + m[:, -1].mean() > 0.5:
                 continue  # border-touching clusters are background
-            n, comp, stats, _ = cv2.connectedComponentsWithStats(m)
+            n, comp, stats, _ = cvops.connected_components_with_stats(m)
             for i in range(1, n):
                 x, y, bw, bh, a = stats[i]
                 if a < self.min_area_ratio * h * w:

@@ -1,9 +1,12 @@
-"""Baseline / extended sequential JPEG decoding through csrc/host/jpeg.cpp.
+"""Baseline, extended sequential and progressive JPEG decoding through
+csrc/host/jpeg.cpp.
 
 `decode` gives the samples that OpenCV's imread gives (libjpeg-turbo's
-defaults), then applies the EXIF orientation as imread does. Progressive,
-lossless, hierarchical and arithmetic-coded files raise ValueError naming
-the kind.
+defaults; Adobe CMYK converted as IMREAD_COLOR / IMREAD_GRAYSCALE convert
+it), then applies the EXIF orientation as imread does. Lossless,
+hierarchical, arithmetic-coded, 12-bit and YCCK files, and progressive
+files that libjpeg-turbo would block-smooth (coefficients left unrefined,
+as a truncated file leaves them) raise ValueError naming the kind.
 """
 
 from __future__ import annotations

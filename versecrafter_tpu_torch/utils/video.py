@@ -10,8 +10,9 @@ Files are read and written by utils/mp4.py (ISO base media), utils/mpeg4.py
 (MPEG-4 Part 2, the `mp4v` that OpenCV writes), utils/jpeg.py and
 utils/png.py, and resized by utils/imgproc.py. On the files OpenCV writes
 (and on baseline JPEG and PNG generally) they give the arrays the JAX
-package's OpenCV calls give, bit for bit. mp4s other than `mp4v` (H.264,
-HEVC, ...) and progressive JPEGs raise ValueError naming the format.
+package's OpenCV calls give, bit for bit; JPEGs may be baseline or
+progressive, grey, YCbCr or Adobe CMYK. mp4s other than `mp4v` (H.264,
+HEVC, ...) raise ValueError naming the format.
 `save_video` writes I-VOPs at a fixed quantiser, so its files are larger
 than OpenCV's and at least as close to the frames (tests/test_torch_media.py);
 like OpenCV's writer it drops an odd last row or column.
